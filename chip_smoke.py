@@ -8,17 +8,33 @@ one NVIDIA H100.  It
    sm_90a), prints the card's name and power limit, and runs the repo's
    card tests (``tests/test_torch_gpu.py``, special operands included);
 2. holds each kernel against its plain PyTorch version on the card at
-   the shapes of the main path, timing both with CUDA events, and raises
-   on a breach of the stated tolerance;
+   the shapes of the main paths, timing both with CUDA events, and raises
+   on a breach of the stated tolerance (K5/K6: bit-equal, special
+   operands included);
 3. serves full-width h2o_danube_1_8b (24 layers, d_model 2560, random
-   weights from a seed) with RAPID arithmetic through ``ServeEngine``:
-   4 requests of 96-128 prompt tokens, 16 greedy tokens each, bf16
-   activations and KV cache, ``cache_n=512``; every kernel launch count
-   is set to 0 just before and read just after, and each must be > 0;
+   weights from a seed) with RAPID arithmetic through the lockstep
+   ``ServeEngine``: 4 requests of 96-128 prompt tokens, 16 greedy tokens
+   each, bf16 activations and KV cache, ``cache_n=512``; the launch
+   counts are set to 0 just before and read just after, and K1-K4 must
+   have launched;
 4. serves a 2-layer full-width copy once through the kernels and once
    through the plain versions on the card: the greedy tokens must agree,
-   and the launch counts show that the first run launched every kernel
-   and the second none.
+   and the launch counts show that the first run launched the path's
+   kernels and the second none;
+5. serves the same model through ``ContinuousServeEngine`` (paged KV,
+   chunked prefill, slot recycling): 6 requests of 96-128 prompt tokens,
+   16 greedy tokens each, 4 slots, so the queue backs up; K1, K2, K4 and
+   K5 must launch, K3 must not, and the page free list must be whole
+   after the drain.  The process's first continuous prefill tick is timed
+   layer by layer; the same load then runs again on the drained engine
+   (warm) and must give the same tokens, and one tick of each kind runs
+   under torch.profiler;
+6. runs the continuous engine on a 2-layer copy kernels vs plain (the
+   greedy tokens must agree), and prefills one 8320-token prompt on a
+   2-layer copy, which takes the blockwise attention path (K5) and wraps
+   the 4096-slot sliding-window ring cache, then decodes 4 steps; at
+   that shape ``_attn_blockwise`` with K5 must equal it with the plain
+   K5.
 
 It exits non-zero, printing no result, when no CUDA card is present or
 when it is run outside a checkout of the repository.  Its last line is
@@ -52,20 +68,33 @@ INT32_OPS_PER_PRODUCT = 3
 FP32_FLOPS_PER_S = 67e12
 
 D, KV_HEADS, G, HD, D_FF = 2560, 8, 4, 80, 6912
-PREFILL_M, DECODE_M = 4 * 128, 4
+# K1's rows: lockstep prefill (4 x 128 tokens), a continuous prefill
+# tick (one 64-token chunk) and a decode step (4 tokens)
+PREFILL_M, CHUNK_M, DECODE_M = 4 * 128, 64, 4
 
 REPLACES = {
     "log_matmul": "src/repro/kernels/log_matmul/log_matmul.py:302",
     "rms_div": "src/repro/kernels/fused_div/fused_div.py:202",
     "softmax_div": "src/repro/kernels/fused_div/fused_div.py:188",
     "flash_decode": "src/repro/kernels/flash_attn/flash_attn.py:113",
+    "div_rowbcast": "src/repro/kernels/fused_div/fused_div.py:214",
+    "div": "src/repro/kernels/fused_div/fused_div.py:239",
 }
 SOURCES = {
     "log_matmul": "src/repro_torch/csrc/log_matmul.cu",
     "rms_div": "src/repro_torch/csrc/fused_div.cu",
     "softmax_div": "src/repro_torch/csrc/fused_div.cu",
     "flash_decode": "src/repro_torch/csrc/flash_attn.cu",
+    "div_rowbcast": "src/repro_torch/csrc/fused_div.cu",
+    "div": "src/repro_torch/csrc/fused_div.cu",
 }
+# the kernels each serve path must launch (and, for the continuous
+# path, the one it must not: K3 serves only lockstep prefill)
+LOCKSTEP_KERNELS = ("log_matmul", "rms_div", "softmax_div", "flash_decode")
+CONTINUOUS_KERNELS = ("log_matmul", "rms_div", "flash_decode", "div_rowbcast")
+# the blockwise prefill: over _PLAIN_ATTN_MAX_T (8192) tokens and over
+# the 4096-token sliding window
+LONG_PROMPT = 8320
 
 
 def log(msg: str) -> None:
@@ -106,6 +135,30 @@ class Timer:
             total += a.elapsed_time(b)
         return total / reps
 
+    def graph(self, fn, n: int) -> float:
+        """Device time per call: ``n`` calls captured in one CUDA graph
+        and replayed, so no host time between launches is counted (the
+        wrappers' Python path costs ~20 us a call, more than the small
+        kernels themselves).  Inputs stay L2-warm across the launches
+        where they fit, as on the path, where the producer just wrote
+        them.  ``fn`` must have run once outside the capture."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(n):
+                fn()
+        g.replay()  # warm
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        del g
+        return a.elapsed_time(b) / n
+
 
 def ulp_max(a, b) -> int:
     ia = a.detach().float().cpu().numpy().view(np.int32).astype(np.int64)
@@ -117,6 +170,15 @@ def ulp_max(a, b) -> int:
 
 def abs_max(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def same_bits(a, b) -> bool:
+    """float32 tensors bit-equal, NaN payloads aside: NaN in the same
+    places, every other element the same bit pattern."""
+    ga, gb = a.detach().cpu().numpy(), b.detach().cpu().numpy()
+    nan_a = np.isnan(ga)
+    return bool((nan_a == np.isnan(gb)).all()
+                and ((ga.view(np.int32) == gb.view(np.int32)) | nan_a).all())
 
 
 def card_tests() -> None:
@@ -145,7 +207,10 @@ def kernel_phase(torch, dev, timer):
     from repro_torch.core import backend as be
     from repro_torch.kernels.flash_attn.ops import (flash_decode_attn,
                                                     flash_decode_plain)
-    from repro_torch.kernels.fused_div.ops import (fused_rms_div,
+    from repro_torch.kernels.fused_div.ops import (div_elementwise, div_plain,
+                                                   div_rowbcast,
+                                                   div_rowbcast_plain,
+                                                   fused_rms_div,
                                                    fused_softmax_div,
                                                    rms_div_plain,
                                                    softmax_div_plain)
@@ -170,15 +235,17 @@ def kernel_phase(torch, dev, timer):
                "bytes": bytes_, "ops": ops}
         row.update(extra or {})
         cases.append(row)
+        call = (f" call_ms={row['call_ms']:.4f}" if "call_ms" in row else "")
         log(f"kernel {kernel:12s} {shape:44s} max_abs={err:.3e} "
-            f"max_ulp={ulps} ms={ms:.4f} plain_ms={plain_ms:.3f} "
+            f"max_ulp={ulps} ms={ms:.4f}{call} plain_ms={plain_ms:.3f} "
             f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
         if not limit_ok:
             raise AssertionError(f"{kernel} {shape}: kernel disagrees with its "
                                  f"plain version (max_abs {err}, {ulps} ulp)")
 
-    # K1 at M = 4 (decode) and M = 512 (prefill) for each (K, N, epilogue)
-    # of the path; tolerance: bit-equal, silu <= 2 ulp (CUDA expf)
+    # K1 at M = 4 (decode), 64 (continuous prefill tick) and 512
+    # (lockstep prefill) for each (K, N, epilogue) of the paths;
+    # tolerance: bit-equal, silu <= 2 ulp (CUDA expf)
     rms_tail = be.Epilogue(norm="rms", div_scheme="rapid9", eps=1e-6,
                            keep_prenorm=True)
     k1 = [("wq", D, D, None, False, None), ("wk/wv", D, KV_HEADS * HD, None,
@@ -186,7 +253,7 @@ def kernel_phase(torch, dev, timer):
           ("wo", D, D, None, True, None), ("wo+ln2", D, D, None, True, rms_tail),
           ("w1", D, D_FF, "silu", False, None), ("w3", D, D_FF, None, False, None),
           ("w2", D_FF, D, None, True, None)]
-    for m in (DECODE_M, PREFILL_M):
+    for m in (DECODE_M, CHUNK_M, PREFILL_M):
         for site, k, n, act, res, ep in k1:
             x = randn(m, k)
             w = randn(k, n, std=k ** -0.5)
@@ -212,18 +279,21 @@ def kernel_phase(torch, dev, timer):
                    {"exact_matmul_ms": exact_ms, "products": m * n * k})
             del x, w, r, got, ref
 
-    # K2: decode ln1/ln2/final (4 rows) and prefill ln1 (512 rows);
+    # K2: ln1/ln2/final norm of a decode step (4 rows), of a continuous
+    # prefill tick (64 rows) and of the lockstep prefill (512 rows);
     # tolerance: denominators and quotients bit-equal
-    for rows in (DECODE_M, PREFILL_M):
+    for rows in (DECODE_M, CHUNK_M, PREFILL_M):
         x = randn(rows, D, std=3.0)
         got, den = fused_rms_div(x, 1e-6, "rapid9", return_denom=True)
         ref, rden = rms_div_plain(x, 1e-6, "rapid9", return_denom=True)
         torch.cuda.synchronize()
         ulps = max(ulp_max(got, ref), ulp_max(den, rden))
+        k2 = lambda: fused_rms_div(x, 1e-6, "rapid9")  # noqa: E731
         record("rms_div", f"rows={rows} n={D}", abs_max(got, ref), ulps,
-               ulps == 0, timer(lambda: fused_rms_div(x, 1e-6, "rapid9"), 20),
+               ulps == 0, timer.graph(k2, 100),
                timer(lambda: rms_div_plain(x, 1e-6, "rapid9"), 3),
-               4 * (2 * rows * D), rows * D * 2, FP32_FLOPS_PER_S / 2)
+               4 * (2 * rows * D), rows * D * 2, FP32_FLOPS_PER_S / 2,
+               {"call_ms": timer(k2, 20)})
 
     # K3: prefill attention probabilities, B*H*S rows of T = 128
     s = randn(4 * 32 * 128, 128, std=2.0)
@@ -232,13 +302,16 @@ def kernel_phase(torch, dev, timer):
     ref, rden = softmax_div_plain(e, "rapid9", return_denom=True)
     torch.cuda.synchronize()
     ulps = max(ulp_max(got, ref), ulp_max(den, rden))
+    k3 = lambda: fused_softmax_div(e, "rapid9")  # noqa: E731
     record("softmax_div", f"rows={e.shape[0]} n=128", abs_max(got, ref), ulps,
-           ulps == 0, timer(lambda: fused_softmax_div(e, "rapid9"), 20),
+           ulps == 0, timer.graph(k3, 100),
            timer(lambda: softmax_div_plain(e, "rapid9"), 3),
-           4 * 2 * e.numel(), e.numel(), FP32_FLOPS_PER_S / 2)
+           4 * 2 * e.numel(), e.numel(), FP32_FLOPS_PER_S / 2,
+           {"call_ms": timer(k3, 20)})
 
     # K4: one decode step's attention, 128 prompt + 8 generated tokens in
-    # a 512-slot bf16 cache; tolerance rtol/atol 1e-5 (sum orders differ)
+    # a 512-slot bf16 cache; tolerance: bit-equal (the plain version takes
+    # the kernel's steps in its order)
     B, C, pos, window = 4, 512, 135, 4096
     qf = randn(B, KV_HEADS, G, HD, std=HD ** -0.5)
     kc = randn(B, C, KV_HEADS, HD).to(torch.bfloat16)
@@ -249,17 +322,100 @@ def kernel_phase(torch, dev, timer):
     ref = flash_decode_plain(qf, kc, vc, sp, pos, window, "rapid9")
     torch.cuda.synchronize()
     err = abs_max(got, ref)
-    ok = bool(torch.allclose(got, ref, rtol=1e-5, atol=1e-5))
+    ok = same_bits(got, ref)
     live = pos + 1  # slots this step's data needs
     nbytes = (4 * qf.numel() * 2 + 2 * 2 * B * live * KV_HEADS * HD
               + 4 * B * C)
+    k4 = lambda: flash_decode_attn(qf, kc, vc, sp, pos, window,  # noqa: E731
+                                   "rapid9")
     record("flash_decode", f"q=[4,8,4,80] cache=[4,{C},8,80] bf16 live={live}",
-           err, ulp_max(got, ref), ok,
-           timer(lambda: flash_decode_attn(qf, kc, vc, sp, pos, window,
-                                           "rapid9"), 20),
+           err, ulp_max(got, ref), ok, timer.graph(k4, 100),
            timer(lambda: flash_decode_plain(qf, kc, vc, sp, pos, window,
                                             "rapid9"), 5),
-           nbytes, 2 * 2 * B * KV_HEADS * G * live * HD, FP32_FLOPS_PER_S)
+           nbytes, 2 * 2 * B * KV_HEADS * G * live * HD, FP32_FLOPS_PER_S,
+           {"call_ms": timer(k4, 20)})
+
+    # K4 at the continuous decode tick: 4 slots, each gathering its
+    # 256-slot view out of the [65, 16, 8, 80] bf16 page pool through the
+    # page table as block_decode_paged does, slot positions from kv_len,
+    # a [4] position vector of distinct depths and one inactive slot
+    # (kv_len 0: every slot INT32_MAX); tolerance: bit-equal
+    n_pages, ps, pps = 65, 16, 16
+    pool_k = randn(n_pages, ps, KV_HEADS, HD).to(torch.bfloat16)
+    pool_v = randn(n_pages, ps, KV_HEADS, HD).to(torch.bfloat16)
+    table = torch.zeros((B, pps), dtype=torch.long, device=dev)
+    table[:3] = (torch.randperm(n_pages - 1, generator=g, device=dev)
+                 [:3 * pps] + 1).reshape(3, pps)
+    kv_len = torch.tensor([131, 98, 201, 0], dtype=torch.int32, device=dev)
+    posv = torch.clamp(kv_len - 1, min=0)
+    C = pps * ps
+    kg = pool_k[table].reshape(B, C, KV_HEADS, HD)
+    vg = pool_v[table].reshape(B, C, KV_HEADS, HD)
+    j = torch.arange(C, dtype=torch.int32, device=dev)
+    sp = torch.where(j[None] < kv_len[:, None], j[None], 2**31 - 1)
+    got = flash_decode_attn(qf, kg, vg, sp, posv, window, "rapid9")
+    ref = flash_decode_plain(qf, kg, vg, sp, posv, window, "rapid9")
+    torch.cuda.synchronize()
+    ok = same_bits(got, ref) and not bool(got[3].any())
+    live = int(kv_len.sum())
+    k4p = lambda: flash_decode_attn(qf, kg, vg, sp, posv,  # noqa: E731
+                                    window, "rapid9")
+    record("flash_decode", f"q=[4,8,4,80] paged view=[4,{C},8,80] bf16 "
+           f"kv_len={kv_len.tolist()}", abs_max(got, ref), ulp_max(got, ref),
+           ok, timer.graph(k4p, 100),
+           timer(lambda: flash_decode_plain(qf, kg, vg, sp, posv, window,
+                                            "rapid9"), 5),
+           4 * qf.numel() * 2 + 2 * 2 * live * KV_HEADS * HD + 4 * B * (C + 1),
+           2 * 2 * KV_HEADS * G * live * HD, FP32_FLOPS_PER_S,
+           {"call_ms": timer(k4p, 20)})
+    del pool_k, pool_v, kg, vg
+
+    # K5: the online-softmax combine acc / l of a 64-token prefill chunk
+    # (64 x 32 heads rows of head_dim 80) and of an 8320-token blockwise
+    # prefill; K6 at 2048 x 2048.  Special operands (0, -0, +-inf, NaN,
+    # subnormals, the overflow edge) head every operand; tolerance:
+    # bit-equal, NaN payloads aside.  Bound: bytes (each operand read
+    # once, the output written once), ops = 3 int32 ops per divide.
+    specials = torch.tensor(
+        [0.0, -0.0, float("inf"), -float("inf"), float("nan"), 1e-40,
+         -1e-42, 3.4e38, -3.4e38, 1e-38, 2.0**64, 2.0**-64], device=dev)
+    edge = torch.tensor([0x7F7FFFFF, 0x7F7FFFFE, 0x00800000, 0x00800001],
+                        dtype=torch.int32, device=dev).view(torch.float32)
+    special = torch.cat([specials, edge])
+
+    def with_specials(t):
+        t.view(-1)[:special.numel()] = special
+        return t
+
+    for rows in (64 * 32, LONG_PROMPT * 32):
+        a = with_specials(randn(rows, HD))
+        b = with_specials(randn(rows).abs() * 40 + 1)
+        got = div_rowbcast(a, b, "rapid9")
+        ref = div_rowbcast_plain(a, b, "rapid9")
+        torch.cuda.synchronize()
+        ok = same_bits(got, ref)
+        fin = torch.isfinite(ref)
+        k5 = lambda: div_rowbcast(a, b, "rapid9")  # noqa: E731
+        record("div_rowbcast", f"a=[{rows},{HD}] b=[{rows}]",
+               abs_max(got[fin], ref[fin]), 0 if ok else -1, ok,
+               timer.graph(k5, 200 if rows < 10**5 else 20),
+               timer(lambda: div_rowbcast_plain(a, b, "rapid9"), 3),
+               4 * (2 * rows * HD + rows), 3 * rows * HD, INT32_OPS_PER_S,
+               {"call_ms": timer(k5, 20)})
+        del a, b, got, ref
+    a = with_specials(randn(2048, 2048))
+    b = with_specials(randn(2048, 2048))
+    got = div_elementwise(a, b, "rapid9")
+    ref = div_plain(a, b, "rapid9")
+    torch.cuda.synchronize()
+    ok = same_bits(got, ref)
+    fin = torch.isfinite(ref)
+    k6 = lambda: div_elementwise(a, b, "rapid9")  # noqa: E731
+    record("div", "a=b=[2048,2048]", abs_max(got[fin], ref[fin]),
+           0 if ok else -1, ok, timer.graph(k6, 50),
+           timer(lambda: div_plain(a, b, "rapid9"), 3),
+           4 * 3 * a.numel(), 3 * a.numel(), INT32_OPS_PER_S,
+           {"call_ms": timer(k6, 20)})
     return cases
 
 
@@ -268,23 +424,33 @@ def kernel_phase(torch, dev, timer):
 # --------------------------------------------------------------------------
 
 class TimedModel:
-    """The model with host-clock timing around prefill and decode_step
-    (synchronised), and a finiteness check on every logits row."""
+    """The model with host-clock timing around prefill, decode_step and
+    decode_paged (synchronised; paged calls sorted into prefill ticks,
+    S > 1, and decode ticks), and a finiteness check on every logits row
+    that a request reads.  With ``probe`` set, the first paged call runs
+    under :func:`tick_probe`."""
 
-    def __init__(self, torch, model):
+    def __init__(self, torch, model, probe: bool = False):
         self.torch, self.model = torch, model
         self.prefill_s, self.decode_s = [], []
+        self.prefill_tick_s, self.decode_tick_s = [], []
+        self.probe = {} if probe else None
 
     def __getattr__(self, name):
         return getattr(self.model, name)
 
-    def _timed(self, sink, fn, *a):
+    def _timed(self, sink, fn, *a, rows=None):
         self.torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = fn(*a)
+        if self.probe == {} and fn == self.model.decode_paged:
+            with tick_probe(self.torch, self.probe):
+                logits, cache = fn(*a)
+        else:
+            logits, cache = fn(*a)
         self.torch.cuda.synchronize()
         sink.append(time.perf_counter() - t0)
-        if not bool(self.torch.isfinite(logits).all()):
+        read = logits if rows is None else logits[rows]
+        if not bool(self.torch.isfinite(read).all()):
             raise AssertionError("non-finite logits")
         return logits, cache
 
@@ -294,34 +460,101 @@ class TimedModel:
     def decode_step(self, *a):
         return self._timed(self.decode_s, self.model.decode_step, *a)
 
+    def decode_paged(self, params, tokens, cache, page_table, offsets,
+                     n_valid):
+        sink = self.prefill_tick_s if tokens.shape[1] > 1 else \
+            self.decode_tick_s
+        return self._timed(sink, self.model.decode_paged, params, tokens,
+                           cache, page_table, offsets, n_valid,
+                           rows=n_valid > 0)
 
-def prompts_for(vocab: int, seed: int = 0):
+
+@contextmanager
+def tick_probe(torch, out: dict):
+    """Where a paged tick spends its time, at next to no cost to it: the
+    host clock and a CUDA event after each layer (recording an event does
+    not block the host; the wrapper adds ~10 us a layer) and the caching
+    allocator's cudaMalloc calls and OOM retries around the tick.  A
+    layer whose host time is long while the device waited on it stalled
+    on the host (module loading, allocation); one whose device time is
+    long ran long on the card.  Fills ``out``."""
+    from repro_torch.models import model as model_mod
+
+    orig = model_mod.block_decode_paged
+    marks = []
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return time.perf_counter(), ev
+
+    def block(*a, **k):
+        res = orig(*a, **k)
+        marks.append(event())
+        return res
+
+    mem0 = torch.cuda.memory_stats()
+    marks.append(event())
+    model_mod.block_decode_paged = block
+    try:
+        yield
+    finally:
+        model_mod.block_decode_paged = orig
+    marks.append(event())  # the head: final norm, logits
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_stats()
+    out["host_ms"] = [(b[0] - a[0]) * 1e3 for a, b in zip(marks, marks[1:])]
+    out["device_ms"] = [a[1].elapsed_time(b[1])
+                        for a, b in zip(marks, marks[1:])]
+    for key in ("num_device_alloc", "num_alloc_retries", "num_device_free"):
+        out[key] = mem1.get(key, 0) - mem0.get(key, 0)
+
+
+def prompts_for(vocab: int, seed: int = 0, n_extra: int = 0):
+    """4 prompts of 96-128 tokens, then ``n_extra`` more from the same
+    generator (the first 4 do not change with ``n_extra``)."""
     rng = np.random.default_rng(seed)
-    return [rng.integers(0, vocab, int(n)).tolist()
-            for n in rng.integers(96, 129, 4)]
+    prompts = [rng.integers(0, vocab, int(n)).tolist()
+               for n in rng.integers(96, 129, 4)]
+    return prompts + [rng.integers(0, vocab, int(n)).tolist()
+                      for n in rng.integers(96, 129, n_extra)]
 
 
 @contextmanager
 def plain_versions():
-    """Route the model's four kernel calls to their plain versions (on
-    the card), for the end-to-end comparison only."""
+    """Route the model's kernel calls to their plain versions (on the
+    card), for the end-to-end comparisons only: K1-K4 where
+    ``core/ops.py`` calls them, K5/K6 where ``fused_elementwise_div``
+    does."""
     from repro_torch.core import ops
     from repro_torch.kernels.flash_attn.ops import flash_decode_plain
-    from repro_torch.kernels.fused_div.ops import (rms_div_plain,
-                                                   softmax_div_plain)
+    from repro_torch.kernels.fused_div import ops as fdops
     from repro_torch.kernels.log_matmul.ops import log_matmul_plain
 
-    swap = {"log_matmul": log_matmul_plain, "fused_rms_div": rms_div_plain,
-            "fused_softmax_div": softmax_div_plain,
-            "flash_decode_attn": flash_decode_plain}
-    saved = {k: getattr(ops, k) for k in swap}
-    for k, v in swap.items():
-        setattr(ops, k, v)
+    swaps = [(ops, {"log_matmul": log_matmul_plain,
+                    "fused_rms_div": fdops.rms_div_plain,
+                    "fused_softmax_div": fdops.softmax_div_plain,
+                    "flash_decode_attn": flash_decode_plain}),
+             (fdops, {"div_rowbcast": fdops.div_rowbcast_plain,
+                      "div_elementwise": fdops.div_plain})]
+    saved = [(mod, {k: getattr(mod, k) for k in swap}) for mod, swap in swaps]
+    for mod, swap in swaps:
+        for k, v in swap.items():
+            setattr(mod, k, v)
     try:
         yield
     finally:
-        for k, v in saved.items():
-            setattr(ops, k, v)
+        for mod, old in saved:
+            for k, v in old.items():
+                setattr(mod, k, v)
+
+
+def require_launches(path: str, counts, must, must_not=()) -> None:
+    missing = [k for k in must if counts[k] <= 0]
+    extra = [k for k in must_not if counts[k] > 0]
+    if missing or extra:
+        raise AssertionError(f"{path}: launched no {missing}; launched "
+                             f"{extra}, which it must not ({counts})")
 
 
 def serve_phase(torch, dev):
@@ -364,9 +597,7 @@ def serve_phase(torch, dev):
         raise AssertionError(f"expected {max_new} tokens per request")
     if any(not 0 <= t < cfg.padded_vocab for o in out for t in o):
         raise AssertionError("token outside the vocabulary")
-    missing = [k for k, v in counts.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"main path launched no {missing}")
+    require_launches("lockstep serve", counts, LOCKSTEP_KERNELS)
 
     # the path end to end: 2-layer full-width copy, kernels vs plain
     cfg2 = cfg.with_(n_layers=2)
@@ -384,21 +615,292 @@ def serve_phase(torch, dev):
     t_p = time.perf_counter() - t0
     p_counts = launch_counts()
     # the comparison means something only if the two runs took different
-    # routes: every kernel in the first, none in the second
-    if any(v <= 0 for v in k_counts.values()) or any(p_counts.values()):
-        raise AssertionError(f"2-layer runs did not split kernels/plain: "
-                             f"kernels {k_counts}, plain {p_counts}")
+    # routes: the path's kernels in the first, none in the second
+    require_launches("lockstep 2-layer kernel run", k_counts, LOCKSTEP_KERNELS)
+    require_launches("lockstep 2-layer plain run", p_counts, (), p_counts)
     agree = sum(a == b for ka, pa in zip(k_tok, p_tok) for a, b in zip(ka, pa))
     log(f"e2e 2-layer: kernels {t_k:.2f}s {json.dumps(k_counts)}, plain "
         f"{t_p:.2f}s {json.dumps(p_counts)}, greedy tokens equal "
         f"{agree}/{sum(len(o) for o in p_tok)}")
     if k_tok != p_tok:
         raise AssertionError(f"2-layer greedy tokens differ:\n{k_tok}\n{p_tok}")
+    return cfg, params, {
+        "prefill_ms": timed.prefill_s[0] * 1e3,
+        "decode_ms_per_step": dec_s / len(timed.decode_s) * 1e3,
+        "decode_tokens_per_s": n_dec / dec_s,
+        "decode_steps": len(timed.decode_s), "launches": counts,
+        "tokens": out, "e2e_2layer_equal": True}
+
+
+def drain(engine, prompts, max_new):
+    """Stream ``prompts`` through the engine until it drains; returns the
+    tokens per request in submission order, the longest queue seen after
+    a tick and the seconds to the first token."""
+    outs, max_queued, first = {}, 0, None
+    t0 = time.perf_counter()
+    for ev in engine.stream(prompts, max_new):
+        if ev.token is not None:
+            if first is None:
+                first = time.perf_counter() - t0
+            outs.setdefault(ev.rid, []).append(ev.token)
+        max_queued = max(max_queued, engine.n_queued)
+    if len(outs) != len(prompts):
+        raise AssertionError(f"{len(outs)} of {len(prompts)} requests "
+                             "produced tokens")
+    return [outs[r] for r in sorted(outs)], max_queued, first
+
+
+def profile_ticks(torch, model, params):
+    """A prefill tick (the first 64-token chunk of a 128-token prompt, no
+    slot decoding) and a decode-only tick (one slot) under torch.profiler,
+    on a warm process: for each, wall time, the device time of its
+    kernels, the device's busy share (kernel time / wall; one stream, so
+    kernels never overlap) and the kernels that take most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.scheduler import ContinuousServeEngine
+
+    engine = ContinuousServeEngine(model, params, n_slots=4, max_len=256,
+                                   page_size=16, prefill_chunk=64)
+    prompt = np.random.default_rng(4).integers(
+        0, model.cfg.vocab_size, 128).tolist()
+    rid = engine.submit(prompt, 16)
+    out = {}
+    # the first tick prefills chunk 1, the second chunk 2 and decodes the
+    # first token, the third only decodes
+    for tick in ("prefill", "mixed", "decode"):
+        torch.cuda.synchronize()
+        if tick == "mixed":
+            engine.step()
+            continue
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        dev = sum(e.self_device_time_total for e in kern) / 1e3
+        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:3]
+        out[tick] = {"wall_ms": wall, "kernel_ms": dev,
+                     "busy": dev / wall if dev else None,
+                     "top": [(e.key[:70], e.count,
+                              e.self_device_time_total / 1e3) for e in top]}
+        busy = (f"busy {dev / wall:.1%}" if dev else
+                "device time not measured (the profiler saw no kernels)")
+        log(f"profile {tick} tick: wall {wall:.1f} ms, kernels {dev:.1f} ms, "
+            f"{busy}; top " + "; ".join(f"{k} x{n} {t:.1f} ms"
+                                        for k, n, t in out[tick]["top"]))
+    engine.cancel(rid)
+    return out
+
+
+def continuous_phase(torch, cfg, params, lockstep_out):
+    """Full-width continuous serving (paged KV, chunked prefill, slot
+    recycling): the process's first run, whose first prefill tick is
+    probed layer by layer; the same load again on the drained engine
+    (warm); a profile of one tick of each kind; then the 2-layer
+    kernels-vs-plain comparison."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import ContinuousServeEngine
+
+    timed = TimedModel(torch, Model(cfg), probe=True)
+    engine = ContinuousServeEngine(timed, params, n_slots=4, max_len=256,
+                                   page_size=16, prefill_chunk=64)
+    pool_mb = sum(t.numel() * t.element_size()
+                  for t in _leaves(engine.cache)) / 2**20
+    prompts = prompts_for(cfg.vocab_size, n_extra=2)
+    max_new = 16
+
+    serve_runs = []
+    for run in ("cold", "warm"):
+        n_pf, n_dc = len(timed.prefill_tick_s), len(timed.decode_tick_s)
+        if run == "cold":
+            reset_launch_counts()
+        t0 = time.perf_counter()
+        out, max_queued, ttft = drain(engine, prompts, max_new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if run == "cold":
+            counts = launch_counts()
+        pf, dc = timed.prefill_tick_s[n_pf:], timed.decode_tick_s[n_dc:]
+        n_gen = sum(len(o) for o in out)
+        serve_runs.append({
+            "run": run, "wall_s": wall, "tokens_per_s": n_gen / wall,
+            "ttft_s": ttft, "prefill_ticks": len(pf),
+            "prefill_tick_ms": np.mean(pf) * 1e3, "decode_ticks": len(dc),
+            "decode_tick_ms": np.mean(dc) * 1e3,
+            "prefill_tick_ms_each": [t * 1e3 for t in pf],
+            "decode_tick_ms_each": [t * 1e3 for t in dc],
+            "longest_queue": max_queued, "tokens": out})
+        log(f"continuous {run}: {len(prompts)} requests "
+            f"{[len(p) for p in prompts]}, n_slots 4, page 16, "
+            f"{engine.geom.n_pages} pages ({pool_mb:.1f} MiB of pools), "
+            f"prefill_chunk 64; longest queue {max_queued}; {len(pf)} "
+            f"prefill ticks (mean {np.mean(pf) * 1e3:.1f} ms: the first "
+            f"{pf[0] * 1e3:.1f}, the rest median {np.median(pf[1:]) * 1e3:.1f}"
+            f"), {len(dc)} decode ticks (mean {np.mean(dc) * 1e3:.2f} ms: the "
+            f"first {dc[0] * 1e3:.1f}, the rest median "
+            f"{np.median(dc[1:]) * 1e3:.2f}); first token after "
+            f"{ttft * 1e3:.1f} ms; {n_gen} tokens in {wall:.2f}s wall = "
+            f"{n_gen / wall:.2f} tokens/s")
+        if any(len(o) != max_new for o in out):
+            raise AssertionError(f"expected {max_new} tokens per request")
+        if any(not 0 <= t < cfg.padded_vocab for o in out for t in o):
+            raise AssertionError("token outside the vocabulary")
+        if max_queued < 1:
+            raise AssertionError("the queue never backed up: no admission "
+                                 "wait")
+        if engine.alloc.n_free != engine.geom.usable_pages:
+            raise AssertionError(f"page leak: {engine.alloc.n_free} free of "
+                                 f"{engine.geom.usable_pages}")
+    cold, warm = serve_runs
+    out = cold["tokens"]
+    probe = timed.probe
+    slow = [(i, round(h, 1), round(d, 1)) for i, (h, d) in
+            enumerate(zip(probe["host_ms"], probe["device_ms"])) if d > 50]
+    log(f"continuous cold first prefill tick: "
+        f"{cold['prefill_tick_ms_each'][0]:.1f} ms; per layer host ms median {np.median(probe['host_ms'][:-1]):.2f}, "
+        f"device ms median {np.median(probe['device_ms'][:-1]):.2f}; segments "
+        f"over 50 ms (index, host ms, device ms; index {cfg.n_layers} is the "
+        f"head) {slow}; cudaMalloc calls {probe['num_device_alloc']}, "
+        f"cudaFree calls {probe['num_device_free']}, allocator OOM retries "
+        f"{probe['num_alloc_retries']}")
+    log("kernels " + json.dumps(counts))
+    for i, o in enumerate(out):
+        log(f"creq{i}: {o}")
+    require_launches("continuous serve", counts, CONTINUOUS_KERNELS,
+                     ("softmax_div",))
+    # the warm run reuses pages the cold run wrote: stale KV must not leak
+    # into a new request
+    if warm["tokens"] != out:
+        raise AssertionError(f"warm rerun's tokens differ:\n{out}\n"
+                             f"{warm['tokens']}")
+    prof = profile_ticks(torch, Model(cfg), params)
+
+    # information, not a gate: each of the 4 lockstep prompts alone
+    # through the lockstep engine (the batch run left-pads them); bf16
+    # rounds differently on the two paths (fused ln2 tail vs a separate
+    # norm, softmax-then-PV vs PV-then-divide)
+    alone = [ServeEngine(Model(cfg), params, cache_n=256).generate(
+        [p], max_new=4)[0] for p in prompts[:4]]
+    agree = sum(a == b for x, y in zip(alone, out) for a, b in zip(x, y))
+    log(f"continuous vs lockstep (each prompt alone, first 4 tokens): "
+        f"{agree}/16 equal; lockstep batch run's first tokens "
+        f"{[o[0] for o in lockstep_out]}, continuous "
+        f"{[o[0] for o in out[:4]]}")
+
+    # 2-layer full-width copy, kernels vs plain: 4 requests of 40-70
+    # tokens through 2 slots (admission waits) in 32-token chunks (2-3
+    # chunks per prompt)
+    cfg2 = cfg.with_(n_layers=2)
+    params2 = dict(params, blocks=params["blocks"][:2])
+    rng = np.random.default_rng(1)
+    prompts2 = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+                for n in rng.integers(40, 71, 4)]
+    runs = {}
+    for route in ("kernels", "plain"):
+        t2 = TimedModel(torch, Model(cfg2))
+        eng2 = ContinuousServeEngine(t2, params2, n_slots=2, max_len=128,
+                                     page_size=16, prefill_chunk=32)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        if route == "plain":
+            with plain_versions():
+                toks, q2, _ = drain(eng2, prompts2, 8)
+        else:
+            toks, q2, _ = drain(eng2, prompts2, 8)
+        runs[route] = (toks, time.perf_counter() - t0, launch_counts(),
+                       len(t2.prefill_tick_s), q2)
+    (k_tok, t_k, k_counts, k_pf, k_q), (p_tok, t_p, p_counts, _, _) = \
+        runs["kernels"], runs["plain"]
+    require_launches("continuous 2-layer kernel run", k_counts,
+                     CONTINUOUS_KERNELS, ("softmax_div",))
+    require_launches("continuous 2-layer plain run", p_counts, (), p_counts)
+    if k_pf < 2 * len(prompts2) or k_q < 1:
+        raise AssertionError(f"2-layer continuous run: {k_pf} prefill ticks "
+                             f"for {len(prompts2)} prompts, longest queue "
+                             f"{k_q}")
+    agree2 = sum(a == b for x, y in zip(k_tok, p_tok) for a, b in zip(x, y))
+    log(f"continuous e2e 2-layer: prompts {[len(p) for p in prompts2]}, "
+        f"{k_pf} prefill ticks, longest queue {k_q}; kernels {t_k:.2f}s "
+        f"{json.dumps(k_counts)}, plain {t_p:.2f}s {json.dumps(p_counts)}, "
+        f"greedy tokens equal {agree2}/{sum(len(o) for o in p_tok)}")
+    if k_tok != p_tok:
+        raise AssertionError(f"continuous 2-layer greedy tokens differ:\n"
+                             f"{k_tok}\n{p_tok}")
+    return {"cold": cold, "warm": warm, "first_tick_probe": probe,
+            "launches": counts, "profile": prof,
+            "lockstep_alone_agree": agree, "e2e_2layer_equal": True}
+
+
+def long_prefill_phase(torch, dev, cfg, params):
+    """An 8320-token prompt on a 2-layer full-width copy: blockwise
+    attention (K5) and a wrapped 4096-slot ring cache, then 4 decode
+    steps; and ``_attn_blockwise`` at that shape, K5 vs its plain
+    version."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import layers
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg2 = cfg.with_(n_layers=2)
+    params2 = dict(params, blocks=params["blocks"][:2])
+    timed = TimedModel(torch, Model(cfg2))
+    engine = ServeEngine(timed, params2, cache_n=LONG_PROMPT + 5)
+    prompt = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, LONG_PROMPT).tolist()
+    reset_launch_counts()
+    out = engine.generate([prompt], max_new=5)[0]  # prefill + 4 decode steps
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"long prefill: {LONG_PROMPT} tokens, 2 layers, window "
+        f"{cfg.sliding_window} (ring cache wraps): prefill "
+        f"{timed.prefill_s[0] * 1e3:.1f} ms, {len(timed.decode_s)} decode "
+        f"steps mean {np.mean(timed.decode_s) * 1e3:.2f} ms; tokens {out}; "
+        f"kernels {json.dumps(counts)}")
+    if len(out) != 5 or len(timed.decode_s) != 4:
+        raise AssertionError(f"long prefill: {len(out)} tokens, "
+                             f"{len(timed.decode_s)} decode steps")
+    require_launches("long prefill", counts,
+                     ("log_matmul", "rms_div", "flash_decode",
+                      "div_rowbcast"), ("softmax_div",))
+
+    # _attn_blockwise at that shape (GQA 8 x 4 heads, chunk 1024 as
+    # attention() passes it), K5 vs plain: the einsums are the same torch
+    # calls on the same card, so the outputs must be equal
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((1, LONG_PROMPT, KV_HEADS, G, HD), generator=g,
+                    device=dev).to(torch.bfloat16)
+    k = torch.randn((1, LONG_PROMPT, KV_HEADS, HD), generator=g,
+                    device=dev).to(torch.bfloat16)
+    v = torch.randn((1, LONG_PROMPT, KV_HEADS, HD), generator=g,
+                    device=dev).to(torch.bfloat16)
+    pos = torch.arange(LONG_PROMPT, dtype=torch.int32, device=dev)
+
+    def blockwise():
+        return layers._attn_blockwise(q, k, v, pos, pos, cfg.sliding_window,
+                                      True, cfg.approx, 1024)
+
+    reset_launch_counts()
+    got = blockwise().float()
+    with plain_versions():
+        ref = blockwise().float()
+    torch.cuda.synchronize()
+    n_k5 = launch_counts()["div_rowbcast"]
+    diff = abs_max(got, ref)
+    log(f"long prefill: _attn_blockwise [1,{LONG_PROMPT},8,4,80] bf16, K5 "
+        f"vs plain K5: max abs diff {diff!r} (K5 launches {n_k5})")
+    if n_k5 != 1 or diff != 0.0:
+        raise AssertionError(f"_attn_blockwise K5 vs plain: diff {diff}, "
+                             f"{n_k5} K5 launches")
     return {"prefill_ms": timed.prefill_s[0] * 1e3,
-            "decode_ms_per_step": dec_s / len(timed.decode_s) * 1e3,
-            "decode_tokens_per_s": n_dec / dec_s,
-            "decode_steps": len(timed.decode_s), "launches": counts,
-            "tokens": out, "e2e_2layer_equal": True}
+            "decode_ms_per_step": float(np.mean(timed.decode_s)) * 1e3,
+            "launches": counts, "tokens": out, "blockwise_k5_vs_plain": diff}
 
 
 def _leaves(tree):
@@ -446,24 +948,37 @@ def main() -> int:
     card_tests()
     timer = Timer(torch, dev)
     cases = kernel_phase(torch, dev, timer)
-    serve = serve_phase(torch, dev)
+    cfg, params, serve = serve_phase(torch, dev)
+    cont = continuous_phase(torch, cfg, params, serve["tokens"])
+    long_ = long_prefill_phase(torch, dev, cfg, params)
 
+    # each kernel's row: its time at the main paths' heaviest shape (K5:
+    # the chunked-prefill tick's), its launches summed over the two serve
+    # paths' runs, each read just after that run
     heaviest = {"log_matmul": "w1 M=512", "rms_div": "rows=512",
-                "softmax_div": "rows=", "flash_decode": "q="}
+                "softmax_div": "rows=", "flash_decode": "q=",
+                "div_rowbcast": "a=[2048,", "div": "a=b="}
     kernels = []
     for name, tag in heaviest.items():
         mine = [c for c in cases if c["kernel"] == name]
         top = next(c for c in mine if c["shape"].startswith(tag))
-        kernels.append({
+        by_path = {"lockstep": serve["launches"][name],
+                   "continuous": cont["launches"][name]}
+        row = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": serve["launches"][name],
+            "launches": sum(by_path.values()),
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-            "library_ms": None, "shape": top["shape"]})
+            "library_ms": None, "shape": top["shape"],
+            "launches_by_path": by_path}
+        if name == "div":
+            row["note"] = ("no serve path divides through K6; the kernel "
+                           "phase launches it")
+        kernels.append(row)
     record = {"card": card, "cases": cases, "serve": serve,
-              "kernels": kernels,
+              "continuous": cont, "long_prefill": long_, "kernels": kernels,
               "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

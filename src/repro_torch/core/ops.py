@@ -1,13 +1,13 @@
 """Public RAPID arithmetic API of the port (forward only).
 
-The port of ``repro.core.ops`` for the dense serve path: :func:`qmatmul`
-with the epilogue menu, :func:`qsoftmax_div`, :func:`qrms_div`,
-:func:`qdecode_attn` and :func:`exact_einsum`.  ``scheme=None`` (or
-"exact") is the exact path in plain PyTorch; a RAPID scheme routes
-through the kernel wrappers, which launch their CUDA kernel for CUDA
-tensors and run the plain version for CPU tensors.  The straight-through
-gradients of the reference (``custom_vjp``/``custom_jvp``) come with the
-training slice.
+The port of ``repro.core.ops`` for the dense serve paths: :func:`qmatmul`
+with the epilogue menu, :func:`qdiv`, :func:`qsoftmax_div`,
+:func:`qrms_div`, :func:`qdecode_attn` and :func:`exact_einsum`.
+``scheme=None`` (or "exact") is the exact path in plain PyTorch; a RAPID
+scheme routes through the kernel wrappers, which launch their CUDA
+kernel for CUDA tensors and run the plain version for CPU tensors.  The
+straight-through gradients of the reference (``custom_vjp``/
+``custom_jvp``) come with the training slice.
 """
 from __future__ import annotations
 
@@ -17,10 +17,12 @@ import torch
 
 from repro_torch.core import backend as be
 from repro_torch.kernels.flash_attn.ops import flash_decode_attn
-from repro_torch.kernels.fused_div.ops import fused_rms_div, fused_softmax_div
+from repro_torch.kernels.fused_div.ops import (fused_elementwise_div,
+                                              fused_rms_div,
+                                              fused_softmax_div)
 from repro_torch.kernels.log_matmul.ops import log_matmul
 
-__all__ = ["qmatmul", "exact_einsum", "qsoftmax_div", "qrms_div",
+__all__ = ["qmatmul", "exact_einsum", "qdiv", "qsoftmax_div", "qrms_div",
            "qdecode_attn"]
 
 
@@ -85,6 +87,16 @@ def exact_einsum(spec: str, *operands: torch.Tensor) -> torch.Tensor:
     """Declared-exact f32 contraction (the attention score/value
     einsums, which the paper leaves exact)."""
     return torch.einsum(spec, *(o.float() for o in operands))
+
+
+def qdiv(a: torch.Tensor, b: torch.Tensor,
+         scheme: Optional[str]) -> torch.Tensor:
+    """Elementwise ``a / b`` (broadcasting ok): IEEE for the exact scheme,
+    else the RAPID divider (K5 for one denominator per row, K6 for any
+    other broadcast).  Forward only."""
+    if _exact(scheme):
+        return a / b
+    return fused_elementwise_div(a, b, scheme)
 
 
 def qsoftmax_div(e: torch.Tensor, scheme: Optional[str], *,

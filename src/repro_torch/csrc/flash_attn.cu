@@ -15,9 +15,10 @@
 // and fold the chunk into the online (m, l, acc) state.  The finish is
 // acc / max(l, floor) through rapid::log_div_f32, or an IEEE divide for
 // the exact arm.  Fully masked rows give 0, not NaN.  The plain version
-// (repro_torch/kernels/flash_attn/ref.py::decode_attn_ref) takes one
-// global max instead of a running one, so the two agree to tight
-// allclose, as the reference's kernel and oracle do.
+// (repro_torch/kernels/flash_attn/ops.py::flash_decode_plain) takes the
+// same steps in the same order -- BC-slot chunks, dots and sums in index
+// order, one rounding per op -- so the two are bit-equal on the card;
+// against the reference's one-max oracle they agree to tight allclose.
 #include <cuda_bf16.h>
 
 #include "rapid.cuh"
@@ -161,6 +162,10 @@ cudaError_t launch(const float* q, const void* kc, const void* vc,
 }  // namespace
 
 // cache_bf16: 1 for bf16 caches, 0 for f32.  rows = B * KV.
+// BC, for the plain version's CHUNK (flash_attn/ops.py), which must equal
+// it for the two to be bit-equal; the wrapper checks at its first launch.
+extern "C" int rapid_flash_decode_chunk() { return BC; }
+
 extern "C" int rapid_flash_decode(const void* q, const void* k_cache,
                                   const void* v_cache, const void* slot_pos,
                                   const void* pos, const void* lut, void* out,

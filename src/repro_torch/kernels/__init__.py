@@ -15,13 +15,16 @@ def _wrappers():
     # imported here, not at the top: core modules that the wrapper
     # modules import initialise this package first
     from repro_torch.kernels.flash_attn.ops import flash_decode_attn
-    from repro_torch.kernels.fused_div.ops import (fused_rms_div,
+    from repro_torch.kernels.fused_div.ops import (div_elementwise,
+                                                   div_rowbcast,
+                                                   fused_rms_div,
                                                    fused_softmax_div)
     from repro_torch.kernels.log_matmul.ops import log_matmul
 
     return {"log_matmul": log_matmul, "rms_div": fused_rms_div,
             "softmax_div": fused_softmax_div,
-            "flash_decode": flash_decode_attn}
+            "flash_decode": flash_decode_attn,
+            "div_rowbcast": div_rowbcast, "div": div_elementwise}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,11 +1,13 @@
-"""Core NN layers of the dense serve path: norms, RoPE, GQA/SWA attention,
-SwiGLU MLP -- RAPID-aware.
+"""Core NN layers of the dense serve paths: norms, RoPE, GQA/SWA
+attention, SwiGLU MLP -- RAPID-aware.
 
 The port of ``repro.models.layers`` (unsharded).  Every weight matmul
 goes through :func:`repro_torch.core.ops.qmatmul` (kernel K1 under a
 RAPID scheme); every softmax / normalisation divide can go through the
-logarithmic divider (kernels K2, K3, K4).  Activations are cast back to
-the config's dtype after each op in the same places as the reference.
+logarithmic divider (kernels K2, K3, K4, and K5 for the online-softmax
+combine of chunked-prefill and blockwise attention).  Activations are
+cast back to the config's dtype after each op in the same places as the
+reference.
 """
 from __future__ import annotations
 
@@ -15,8 +17,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ApproxConfig, ModelConfig
-from repro_torch.core.backend import Epilogue
-from repro_torch.core.ops import (exact_einsum, qdecode_attn, qmatmul,
+from repro_torch.core.backend import SOFTMAX_FLOOR, Epilogue
+from repro_torch.core.ops import (exact_einsum, qdecode_attn, qdiv, qmatmul,
                                   qrms_div, qsoftmax_div)
 from repro_torch.models.params import P
 
@@ -28,6 +30,7 @@ __all__ = [
     "attention_params",
     "attention",
     "decode_attention",
+    "chunk_cache_attention",
     "mlp_params",
     "mlp",
     "norm_params",
@@ -84,6 +87,68 @@ def attention_params(cfg: ModelConfig) -> dict:
     }
 
 
+_MAXI32 = 2**31 - 1
+
+
+def _online_softmax_combine(acc, l, m, acfg: ApproxConfig):
+    """``acc / max(l, floor)[..., None]``: the RAPID divide with one
+    denominator per row (kernel K5), or IEEE when the softmax site is
+    exact.  The floor is the fused softmax combine's, so both softmax
+    formulations give 0 on fully-masked rows."""
+    sch = acfg.div("softmax")
+    l = torch.clamp_min(l, SOFTMAX_FLOOR)  # NaN stays NaN, as jnp.maximum
+    if sch:
+        return qdiv(acc, l[..., None], sch)
+    return acc / l[..., None]
+
+
+def _attn_blockwise(q, k, v, q_pos, kv_pos, window: int, causal: bool,
+                    acfg: ApproxConfig, chunk: int = 512):
+    """Memory-efficient attention with online softmax.
+
+    q: [B, S, KV, G, hd]; k, v: [B, T, KV, hd].  Masking from absolute
+    positions (causal + sliding window); a Python loop over KV chunks of
+    ``chunk`` slots (the reference's ``lax.scan``), so peak memory is
+    O(S * chunk) per head group.  Padding slots carry position INT32_MAX
+    and are masked out.
+    """
+    B, S, KVh, G, hd = q.shape
+    T = k.shape[1]
+    chunk = min(chunk, T)
+    pad = (-T) % chunk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = torch.nn.functional.pad(kv_pos, (0, pad), value=_MAXI32)
+    qf = q.float() * _attn_scale(hd)
+
+    m = torch.full((B, S, KVh, G), -torch.inf, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, S, KVh, G), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, S, KVh, G, hd), dtype=torch.float32,
+                      device=q.device)
+    for c0 in range(0, T + pad, chunk):
+        kc, vc = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        pc = kv_pos[c0:c0 + chunk]
+        s = exact_einsum("bskgh,bckh->bskgc", qf, kc)
+        mask = (pc < _MAXI32)[None, :].expand(S, -1)
+        if causal:
+            mask = mask & (pc[None, :] <= q_pos[:, None])
+        if window:
+            mask = mask & (pc[None, :] > (q_pos[:, None] - window))
+        s = torch.where(mask[None, :, None, None, :], s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        p = torch.where(torch.isfinite(m_new)[..., None], p, 0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_new), 0.0)
+        l = l * corr + p.sum(dim=-1)
+        pv = exact_einsum("bskgc,bckh->bskgh", p, vc)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = _online_softmax_combine(acc, l, m, acfg)
+    return out.to(q.dtype)
+
+
 def _attn_qchunk_core(qc, k, v, qp, kv_pos, window: int, causal: bool,
                       acfg: ApproxConfig):
     """Scores + softmax + PV for one (pre-scaled) q chunk against full K/V."""
@@ -122,9 +187,10 @@ def _attn_plain(q, k, v, q_pos, kv_pos, window: int, causal: bool,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
-# longer sequences take the reference's blockwise path, which needs
-# kernel K5 (the row-broadcast divide) and comes with a later slice
+# sequences longer than this take the O(S * chunk) blockwise path, in
+# KV chunks of _BLOCKWISE_CHUNK slots (the reference's attention chunk)
 _PLAIN_ATTN_MAX_T = 8192
+_BLOCKWISE_CHUNK = 1024
 
 
 def attention(x, params, cfg: ModelConfig, positions, residual=None,
@@ -139,10 +205,6 @@ def attention(x, params, cfg: ModelConfig, positions, residual=None,
     acfg = cfg.approx
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    if S > _PLAIN_ATTN_MAX_T:
-        raise NotImplementedError(
-            f"sequences over {_PLAIN_ATTN_MAX_T} tokens need the blockwise "
-            "attention path (kernel K5), not ported yet")
     q = dense(x, params["wq"], acfg, "attn_proj").reshape(B, S, H, hd)
     k = dense(x, params["wk"], acfg, "attn_proj").reshape(B, S, KV, hd)
     v = dense(x, params["wv"], acfg, "attn_proj").reshape(B, S, KV, hd)
@@ -150,9 +212,14 @@ def attention(x, params, cfg: ModelConfig, positions, residual=None,
     k = rope(k, positions, cfg.rope_theta)
 
     G = H // KV
-    out = _attn_plain(q, k.repeat_interleave(G, dim=2),
-                      v.repeat_interleave(G, dim=2), positions, positions,
-                      cfg.sliding_window, True, acfg)
+    if S <= _PLAIN_ATTN_MAX_T:
+        out = _attn_plain(q, k.repeat_interleave(G, dim=2),
+                          v.repeat_interleave(G, dim=2), positions,
+                          positions, cfg.sliding_window, True, acfg)
+    else:  # GQA heads not repeated
+        out = _attn_blockwise(q.reshape(B, S, KV, G, hd), k, v, positions,
+                              positions, cfg.sliding_window, True, acfg,
+                              _BLOCKWISE_CHUNK)
     out = out.reshape(B, S, H * hd)
     if tail_norm:
         ep = Epilogue(norm="rms", div_scheme=acfg.div("norm"),
@@ -179,6 +246,36 @@ def decode_attention(q, k_cache, v_cache, slot_positions, pos, window: int,
     out = qdecode_attn(qf, k_cache, v_cache, slot_positions, pos, window,
                        acfg.div("softmax"))
     return out.reshape(B, H * hd).to(q.dtype)
+
+
+def chunk_cache_attention(q, k_cache, v_cache, q_pos, kv_pos, window: int,
+                          acfg: ApproxConfig):
+    """Multi-token chunk attention against a per-slot cache view.
+
+    The chunked-prefill analogue of :func:`decode_attention`: ``S`` new
+    query tokens of each slot attend to that slot's cached prefix, which
+    already holds the chunk itself (callers write k/v before reading).
+    q: [B, S, H, hd]; caches: [B, C, KV, hd]; q_pos: [B, S] absolute
+    query positions; kv_pos: [B, C] absolute positions per cache slot
+    (INT32_MAX = empty, which causality masks out).  The combine divide
+    is kernel K5 under a RAPID softmax scheme.
+    """
+    B, S, H, hd = q.shape
+    KV = k_cache.shape[2]
+    G = H // KV
+    qf = (q.float() * _attn_scale(hd)).reshape(B, S, KV, G, hd)
+    s = exact_einsum("bskgh,bckh->bskgc", qf, k_cache)
+    mask = kv_pos[:, None, :] <= q_pos[:, :, None]  # [B, S, C]
+    if window:
+        mask &= kv_pos[:, None, :] > q_pos[:, :, None] - window
+    s = torch.where(mask[:, :, None, None, :], s, -torch.inf)
+    m = s.amax(dim=-1)
+    p = torch.where(torch.isfinite(m)[..., None], torch.exp(s - m[..., None]),
+                    0.0)
+    l = p.sum(dim=-1)
+    acc = exact_einsum("bskgc,bckh->bskgh", p, v_cache)
+    out = _online_softmax_combine(acc, l, m, acfg)
+    return out.reshape(B, S, H * hd).to(q.dtype)
 
 
 def mlp_params(cfg: ModelConfig) -> dict:

@@ -7,7 +7,11 @@ The port of the dense path of ``repro.models.model.Model``:
   * ``init_cache(batch, cache_n, device)`` -- an empty decode cache;
   * ``prefill(params, batch, cache_n)`` -- last-position logits and a
     filled (ring) decode cache;
-  * ``decode_step(params, tokens, cache)`` -- one-token serve step.
+  * ``decode_step(params, tokens, cache)`` -- one-token serve step;
+  * ``init_paged_cache(n_pages, page_size, device)`` -- an empty
+    block-paged KV pool per layer;
+  * ``decode_paged(params, tokens, cache, page_table, offsets, n_valid)``
+    -- the continuous engine's step: a decode tick or a prefill chunk.
 
 Params and caches are dicts; ``blocks``/``layers`` are lists with one
 entry per layer.  ``cache["pos"]`` is a Python int.
@@ -18,15 +22,15 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import apply_norm, dense, norm_params
+from repro_torch.models.layers import _MAXI32, apply_norm, dense, norm_params
 from repro_torch.models.params import P, materialize
 from repro_torch.models.transformer import (attn_cache_specs, block_apply,
-                                            block_decode, block_params,
-                                            cache_len)
+                                            block_decode, block_decode_paged,
+                                            block_params, cache_len,
+                                            paged_attn_cache_specs)
 
 __all__ = ["Model"]
 
-_MAXI32 = 2**31 - 1
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -66,6 +70,15 @@ class Model:
                 "slots": torch.full((batch, C), _MAXI32, dtype=torch.int32,
                                     device=dev),
                 "layers": layers}
+
+    def paged_cache_specs(self, n_pages: int, page_size: int) -> dict:
+        """P-spec tree of the block-paged cache: one pool pair per layer."""
+        return {"layers": [paged_attn_cache_specs(self.cfg, n_pages, page_size)
+                           for _ in range(self.cfg.n_layers)]}
+
+    def init_paged_cache(self, n_pages: int, page_size: int, device=None):
+        return materialize(self.paged_cache_specs(n_pages, page_size), 0,
+                           resolve_device(device))
 
     # ------------------------------------------------------------------
     # embedding / head
@@ -133,3 +146,33 @@ class Model:
         cache["pos"] = pos + 1
         x = apply_norm(x[:, None], params["final_norm"], self.cfg)
         return self._logits(params, x)[:, 0], cache
+
+    def decode_paged(self, params, tokens, cache, page_table, offsets,
+                     n_valid):
+        """Paged multi-token step for continuous batching.
+
+        One function serves both engine phases: the decode tick
+        (``tokens`` [n_slots, 1], every live slot advances one token at
+        its own depth) and a chunked-prefill tick (``tokens`` [1, S], one
+        slot absorbs a prompt chunk).  ``page_table`` [B, P] int32;
+        ``offsets`` [B] int32 is each slot's stored-KV length before this
+        call, ``n_valid`` [B] int32 how many of the S tokens are real (0 =
+        slot inactive: its writes go to the scratch page and its logits
+        are garbage).  The pools are written in place.
+
+        Returns (logits [B, V] f32 at each row's last valid token, cache).
+        """
+        B, S = tokens.shape
+        dev = tokens.device
+        x = self._embed(params, tokens)
+        steps = torch.arange(S, dtype=torch.int32, device=dev)
+        positions = offsets[:, None] + steps[None]
+        valid = steps[None] < n_valid[:, None]
+        kv_len = offsets + n_valid
+        for lp, lc in zip(params["blocks"], cache["layers"]):
+            x, _ = block_decode_paged(x, lp, lc, page_table, positions,
+                                      valid, kv_len, self.cfg)
+        x = apply_norm(x, params["final_norm"], self.cfg)
+        last = torch.clamp(n_valid - 1, 0, S - 1).long()
+        xl = x[torch.arange(B, device=dev), last][:, None]
+        return self._logits(params, xl)[:, 0], cache

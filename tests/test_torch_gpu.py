@@ -7,8 +7,11 @@ This file imports no JAX: the machine with the card has none.
 Tolerances: K1 bit-equal to its plain version run on the card (same
 products, same K order; torch's CUDA silu is x / (1 + expf(-x)), as the
 kernel's); K2/K3 bit-equal (the kernels reduce in the plain version's
-fixed lane grouping); K4 rtol 1e-5, atol 1e-6 (online vs global softmax
-max, different dot orders).
+fixed lane grouping); K4 bit-equal to its plain version on the card
+(the plain version takes the kernel's steps in its order) and within
+rtol 1e-5, atol 1e-6 of it on the CPU (the CPU's exp and the card's
+differ in the last bit); K5/K6 bit-equal (one log-domain divide per
+element, no reduction).
 
 The special-operand cases feed each kernel 0, -0, +-inf, NaNs,
 subnormals and the operands next to the overflow edge
@@ -27,7 +30,9 @@ from _torch_helpers import (assert_same_bits, bits,  # noqa: E402
 from repro_torch.kernels.flash_attn.ops import (  # noqa: E402
     flash_decode_attn, flash_decode_plain)
 from repro_torch.kernels.fused_div.ops import (  # noqa: E402
-    fused_rms_div, fused_softmax_div, rms_div_plain, softmax_div_plain)
+    div_elementwise, div_plain, div_rowbcast, div_rowbcast_plain,
+    fused_elementwise_div, fused_rms_div, fused_softmax_div, rms_div_plain,
+    softmax_div_plain)
 from repro_torch.kernels.log_matmul.ops import (log_matmul,  # noqa: E402
                                                 log_matmul_plain)
 
@@ -94,6 +99,55 @@ def test_cuda_flash_decode_matches_plain(cuda, window, ring, empty, dtype):
     ref = flash_decode_attn(*[a.cpu() for a in args], pos, window, "rapid9")
     np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=1e-5,
                                atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window,ring,empty", [(0, False, 0), (8, True, 0),
+                                               (0, False, 7), (0, False, 0)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("scheme", ["rapid9", None])
+def test_cuda_flash_decode_bit_equal_on_card(cuda, window, ring, empty, dtype,
+                                             scheme):
+    """K4 and its plain version on the same card: the same bits, with a
+    ragged cache (100 slots: 3 chunks and a padded one), per-slot
+    positions and a fully masked row."""
+    qf, kc, vc, sp, pos = decode_case(17, B=3, ring=ring, empty=empty, C=100)
+    args = [T(qf).to(cuda), T(kc).to(cuda, dtype), T(vc).to(cuda, dtype),
+            T(sp).to(cuda)]
+    posv = torch.tensor([pos, -1, pos - 20], dtype=torch.int32, device=cuda)
+    for p in (pos, posv):
+        got = flash_decode_attn(*args, p, window, scheme)
+        ref = flash_decode_plain(*args, p, window, scheme)
+        assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["rapid9", None])
+def test_cuda_flash_decode_paged_decode_tick(cuda, scheme):
+    """K4 at the continuous engine's decode tick: 4 slots, each gathering
+    its 256-slot view out of a [65, 16, 8, 80] bf16 page pool through a
+    page table, slot positions from kv_len (INT32_MAX past it), a [4]
+    position vector of distinct depths and one inactive slot (kv_len 0:
+    every slot masked)."""
+    rng = np.random.default_rng(23)
+    B, NP, PS, P, KV, G, hd = 4, 65, 16, 16, 8, 4, 80
+    pool_k = T(randn(rng, NP, PS, KV, hd)).to(cuda, torch.bfloat16)
+    pool_v = T(randn(rng, NP, PS, KV, hd)).to(cuda, torch.bfloat16)
+    pages = rng.permutation(np.arange(1, NP, dtype=np.int64))
+    table = np.zeros((B, P), np.int64)
+    table[:3] = pages[:3 * P].reshape(3, P)  # slot 3 inactive: page 0
+    kv_len = torch.tensor([131, 98, 201, 0], dtype=torch.int32, device=cuda)
+    pos = torch.clamp(kv_len - 1, min=0)
+    pt = T(table).to(cuda)
+    kg = pool_k[pt].reshape(B, P * PS, KV, hd)
+    vg = pool_v[pt].reshape(B, P * PS, KV, hd)
+    j = torch.arange(P * PS, dtype=torch.int32, device=cuda)
+    sp = torch.where(j[None] < kv_len[:, None], j[None], 2**31 - 1)
+    qf = T(randn(rng, B, KV, G, hd, scale=hd ** -0.5)).to(cuda)
+    got = flash_decode_attn(qf, kg, vg, sp, pos, 4096, scheme)
+    ref = flash_decode_plain(qf, kg, vg, sp, pos, 4096, scheme)
+    assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
+    assert not got[3].any()  # the inactive slot attends to nothing
 
 
 @pytest.mark.gpu
@@ -199,3 +253,55 @@ def test_cuda_flash_decode_special_values(cuda, dtype):
     got = flash_decode_attn(*args, pos, 0, "rapid9")
     ref = flash_decode_plain(*args, pos, 0, "rapid9")
     assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n", [(2048, 80), (266240, 80), (5, 3), (33, 129)])
+def test_cuda_div_rowbcast_matches_plain(cuda, m, n):
+    """K5 at the chunked-prefill (2048 x 80) and blockwise (266240 x 80)
+    shapes and ragged ones, special operands in both operands."""
+    rng = np.random.default_rng(m + n)
+    a = T(special_sample(rng, max(m * n, 18))[: m * n].reshape(m, n)).to(cuda)
+    b = T(special_sample(rng, max(m, 18))[:m]).to(cuda)
+    got = div_rowbcast(a, b, "rapid9")
+    ref = div_rowbcast_plain(a, b, "rapid9")
+    assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2048, 2048), (7, 5), (1,)])
+def test_cuda_div_elementwise_matches_plain(cuda, shape):
+    rng = np.random.default_rng(sum(shape))
+    k = int(np.prod(shape))
+    a = T(special_sample(rng, max(k, 18))[:k].reshape(shape)).to(cuda)
+    b = T(special_sample(rng, max(k, 18))[::-1][:k].copy().reshape(shape))
+    got = div_elementwise(a, b.to(cuda), "rapid9")
+    ref = div_plain(a, b.to(cuda), "rapid9")
+    assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b_shape", [(), (1,), (4, 2, 1), (2, 1), (80,),
+                                     (4, 2, 80)])
+def test_cuda_fused_elementwise_div_matches_cpu(cuda, b_shape):
+    """Both arms through the dispatch (scalar, [..., 1] and general
+    broadcasts of b against a [4, 2, 80]), on the card and on the CPU:
+    the same bits."""
+    rng = np.random.default_rng(len(b_shape))
+    a = special_sample(rng, 640).reshape(4, 2, 80)
+    b = special_sample(rng, max(int(np.prod(b_shape)), 18))
+    b = b[: int(np.prod(b_shape))].reshape(b_shape)
+    got = fused_elementwise_div(T(a).to(cuda), T(b).to(cuda), "rapid9")
+    ref = fused_elementwise_div(T(a), T(b), "rapid9")
+    assert_same_bits(got.cpu().numpy(), ref.numpy())
+
+
+@pytest.mark.gpu
+def test_cuda_div_kernels_count_launches(cuda):
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    a = torch.ones(4, 80, device=cuda)
+    fused_elementwise_div(a, torch.full((4, 1), 3.0, device=cuda), "rapid9")
+    fused_elementwise_div(a, torch.full((80,), 3.0, device=cuda), "rapid9")
+    counts = launch_counts()
+    assert counts["div_rowbcast"] == 1 and counts["div"] == 1

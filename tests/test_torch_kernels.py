@@ -12,29 +12,45 @@ Tolerances, each with its reason:
     of up to 1000 positive terms), because the port fixes the row-sum
     grouping itself and XLA groups it otherwise (rule 3).
   * flash decode plain vs ``decode_attn_ref``: rtol 1e-5, atol 1e-6
-    (exact f32 einsums, torch's and XLA's summation orders differ).
+    (the plain version keeps the kernel's running max over 32-slot
+    chunks, the reference takes one max; sums in other orders).
+  * elementwise divides (K5 row-broadcast, K6 general) vs
+    ``float_approx.approx_div`` and the reference's depth-1 Pallas
+    ``fused_elementwise_div`` in interpret mode: bit-exact, special
+    operands included (NaN positions equal, payloads not compared).
 
 The CUDA kernels are held against these plain versions on the card by
 ``tests/test_torch_gpu.py``.
 """
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_helpers import bits, decode_case, randn, ulp_diff  # noqa: E402
+from _torch_helpers import (assert_same_bits, bits,  # noqa: E402
+                            decode_case, randn, special_sample, ulp_diff)
 from repro.core import backend as jbe  # noqa: E402
 from repro.core import float_approx as jfa  # noqa: E402
 from repro.kernels.flash_attn import ref as jflash  # noqa: E402
 from repro.kernels.fused_div import ref as jfd  # noqa: E402
+from repro.kernels.fused_div.ops import (  # noqa: E402
+    fused_elementwise_div as jfused_div)
+from repro.kernels.spec import KernelSpec, PipelineSpec  # noqa: E402
 from repro_torch.core import backend as tbe  # noqa: E402
 from repro_torch.core import float_approx as tfa  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.flash_attn.ops import flash_decode_attn  # noqa: E402
+from repro_torch.kernels.fused_div import ops as tfdops  # noqa: E402
 from repro_torch.kernels.fused_div import ref as tfd  # noqa: E402
-from repro_torch.kernels.fused_div.ops import (fused_rms_div,  # noqa: E402
-                                               fused_softmax_div)
+from repro_torch.kernels.fused_div.ops import (  # noqa: E402
+    div_plain, div_rowbcast_plain, fused_elementwise_div, fused_rms_div,
+    fused_softmax_div)
 from repro_torch.kernels.log_matmul.ops import log_matmul  # noqa: E402
 
 T = torch.from_numpy
@@ -213,12 +229,119 @@ def test_flash_decode_vector_pos_and_fully_masked():
     assert np.all(got.numpy()[1] == 0.0)
 
 
+# --------------------------------------------------------------------------
+# K5 / K6 elementwise divides (plain)
+# --------------------------------------------------------------------------
+
+# the reference's Pallas arm at depth 1: its default depth 2 needs
+# pltpu.TPUMemorySpace, which this jax no longer has
+_DEPTH1 = KernelSpec(pipeline=PipelineSpec(depth=1))
+
+
+def _div_operands(case, rng):
+    """(a, b, expected arm) for each dispatch shape of the reference."""
+    a = special_sample(rng, 6 * 5 * 80).reshape(6, 5, 80)
+    col = special_sample(rng, 6 * 5).reshape(6, 5, 1)
+    return {
+        "rowbcast": (a, col, "rowbcast"),
+        "rowbcast_lead_bcast": (a, col[:1], "rowbcast"),  # b [1, 5, 1]
+        "scalar": (a, np.float32(1.7e-38), "rowbcast"),
+        "general_row_vector": (a, special_sample(rng, 80), "general"),
+        "general_same_shape": (a, special_sample(rng, a.size).reshape(a.shape),
+                               "general"),
+        "general_b_wider": (a[:, :1, :1], col, "general"),  # out != a.shape
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["rowbcast", "rowbcast_lead_bcast", "scalar",
+                                  "general_row_vector", "general_same_shape",
+                                  "general_b_wider"])
+@pytest.mark.parametrize("scheme", ["rapid9", "mitchell"])
+def test_fused_elementwise_div_bit_exact_vs_reference(case, scheme,
+                                                      monkeypatch):
+    """Both arms, scalar and broadcast denominators, over 0, -0, +-inf,
+    NaN bit patterns, subnormals and the overflow edge: bit-equal to
+    ``approx_div`` and to the reference's Pallas arm (depth 1)."""
+    a, b, arm = _div_operands(case, np.random.default_rng(len(case)))
+    calls = []
+    for name in ("div_rowbcast", "div_elementwise"):
+        real = getattr(tfdops, name)
+        monkeypatch.setattr(tfdops, name, lambda *x, _n=name, _f=real:
+                            calls.append(_n) or _f(*x))
+    got = fused_elementwise_div(T(a), torch.as_tensor(b), scheme).numpy()
+    assert calls == ["div_rowbcast" if arm == "rowbcast" else
+                     "div_elementwise"]
+    oracle = np.asarray(jfa.approx_div(jnp.asarray(a), jnp.asarray(b), scheme))
+    pallas = np.asarray(jfused_div(jnp.asarray(a), jnp.asarray(b), scheme,
+                                   spec=_DEPTH1, interpret=True))
+    assert_same_bits(got, oracle)
+    assert_same_bits(got, pallas)
+
+
+def test_fused_elementwise_div_keeps_dtype():
+    a = torch.linspace(-3, 3, 40).reshape(4, 10).to(torch.bfloat16)
+    b = torch.full((4, 1), 0.7, dtype=torch.bfloat16)
+    got = fused_elementwise_div(a, b, "rapid9")
+    assert got.dtype == torch.bfloat16 and got.shape == a.shape
+    ref = tfa.log_div_f32(a.float(), b.float(), tfa.div_lut_device("rapid9"))
+    assert torch.equal(got, ref.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("x,y", [((4, 2, 80), (4, 2, 1)), ((4, 2, 80), ()),
+                                 ((3, 1), (1, 5)), ((0, 3), (1, 3)),
+                                 ((1,), (2, 0))])
+def test_broadcast_shape_matches_torch(x, y):
+    assert tfdops._broadcast_shape(x, y) == torch.broadcast_shapes(x, y)
+    with pytest.raises(ValueError):
+        tfdops._broadcast_shape(x + (3,), y + (2,))
+
+
+def test_fused_elementwise_div_first_call_imports_no_sympy():
+    """The dispatch broadcasts shapes in plain Python: torch's
+    ``broadcast_shapes`` imports ``torch._refs`` and sympy at its first
+    call, which cost a fresh server seconds on its first chunked-prefill
+    tick.  Both arms, in a fresh process."""
+    code = ("import sys, torch\n"
+            "from repro_torch.kernels.fused_div.ops import "
+            "fused_elementwise_div as f\n"
+            "before = 'sympy' in sys.modules\n"
+            "f(torch.ones(2, 8), torch.ones(2, 1), 'rapid9')\n"
+            "f(torch.ones(2, 8), torch.ones(8), 'rapid9')\n"
+            "print(before, 'sympy' in sys.modules)\n")
+    src = Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True,
+                         env={**os.environ, "PYTHONPATH": str(src)})
+    assert out.stdout.split() == ["False", "False"]
+
+
+@pytest.mark.parametrize("m,n", [(2048, 80), (7, 3), (1, 1)])
+def test_div_plain_versions_bit_exact(m, n):
+    """The kernels' own contracts: K5 ``a [M, N] / b [M]``, K6 same-shape."""
+    rng = np.random.default_rng(m + n)
+
+    def sample(k):  # special_sample puts its 18 fixed operands first
+        return special_sample(rng, max(k, 18))[:k]
+    a = sample(m * n).reshape(m, n)
+    bv = sample(m)
+    bf = sample(m * n).reshape(m, n)
+    row = div_rowbcast_plain(T(a), T(bv), "rapid9").numpy()
+    assert_same_bits(row, jfa.approx_div(jnp.asarray(a),
+                                         jnp.asarray(bv)[:, None], "rapid9"))
+    full = div_plain(T(a), T(bf), "rapid9").numpy()
+    assert_same_bits(full, jfa.approx_div(jnp.asarray(a), jnp.asarray(bf),
+                                          "rapid9"))
+
+
 def test_plain_calls_do_not_count_launches():
     reset_launch_counts()
     log_matmul(torch.ones(2, 3), torch.ones(3, 4), "rapid10")
     fused_rms_div(torch.ones(2, 8), 1e-6, "rapid9")
+    fused_elementwise_div(torch.ones(2, 8), torch.ones(2, 1), "rapid9")
+    fused_elementwise_div(torch.ones(2, 8), torch.ones(8), "rapid9")
     assert launch_counts() == {"log_matmul": 0, "rms_div": 0,
-                               "softmax_div": 0, "flash_decode": 0}
+                               "softmax_div": 0, "flash_decode": 0,
+                               "div_rowbcast": 0, "div": 0}
 
 
 def test_mixed_devices_raise():
