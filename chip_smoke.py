@@ -34,7 +34,23 @@ one NVIDIA H100.  It
    2-layer copy, which takes the blockwise attention path (K5) and wraps
    the 4096-slot sliding-window ring cache, then decodes 4 steps; at
    that shape ``_attn_blockwise`` with K5 must equal it with the plain
-   K5.
+   K5;
+7. drives the paper's integer units (K9 ``rapid_mul``, K10
+   ``rapid_div``) through their wrappers as Table III does, at 8 bits
+   exhaustively and 2^24 random pairs at 16 (16/8) bits, all four
+   schemes, and prints their error beside the paper's (information);
+   K9 and K10 must launch;
+8. runs the three applications (JPEG, Pan-Tompkins, Harris) under all
+   five variants at the reference's QoR sizes, each device stage through
+   the kernels and through the plain versions (equal bits required), and
+   holds the QoR gates of ``tests/test_apps_qor.py``; then at the timing
+   sizes (a 2048^2 frame, a 5-minute ECG record, a 1024^2 scene),
+   kernels only, host and device times apart: K1 (batched) and K6 must
+   launch.
+
+Step 2 also holds K9/K10 bit-equal to their plain versions (special
+operands included) and K1 batched at JPEG's 2048^2 shape, with the
+broadcast DCT basis on each side.
 
 It exits non-zero, printing no result, when no CUDA card is present or
 when it is run outside a checkout of the repository.  Its last line is
@@ -72,6 +88,25 @@ D, KV_HEADS, G, HD, D_FF = 2560, 8, 4, 80, 6912
 # tick (one 64-token chunk) and a decode step (4 tokens)
 PREFILL_M, CHUNK_M, DECODE_M = 4 * 128, 64, 4
 
+# fewest int32 ops of one integer RAPID unit (K9/K10): two leading-one
+# detections, two fraction alignments, the cell index, the ternary add
+# with the LUT coefficient, the carry/borrow select and the anti-log
+# shift; the saturate and zero tests are extra
+INT32_OPS_PER_UNIT = 12
+# JPEG's DCT products at a 2048 x 2048 frame: 65 536 blocks of 8 x 8
+JPEG_FRAME, JPEG_BLOCKS = 2048, (2048 // 8) ** 2
+# the integer units at the paper's widths: 2^24 random pairs
+INT_PAIRS = 1 << 24
+# paper Table III (ARE %, PRE %), as benchmarks/table3_accuracy.py lists it
+PAPER_MUL = {("mitchell", 8): (3.77, 11.11), ("mitchell", 16): (3.85, 11.11),
+             ("rapid3", 8): (1.02, 6.1), ("rapid3", 16): (1.03, 6.1),
+             ("rapid5", 8): (0.91, 4.45), ("rapid5", 16): (0.93, 4.45),
+             ("rapid10", 8): (0.64, 3.69), ("rapid10", 16): (0.56, 3.69)}
+PAPER_DIV = {("mitchell", 4): (3.90, 13.0), ("mitchell", 8): (4.11, 13.0),
+             ("rapid3", 4): (0.99, 5.74), ("rapid3", 8): (1.02, 5.74),
+             ("rapid5", 4): (0.79, 4.34), ("rapid5", 8): (0.79, 4.34),
+             ("rapid9", 4): (0.58, 3.48), ("rapid9", 8): (0.58, 3.48)}
+
 REPLACES = {
     "log_matmul": "src/repro/kernels/log_matmul/log_matmul.py:302",
     "rms_div": "src/repro/kernels/fused_div/fused_div.py:202",
@@ -79,6 +114,8 @@ REPLACES = {
     "flash_decode": "src/repro/kernels/flash_attn/flash_attn.py:113",
     "div_rowbcast": "src/repro/kernels/fused_div/fused_div.py:214",
     "div": "src/repro/kernels/fused_div/fused_div.py:239",
+    "rapid_mul": "src/repro/kernels/rapid_mul/rapid_mul.py:49",
+    "rapid_div": "src/repro/kernels/rapid_div/rapid_div.py:51",
 }
 SOURCES = {
     "log_matmul": "src/repro_torch/csrc/log_matmul.cu",
@@ -87,6 +124,8 @@ SOURCES = {
     "flash_decode": "src/repro_torch/csrc/flash_attn.cu",
     "div_rowbcast": "src/repro_torch/csrc/fused_div.cu",
     "div": "src/repro_torch/csrc/fused_div.cu",
+    "rapid_mul": "src/repro_torch/csrc/rapid_int.cu",
+    "rapid_div": "src/repro_torch/csrc/rapid_int.cu",
 }
 # the kernels each serve path must launch (and, for the continuous
 # path, the one it must not: K3 serves only lockstep prefill)
@@ -172,10 +211,16 @@ def abs_max(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if hasattr(a, "detach") else np.asarray(a)
+
+
 def same_bits(a, b) -> bool:
-    """float32 tensors bit-equal, NaN payloads aside: NaN in the same
-    places, every other element the same bit pattern."""
-    ga, gb = a.detach().cpu().numpy(), b.detach().cpu().numpy()
+    """float32 tensors (or arrays) bit-equal, NaN payloads aside: NaN in
+    the same places, every other element the same bit pattern."""
+    ga, gb = _host(a), _host(b)
+    if ga.shape != gb.shape:
+        return False
     nan_a = np.isnan(ga)
     return bool((nan_a == np.isnan(gb)).all()
                 and ((ga.view(np.int32) == gb.view(np.int32)) | nan_a).all())
@@ -416,7 +461,81 @@ def kernel_phase(torch, dev, timer):
            timer(lambda: div_plain(a, b, "rapid9"), 3),
            4 * 3 * a.numel(), 3 * a.numel(), INT32_OPS_PER_S,
            {"call_ms": timer(k6, 20)})
+    del a, b, got, ref
+    integer_and_batched_cases(torch, dev, timer, g, record)
     return cases
+
+
+def integer_and_batched_cases(torch, dev, timer, g, record):
+    """K9 / K10 against their plain versions, bit for bit: every pair of
+    8-bit operands, then 2^24 random pairs (K9 at 16 bits; K10 with a 16-
+    and b 8-bit), each headed by the special operands (0 on either side
+    and both, 1, the largest values, a < b, the divider's b = 0).  Then K1
+    batched at JPEG's 2048^2 frame, [65536, 8, 8] @ [65536, 8, 8], with
+    the DCT basis broadcast (stride 0) on each side in turn.  Bound:
+    bytes (two int32 operands in, one int64 result out per pair)."""
+    from repro_torch.kernels.log_matmul.ops import (log_matmul,
+                                                    log_matmul_plain)
+    from repro_torch.kernels.rapid_div.ops import rapid_div, rapid_div_plain
+    from repro_torch.kernels.rapid_mul.ops import rapid_mul, rapid_mul_plain
+
+    def pairs(a_bits, b_bits, n):
+        if n is None:  # every pair of 8-bit operands
+            v = torch.arange(256, dtype=torch.int32, device=dev)
+            return v.repeat_interleave(256), v.repeat(256)
+        a = torch.randint(0, 1 << a_bits, (n,), generator=g, device=dev,
+                          dtype=torch.int32)
+        b = torch.randint(0, 1 << b_bits, (n,), generator=g, device=dev,
+                          dtype=torch.int32)
+        amax, bmax = (1 << a_bits) - 1, (1 << b_bits) - 1
+        sa = [0, 5, 0, 1, 1, amax, amax, 1, 3, bmax, amax, 2]
+        sb = [7, 0, 0, 1, bmax, 1, bmax, 0, bmax, 1, 0, 3]
+        a[:len(sa)] = torch.tensor(sa, dtype=torch.int32, device=dev)
+        b[:len(sb)] = torch.tensor(sb, dtype=torch.int32, device=dev)
+        return a, b
+
+    for name, fn, plain, scheme, n_bits, a_bits in (
+            ("rapid_mul", rapid_mul, rapid_mul_plain, "rapid10", 8, 8),
+            ("rapid_mul", rapid_mul, rapid_mul_plain, "rapid10", 16, 16),
+            ("rapid_div", rapid_div, rapid_div_plain, "rapid9", 8, None),
+            ("rapid_div", rapid_div, rapid_div_plain, "rapid9", 8, 16)):
+        n = None if a_bits in (8, None) else INT_PAIRS
+        a, b = pairs(a_bits or 8, n_bits, n)
+        got = fn(a, b, scheme, n_bits)
+        ref = plain(a, b, scheme, n_bits)
+        torch.cuda.synchronize()
+        ok = bool(torch.equal(got, ref))
+        err = float((got - ref).abs().max())
+        k = lambda: fn(a, b, scheme, n_bits)  # noqa: E731
+        m = a.numel()
+        record(name, f"pairs={m} {scheme} n_bits={n_bits}"
+               + (" a<2^16" if name == "rapid_div" and n else "")
+               + (" exhaustive 8-bit" if n is None else ""),
+               err, 0 if ok else -1, ok,
+               timer.graph(k, 50 if n is None else 10),
+               timer(lambda: plain(a, b, scheme, n_bits), 2),
+               m * (4 + 4 + 8), m * INT32_OPS_PER_UNIT, INT32_OPS_PER_S,
+               {"call_ms": timer(k, 10)})
+        del a, b, got, ref
+
+    c = torch.randn((8, 8), generator=g, device=dev)
+    blocks = torch.randn((JPEG_BLOCKS, 8, 8), generator=g, device=dev) * 40
+    for side in ("x", "w"):
+        x = c.expand(JPEG_BLOCKS, 8, 8) if side == "x" else blocks
+        w = blocks if side == "x" else c.T.contiguous().expand(
+            JPEG_BLOCKS, 8, 8)
+        got = log_matmul(x, w, "rapid10")
+        ref = log_matmul_plain(x, w, "rapid10")
+        torch.cuda.synchronize()
+        ok = same_bits(got, ref)
+        k1b = lambda: log_matmul(x, w, "rapid10")  # noqa: E731
+        record("log_matmul", f"batched [{JPEG_BLOCKS},8,8]@[{JPEG_BLOCKS},8,8]"
+               f" {side} broadcast (JPEG 2048^2 DCT)", abs_max(got, ref),
+               ulp_max(got, ref), ok, timer.graph(k1b, 20),
+               timer(lambda: log_matmul_plain(x, w, "rapid10"), 2),
+               4 * (64 + 2 * JPEG_BLOCKS * 64),
+               JPEG_BLOCKS * 512 * INT32_OPS_PER_PRODUCT, INT32_OPS_PER_S,
+               {"call_ms": timer(k1b, 10), "products": JPEG_BLOCKS * 512})
 
 
 # --------------------------------------------------------------------------
@@ -520,35 +639,6 @@ def prompts_for(vocab: int, seed: int = 0, n_extra: int = 0):
                       for n in rng.integers(96, 129, n_extra)]
 
 
-@contextmanager
-def plain_versions():
-    """Route the model's kernel calls to their plain versions (on the
-    card), for the end-to-end comparisons only: K1-K4 where
-    ``core/ops.py`` calls them, K5/K6 where ``fused_elementwise_div``
-    does."""
-    from repro_torch.core import ops
-    from repro_torch.kernels.flash_attn.ops import flash_decode_plain
-    from repro_torch.kernels.fused_div import ops as fdops
-    from repro_torch.kernels.log_matmul.ops import log_matmul_plain
-
-    swaps = [(ops, {"log_matmul": log_matmul_plain,
-                    "fused_rms_div": fdops.rms_div_plain,
-                    "fused_softmax_div": fdops.softmax_div_plain,
-                    "flash_decode_attn": flash_decode_plain}),
-             (fdops, {"div_rowbcast": fdops.div_rowbcast_plain,
-                      "div_elementwise": fdops.div_plain})]
-    saved = [(mod, {k: getattr(mod, k) for k in swap}) for mod, swap in swaps]
-    for mod, swap in swaps:
-        for k, v in swap.items():
-            setattr(mod, k, v)
-    try:
-        yield
-    finally:
-        for mod, old in saved:
-            for k, v in old.items():
-                setattr(mod, k, v)
-
-
 def require_launches(path: str, counts, must, must_not=()) -> None:
     missing = [k for k in must if counts[k] <= 0]
     extra = [k for k in must_not if counts[k] > 0]
@@ -559,7 +649,8 @@ def require_launches(path: str, counts, must, must_not=()) -> None:
 
 def serve_phase(torch, dev):
     from repro_torch.configs.base import RAPID, get_config
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (launch_counts, plain_versions,
+                                     reset_launch_counts)
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import ServeEngine
 
@@ -703,7 +794,8 @@ def continuous_phase(torch, cfg, params, lockstep_out):
     probed layer by layer; the same load again on the drained engine
     (warm); a profile of one tick of each kind; then the 2-layer
     kernels-vs-plain comparison."""
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (launch_counts, plain_versions,
+                                     reset_launch_counts)
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.scheduler import ContinuousServeEngine
@@ -843,7 +935,8 @@ def long_prefill_phase(torch, dev, cfg, params):
     attention (K5) and a wrapped 4096-slot ring cache, then 4 decode
     steps; and ``_attn_blockwise`` at that shape, K5 vs its plain
     version."""
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (launch_counts, plain_versions,
+                                     reset_launch_counts)
     from repro_torch.models import layers
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import ServeEngine
@@ -903,6 +996,268 @@ def long_prefill_phase(torch, dev, cfg, params):
             "launches": counts, "tokens": out, "blockwise_k5_vs_plain": diff}
 
 
+# --------------------------------------------------------------------------
+# phases 7 and 8: the paper's integer units and its three applications
+# --------------------------------------------------------------------------
+
+def integer_units_phase(torch, dev):
+    """The integer units' own path, as the paper's Table III uses them:
+    K9 at 8 bits (every pair of nonzero operands) and 16 bits (2^24
+    random nonzero pairs), K10 at 8/4 (every a < 256, 0 < b < 16) and
+    16/8 (2^24 random pairs), all four schemes each, through the
+    wrappers; the launch counts are set to 0 just before and read just
+    after.  Information, not a gate: the mean (ARE) and peak (PRE)
+    relative error of the integer outputs against the exact product, and
+    against the exact quotient where it is at least 1, beside the
+    paper's fixed-point figures."""
+    from repro_torch.core import schemes
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.rapid_div.ops import rapid_div
+    from repro_torch.kernels.rapid_mul.ops import rapid_mul
+
+    g = torch.Generator(device=dev).manual_seed(99)
+
+    def operands(a_bits, b_bits, n):
+        if n is None:
+            a = torch.arange(1, 1 << a_bits, device=dev)
+            b = torch.arange(1, 1 << b_bits, device=dev)
+            return (a.repeat_interleave(b.numel()).int(),
+                    b.repeat(a.numel()).int())
+        return (torch.randint(1, 1 << a_bits, (n,), generator=g, device=dev,
+                              dtype=torch.int32),
+                torch.randint(1, 1 << b_bits, (n,), generator=g, device=dev,
+                              dtype=torch.int32))
+
+    rows = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for kind, n_bits, n in (("mul", 8, None), ("mul", 16, INT_PAIRS),
+                            ("div", 4, None), ("div", 8, INT_PAIRS)):
+        a, b = operands(2 * n_bits if kind == "div" else n_bits, n_bits, n)
+        exact = (a.double() * b.double() if kind == "mul"
+                 else a.double() / b.double())
+        keep = exact >= 1.0
+        table = schemes.MUL_SCHEMES if kind == "mul" else schemes.DIV_SCHEMES
+        paper = PAPER_MUL if kind == "mul" else PAPER_DIV
+        for name in table:
+            out = (rapid_mul if kind == "mul" else rapid_div)(a, b, name,
+                                                              n_bits)
+            re = (out.double()[keep] / exact[keep] - 1.0).abs() * 100.0
+            row = {"op": kind, "n_bits": n_bits, "scheme": name,
+                   "pairs": int(keep.sum()), "are_pct": float(re.mean()),
+                   "pre_pct": float(re.max()),
+                   "paper_are_pct": paper[(name, n_bits)][0],
+                   "paper_pre_pct": paper[(name, n_bits)][1]}
+            rows.append(row)
+            log(f"int accuracy {kind} n_bits={n_bits:2d} {name:8s} "
+                f"ARE {row['are_pct']:.3f}% PRE {row['pre_pct']:.2f}% over "
+                f"{row['pairs']} pairs (paper Table III {row['paper_are_pct']}"
+                f"% / {row['paper_pre_pct']}%: fixed-point outputs; these are "
+                "the units' truncated integer outputs, so they differ)")
+        del a, b, exact, keep
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    require_launches("integer units", counts, ("rapid_mul", "rapid_div"))
+    log(f"integer units: {time.perf_counter() - t0:.1f}s, kernels "
+        f"{json.dumps(counts)}")
+    return {"accuracy": rows, "launches": counts}
+
+
+def _device_timed(torch, fn):
+    """``fn()`` with its host wall time and its device time (CUDA events
+    around it, synchronised), in ms."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, a.elapsed_time(b)
+
+
+def apps_phase(torch, dev):
+    """JPEG, Pan-Tompkins and Harris under all five variants.  At the
+    reference's QoR sizes each device stage runs through the kernels and
+    through the plain versions, and the two must give equal bits; the
+    QoR gates of tests/test_apps_qor.py must hold.  Then the timing sizes
+    (a 2048^2 aerial frame, a 5-minute ECG record, a 1024^2 scene),
+    kernels only, the launch counts set to 0 just before and read just
+    after: K1 and K6 must launch.  Host (numpy) and device times apart."""
+    from repro_torch.apps import harris, jpeg, pan_tompkins
+    from repro_torch.apps.arith import VARIANTS, psnr
+    from repro_torch.kernels import (launch_counts, plain_versions,
+                                     reset_launch_counts)
+
+    names = list(VARIANTS)
+    qor_counts = {}
+
+    def both(fn, what):
+        """fn() through the kernels (counted) and the plain versions (no
+        launch); the two must be bit-equal."""
+        reset_launch_counts()
+        got = fn()
+        torch.cuda.synchronize()
+        for k, v in launch_counts().items():
+            qor_counts[k] = qor_counts.get(k, 0) + v
+        reset_launch_counts()
+        with plain_versions():
+            ref = fn()
+        torch.cuda.synchronize()
+        if any(launch_counts().values()):
+            raise AssertionError(f"{what}: the plain route launched "
+                                 f"{launch_counts()}")
+        if not same_bits(got, ref):
+            raise AssertionError(f"{what}: kernel and plain routes differ")
+        return got
+
+    t0 = time.perf_counter()
+    imgs = [jpeg.synthetic_aerial(256, seed=s) for s in range(3)]
+    jq = {name: float(np.mean([
+        psnr(img, both(lambda: jpeg.jpeg_roundtrip(img, VARIANTS[name], device=dev),
+                       f"jpeg {name}"), 255.0) for img in imgs]))
+        for name in names}
+    sig, truth = pan_tompkins.synthetic_ecg(40, seed=0)
+    der = torch.as_tensor(pan_tompkins._bandpass_derivative(sig), device=dev)
+    integ = {name: both(lambda: pan_tompkins.integrate_energy(
+        der, VARIANTS[name]), f"pan-tompkins {name}").cpu().numpy()
+        for name in names}
+    peak = float(np.max(np.abs(integ["accurate"])) + 1e-9)
+    pq = {}
+    for name in names:
+        se, ppv = pan_tompkins.score(pan_tompkins.find_peaks(integ[name]),
+                                     truth)
+        pq[name] = {"sensitivity": se, "ppv": ppv,
+                    "psnr_vs_accurate_db": psnr(integ["accurate"],
+                                                integ[name], peak)}
+    scenes = [harris.synthetic_scene(192, seed=s) for s in range(3)]
+    grads = [harris.normalized_gradients(img, dev) for img in scenes]
+    corners = {name: [harris.nms_top(both(
+        lambda: harris.harris_response(gx, gy, VARIANTS[name]),
+        f"harris {name}").cpu().numpy()) for gx, gy in grads]
+        for name in names}
+    hq = {name: float(np.mean([harris.match_fraction(r, c) for r, c in zip(
+        corners["accurate"], corners[name])])) * 100.0 for name in names}
+    log(f"apps QoR (kernel and plain routes bit-equal in every stage, "
+        f"{time.perf_counter() - t0:.1f}s; kernels {json.dumps(qor_counts)})")
+    log("  jpeg psnr (3 x 256^2): " + ", ".join(
+        f"{k} {v:.2f} dB" for k, v in jq.items()))
+    log("  pan-tompkins (40 beats): " + "; ".join(
+        f"{k} se {v['sensitivity']:.4f} ppv {v['ppv']:.4f} psnr "
+        f"{v['psnr_vs_accurate_db']:.2f} dB" for k, v in pq.items()))
+    log("  harris correct vectors (3 x 192^2): " + ", ".join(
+        f"{k} {v:.2f}%" for k, v in hq.items()))
+    gates = {
+        "jpeg rapid >= 28 dB": jq["rapid"] >= 28.0,
+        "jpeg accurate - rapid < 2.5 dB": jq["accurate"] - jq["rapid"] < 2.5,
+        "jpeg rapid > mitchell + 2 dB": jq["rapid"] > jq["mitchell"] + 2.0,
+        "pan-tompkins rapid se, ppv >= 0.95":
+            min(pq["rapid"]["sensitivity"], pq["rapid"]["ppv"]) >= 0.95,
+        "pan-tompkins rapid psnr >= 28 dB":
+            pq["rapid"]["psnr_vs_accurate_db"] >= 28.0,
+        "pan-tompkins rapid psnr > mitchell":
+            pq["rapid"]["psnr_vs_accurate_db"]
+            > pq["mitchell"]["psnr_vs_accurate_db"],
+        "harris rapid >= 90%": hq["rapid"] >= 90.0,
+        "harris rapid > truncated": hq["rapid"] > hq["truncated"]}
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"QoR gates failed: {failed}")
+    require_launches("apps QoR kernel route", qor_counts, ("log_matmul", "div"))
+
+    # timing sizes, kernels only
+    timing = {}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    img = jpeg.synthetic_aerial(JPEG_FRAME, seed=0)
+    synth = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    blocks = torch.as_tensor(jpeg._blockify(img), device=dev) - 128.0
+    q = torch.as_tensor(jpeg.QTABLE, device=dev)
+    torch.cuda.synchronize()
+    up = (time.perf_counter() - t0) * 1e3
+    dev_ms, wall_ms = {}, {}
+    for name in names:
+        jpeg.roundtrip_blocks(blocks, VARIANTS[name], q)  # warm
+        rec, wall_ms[name], dev_ms[name] = _device_timed(
+            torch, lambda: jpeg.roundtrip_blocks(blocks, VARIANTS[name], q))
+        if name == "rapid":
+            t0 = time.perf_counter()
+            out = jpeg._unblockify(rec.cpu().numpy(), *img.shape)
+            down = (time.perf_counter() - t0) * 1e3
+            p_rapid = psnr(img, out, 255.0)
+    timing["jpeg"] = {"shape": f"{JPEG_FRAME}x{JPEG_FRAME} "
+                      f"({JPEG_BLOCKS} blocks)", "host_synth_ms": synth,
+                      "host_blockify_upload_ms": up,
+                      "host_download_unblockify_ms": down,
+                      "device_ms": dev_ms, "wall_ms": wall_ms,
+                      "psnr_rapid_db": p_rapid}
+    t0 = time.perf_counter()
+    sig, truth = pan_tompkins.synthetic_ecg(350, seed=1)
+    synth = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    der = torch.as_tensor(pan_tompkins._bandpass_derivative(sig), device=dev)
+    torch.cuda.synchronize()
+    band = (time.perf_counter() - t0) * 1e3
+    dev_ms, wall_ms = {}, {}
+    for name in names:
+        pan_tompkins.integrate_energy(der, VARIANTS[name])  # warm
+        integ, wall_ms[name], dev_ms[name] = _device_timed(
+            torch, lambda: pan_tompkins.integrate_energy(der, VARIANTS[name]))
+        if name == "rapid":
+            t0 = time.perf_counter()
+            det = pan_tompkins.find_peaks(integ.cpu().numpy())
+            find = (time.perf_counter() - t0) * 1e3
+            se, ppv = pan_tompkins.score(det, truth)
+    timing["pan_tompkins"] = {
+        "shape": f"{len(sig)} samples ({len(sig) / pan_tompkins.FS:.0f} s, "
+                 f"{len(truth)} beats)", "host_synth_ms": synth,
+        "host_bandpass_upload_ms": band, "host_find_peaks_ms": find,
+        "device_ms": dev_ms, "wall_ms": wall_ms,
+        "rapid_sensitivity": se, "rapid_ppv": ppv}
+    t0 = time.perf_counter()
+    img = harris.synthetic_scene(1024, seed=0)
+    synth = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    gx, gy = harris.normalized_gradients(img, dev)
+    torch.cuda.synchronize()
+    sob = (time.perf_counter() - t0) * 1e3
+    dev_ms, wall_ms = {}, {}
+    for name in names:
+        harris.harris_response(gx, gy, VARIANTS[name])  # warm
+        r, wall_ms[name], dev_ms[name] = _device_timed(
+            torch, lambda: harris.harris_response(gx, gy, VARIANTS[name]))
+        if name == "rapid":
+            t0 = time.perf_counter()
+            n_corners = len(harris.nms_top(r.cpu().numpy()))
+            nms = (time.perf_counter() - t0) * 1e3
+    timing["harris"] = {"shape": "1024x1024", "host_synth_ms": synth,
+                        "host_sobel_upload_ms": sob, "host_nms_ms": nms,
+                        "device_ms": dev_ms, "wall_ms": wall_ms,
+                        "rapid_corners": n_corners}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for app, t in timing.items():
+        host = {k: round(v, 2) for k, v in t.items() if k.startswith("host")}
+        log(f"apps timing {app} {t['shape']}: host ms {host}; device ms per "
+            "variant " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                   t["device_ms"].items())
+            + " (host wall " + ", ".join(f"{v:.2f}" for v in
+                                         t["wall_ms"].values()) + ")")
+    log(f"apps timing: jpeg rapid psnr {timing['jpeg']['psnr_rapid_db']:.2f} "
+        f"dB, pan-tompkins rapid se {timing['pan_tompkins']['rapid_sensitivity']:.4f}"
+        f" ppv {timing['pan_tompkins']['rapid_ppv']:.4f}, harris rapid "
+        f"{timing['harris']['rapid_corners']} corners; kernels "
+        f"{json.dumps(counts)}")
+    require_launches("apps timing", counts, ("log_matmul", "div"))
+    launches = {k: qor_counts.get(k, 0) + counts[k] for k in counts}
+    return {"qor": {"jpeg_psnr_db": jq, "pan_tompkins": pq,
+                    "harris_correct_vectors_pct": hq},
+            "timing": timing, "launches": launches,
+            "launches_qor": qor_counts, "launches_timing": counts}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -951,19 +1306,27 @@ def main() -> int:
     cfg, params, serve = serve_phase(torch, dev)
     cont = continuous_phase(torch, cfg, params, serve["tokens"])
     long_ = long_prefill_phase(torch, dev, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    ints = integer_units_phase(torch, dev)
+    apps = apps_phase(torch, dev)
 
     # each kernel's row: its time at the main paths' heaviest shape (K5:
-    # the chunked-prefill tick's), its launches summed over the two serve
-    # paths' runs, each read just after that run
+    # the chunked-prefill tick's), its launches summed over the paths'
+    # runs (the two serve paths, the integer units' own path, the apps),
+    # each read just after that run
     heaviest = {"log_matmul": "w1 M=512", "rms_div": "rows=512",
                 "softmax_div": "rows=", "flash_decode": "q=",
-                "div_rowbcast": "a=[2048,", "div": "a=b="}
+                "div_rowbcast": "a=[2048,", "div": "a=b=",
+                "rapid_mul": f"pairs={INT_PAIRS} rapid10 n_bits=16",
+                "rapid_div": f"pairs={INT_PAIRS} rapid9 n_bits=8"}
     kernels = []
     for name, tag in heaviest.items():
         mine = [c for c in cases if c["kernel"] == name]
         top = next(c for c in mine if c["shape"].startswith(tag))
-        by_path = {"lockstep": serve["launches"][name],
-                   "continuous": cont["launches"][name]}
+        by_path = {path: runs["launches"][name] for path, runs in (
+            ("lockstep", serve), ("continuous", cont),
+            ("integer_units", ints), ("apps", apps))}
         row = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -973,12 +1336,10 @@ def main() -> int:
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": None, "shape": top["shape"],
             "launches_by_path": by_path}
-        if name == "div":
-            row["note"] = ("no serve path divides through K6; the kernel "
-                           "phase launches it")
         kernels.append(row)
     record = {"card": card, "cases": cases, "serve": serve,
-              "continuous": cont, "long_prefill": long_, "kernels": kernels,
+              "continuous": cont, "long_prefill": long_,
+              "integer_units": ints, "apps": apps, "kernels": kernels,
               "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -134,17 +134,27 @@ def log_matmul_scan(x: torch.Tensor, w: torch.Tensor,
     The plain version of kernel K1 and bit-equal to the reference's
     ``log_matmul_scan(chunk=1)``: ``acc = 0; acc = acc + p_k`` for
     k = 0..K-1.  Products are computed for a slab of k's at once; only
-    the sum is sequential.
+    the sum is sequential.  Batched: ``x[B,M,K] @ w[B,K,N]``, where
+    either operand may have a batch of 1 (or be 2-D) and is then
+    broadcast over the batch.
     """
-    m, k = x.shape
-    k2, n = w.shape
-    if k != k2:
+    if x.ndim not in (2, 3) or w.ndim not in (2, 3) \
+            or x.shape[-1] != w.shape[-2]:
         raise ValueError(f"contraction mismatch: {tuple(x.shape)} @ {tuple(w.shape)}")
-    acc = torch.zeros((m, n), dtype=torch.float32, device=x.device)
-    slab = max(1, min(k, _SCAN_ELEMS // max(m * n, 1)))
+    m, k = x.shape[-2:]
+    n = w.shape[-1]
+    batch = ()
+    if x.ndim == 3 or w.ndim == 3:
+        bx = x.shape[0] if x.ndim == 3 else 1
+        bw = w.shape[0] if w.ndim == 3 else 1
+        if bx != bw and 1 not in (bx, bw):
+            raise ValueError(f"batch mismatch: {tuple(x.shape)} @ {tuple(w.shape)}")
+        batch = (max(bx, bw),)
+    acc = torch.zeros(batch + (m, n), dtype=torch.float32, device=x.device)
+    slab = max(1, min(k, _SCAN_ELEMS // max(acc.numel(), 1)))
     for k0 in range(0, k, slab):
-        prod = fa.log_mul_f32(x[:, k0:k0 + slab, None],
-                              w[None, k0:k0 + slab, :], lut)  # [M, slab, N]
-        for j in range(prod.shape[1]):
-            acc = acc + prod[:, j]
+        prod = fa.log_mul_f32(x[..., :, k0:k0 + slab, None],
+                              w[..., None, k0:k0 + slab, :], lut)  # [.., M, slab, N]
+        for j in range(prod.shape[-2]):
+            acc = acc + prod[..., j, :]
     return acc

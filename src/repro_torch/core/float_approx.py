@@ -13,7 +13,8 @@ reference bit for bit: the overflow test relies on int32 two's-complement
 wrap, which torch's int32 add gives on both CPU and CUDA (each op is its
 own kernel, so no compiler sees the add and the sign test together).
 
-The straight-through gradient wrappers (``approx_mul``/``approx_div`` as
+:func:`approx_mul` / :func:`approx_div` are the public elementwise ops
+by scheme name, forward only; their straight-through gradients (as
 ``torch.autograd.Function``) come with the training slice.
 """
 from __future__ import annotations
@@ -35,6 +36,8 @@ __all__ = [
     "log_mul_f32",
     "log_div_f32",
     "log_recip_f32",
+    "approx_mul",
+    "approx_div",
 ]
 
 _F32_FRAC = 23
@@ -142,3 +145,19 @@ def log_div_f32(a: torch.Tensor, b: torch.Tensor, lut: torch.Tensor):
 def log_recip_f32(b: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     """Approximate 1/b (division with dividend fraction fixed at zero)."""
     return log_div_f32(torch.ones_like(b), b, lut)
+
+
+def approx_mul(a: torch.Tensor, b: torch.Tensor,
+               scheme: SchemeArg = "rapid10") -> torch.Tensor:
+    """RAPID ``a * b`` by scheme name, computed in f32, in ``a``'s dtype
+    (broadcasting ok).  Forward only."""
+    lut = mul_lut_device(scheme, a.device)
+    return log_mul_f32(a.float(), b.float(), lut).to(a.dtype)
+
+
+def approx_div(a: torch.Tensor, b: torch.Tensor,
+               scheme: SchemeArg = "rapid9") -> torch.Tensor:
+    """RAPID ``a / b`` by scheme name, computed in f32, in ``a``'s dtype
+    (broadcasting ok).  Forward only."""
+    lut = div_lut_device(scheme, a.device)
+    return log_div_f32(a.float(), b.float(), lut).to(a.dtype)

@@ -1,7 +1,8 @@
 """Public RAPID arithmetic API of the port (forward only).
 
-The port of ``repro.core.ops`` for the dense serve paths: :func:`qmatmul`
-with the epilogue menu, :func:`qdiv`, :func:`qsoftmax_div`,
+The port of ``repro.core.ops`` for the dense serve paths and the
+applications: :func:`qmatmul` with the epilogue menu,
+:func:`qmatmul_batched`, :func:`qdiv`, :func:`qsoftmax_div`,
 :func:`qrms_div`, :func:`qdecode_attn` and :func:`exact_einsum`.
 ``scheme=None`` (or "exact") is the exact path in plain PyTorch; a RAPID
 scheme routes through the kernel wrappers, which launch their CUDA
@@ -22,8 +23,8 @@ from repro_torch.kernels.fused_div.ops import (fused_elementwise_div,
                                               fused_softmax_div)
 from repro_torch.kernels.log_matmul.ops import log_matmul
 
-__all__ = ["qmatmul", "exact_einsum", "qdiv", "qsoftmax_div", "qrms_div",
-           "qdecode_attn"]
+__all__ = ["qmatmul", "qmatmul_batched", "exact_einsum", "qdiv",
+           "qsoftmax_div", "qrms_div", "qdecode_attn"]
 
 
 def _exact(scheme: Optional[str]) -> bool:
@@ -80,6 +81,62 @@ def qmatmul(x: torch.Tensor, w: torch.Tensor, scheme: Optional[str] = None,
         tail, pre = out
         return (tail.reshape(out_shape).to(x.dtype),
                 pre.reshape(out_shape).to(x.dtype))
+    return out.reshape(out_shape).to(x.dtype)
+
+
+def _per_entry_contiguous(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as it is when each batch entry is contiguous (a stride-0
+    broadcast stays uncopied), else a contiguous copy."""
+    return t if t.shape[0] == 0 or t[0].is_contiguous() else t.contiguous()
+
+
+def qmatmul_batched(x: torch.Tensor, w: torch.Tensor,
+                    scheme: Optional[str] = None, *,
+                    bias: Optional[torch.Tensor] = None,
+                    activation: Optional[str] = None) -> torch.Tensor:
+    """Batched matmul with *shared* leading batch dims on ``x`` and ``w``.
+
+    ``x``: ``[*B, M, K]``; ``w``: ``[*B, K, N]`` -> ``[*B, M, N]`` (the
+    per-expert MoE contraction, JPEG's blockwise DCT).  ``bias`` may be
+    shared (shape ``w.shape[nb:][1:]``) or per batch (``w.shape[:nb] +
+    w.shape[nb+1:]``).  A 2-D ``w`` falls back to :func:`qmatmul`.  A
+    RAPID scheme runs kernel K1 once over the flattened batch; an operand
+    broadcast over the batch with ``expand`` (stride 0) is not copied.
+    """
+    if w.ndim == 2:
+        return qmatmul(x, w, scheme, bias=bias, activation=activation)
+    nb = w.ndim - 2
+    if tuple(x.shape[:nb]) != tuple(w.shape[:nb]):
+        raise ValueError(f"batch dims mismatch: {tuple(x.shape[:nb])} vs "
+                         f"{tuple(w.shape[:nb])}")
+    shared = tuple(w.shape[nb + 1:])
+    per_batch = bias is not None and tuple(bias.shape) != shared
+    if per_batch and tuple(bias.shape) != tuple(w.shape[:nb]) + shared:
+        raise ValueError(
+            f"bias shape {tuple(bias.shape)} must be {shared} (shared) or "
+            f"{tuple(w.shape[:nb]) + shared} (per-batch)")
+    act = be.normalize_activation(activation)
+    out_shape = tuple(x.shape[:-1]) + tuple(w.shape[nb + 1:])
+    nbatch = 1
+    for d in w.shape[:nb]:
+        nbatch *= d
+    k = w.shape[nb]
+    x3 = x.float().reshape(nbatch, -1, k)
+    w3 = w.float().reshape(nbatch, k, -1)
+    b2 = None
+    if bias is not None:
+        b2 = bias.float().reshape(nbatch, -1) if per_batch \
+            else bias.float().reshape(-1)
+    if _exact(scheme):
+        out = torch.matmul(x3, w3)
+        if b2 is not None:
+            out = out + (b2[:, None, :] if per_batch else b2)
+        if act is not None:
+            out = be.ACTIVATIONS[act](out)
+    else:
+        out = log_matmul(_per_entry_contiguous(x3), _per_entry_contiguous(w3),
+                         scheme, bias=None if b2 is None else b2.contiguous(),
+                         activation=act)
     return out.reshape(out_shape).to(x.dtype)
 
 

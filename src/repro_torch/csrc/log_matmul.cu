@@ -21,7 +21,14 @@
 //    the JAX reference log_matmul_scan(chunk=1): bit-equal;
 //  * the epilogue act(z + bias) + residual runs in the kernel.  A norm
 //    stage (rms / softmax over the whole row) is not fused: the wrapper
-//    runs it as a K2/K3 launch on this kernel's pre-norm output.
+//    runs it as a K2/K3 launch on this kernel's pre-norm output;
+//  * a batch of independent products [B, M, K] @ [B, K, N] runs in one
+//    launch: the batch is folded into gridDim.x (gridDim.y and .z stop at
+//    65 535; a 2048^2 JPEG frame has 65 536 blocks), and each operand has
+//    a batch stride, 0 for an operand broadcast over the batch, which is
+//    never materialised.  The 2-D call is the batch-1 case, compiled
+//    with BATCHED = false so that its offsets fold away: the serve
+//    paths run the same instructions as before the batch existed.
 //
 // The products follow float_approx.log_mul_f32 (the reference's jnp
 // oracle), including its inf / NaN-operand and overflow-wrap rules.
@@ -60,13 +67,14 @@ __device__ __forceinline__ float product(int32_t a1, uint32_t i1, int32_t m2,
   return __uint_as_float(static_cast<uint32_t>(r) | ((i1 ^ i2) & F32_SIGN));
 }
 
-template <int BM, int BN, int BK, int TM, int TN>
+template <int BM, int BN, int BK, int TM, int TN, bool BATCHED>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 log_matmul_kernel(const float* __restrict__ x, const float* __restrict__ w,
                   const int32_t* __restrict__ lut,
                   const float* __restrict__ bias,
                   const float* __restrict__ residual, float* __restrict__ out,
-                  int M, int N, int K, int act) {
+                  int M, int N, int K, int act, int tiles_n, long long sx,
+                  long long sw, long long sb, long long sr) {
   constexpr int TX = BN / TN;
   constexpr int NT = (BM / TM) * TX;
   __shared__ int32_t s_lut[256];
@@ -77,7 +85,17 @@ log_matmul_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
   const int tid = threadIdx.x;
   const int tx = tid % TX, ty = tid / TX;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  const int row0 = blockIdx.y * BM;
+  int col0 = blockIdx.x * BN;
+  if (BATCHED) {
+    const long long bt = blockIdx.x / tiles_n;
+    col0 = (blockIdx.x % tiles_n) * BN;
+    x += bt * sx;
+    w += bt * sw;
+    if (bias) bias += bt * sb;
+    if (residual) residual += bt * sr;
+    out += bt * M * N;
+  }
   for (int i = tid; i < 256; i += NT) s_lut[i] = lut[i];
 
   float acc[TM][TN];
@@ -155,27 +173,46 @@ log_matmul_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+struct Batch {
+  int count;
+  long long sx, sw, sb, sr;  // element strides; 0 = broadcast
+};
+
 template <int BM, int BN, int BK, int TM, int TN>
 cudaError_t launch(const float* x, const float* w, const int32_t* lut,
                    const float* bias, const float* residual, float* out,
-                   int M, int N, int K, int act, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  log_matmul_kernel<BM, BN, BK, TM, TN>
-      <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(x, w, lut, bias, residual,
-                                                   out, M, N, K, act);
+                   int M, int N, int K, int act, Batch b,
+                   cudaStream_t stream) {
+  const int tiles_n = (N + BN - 1) / BN;
+  if (static_cast<long long>(tiles_n) * b.count > 0x7FFFFFFFll)
+    return cudaErrorInvalidConfiguration;
+  const dim3 grid(tiles_n * b.count, (M + BM - 1) / BM);
+  const int threads = (BM / TM) * (BN / TN);
+  if (b.count > 1)
+    log_matmul_kernel<BM, BN, BK, TM, TN, true><<<grid, threads, 0, stream>>>(
+        x, w, lut, bias, residual, out, M, N, K, act, tiles_n, b.sx, b.sw,
+        b.sb, b.sr);
+  else
+    log_matmul_kernel<BM, BN, BK, TM, TN, false><<<grid, threads, 0, stream>>>(
+        x, w, lut, bias, residual, out, M, N, K, act, tiles_n, 0, 0, 0, 0);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Block geometry is a constant per regime (no autotuner yet):
+//  * M <= 8 and N <= 8 (JPEG's batched 8 x 8 DCT products): one output
+//    per thread, one 8 x 8 product per CTA;
 //  * M <= 8 (decode): a whole 8-row stripe per thread, one output column
 //    each, 64 columns per CTA -- the weight streams through once;
 //  * otherwise (prefill): 64 x 64 tiles, 4 x 4 outputs per thread.
+// out is [batch, M, N], contiguous; x, w, bias and residual advance by
+// their batch strides.
 extern "C" int rapid_log_matmul(const void* x, const void* w, const void* lut,
                                 const void* bias, const void* residual,
                                 void* out, int M, int N, int K, int act,
-                                void* stream) {
+                                int batch, long long sx, long long sw,
+                                long long sb, long long sr, void* stream) {
   const auto* xp = static_cast<const float*>(x);
   const auto* wp = static_cast<const float*>(w);
   const auto* lp = static_cast<const int32_t*>(lut);
@@ -183,7 +220,12 @@ extern "C" int rapid_log_matmul(const void* x, const void* w, const void* lut,
   const auto* rp = static_cast<const float*>(residual);
   auto* op = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
+  const Batch b{batch, sx, sw, sb, sr};
+  if (M <= 8 && N <= 8)
+    return launch<8, 8, 8, 1, 1>(xp, wp, lp, bp, rp, op, M, N, K, act, b, st);
   if (M <= 8)
-    return launch<8, 64, 32, 8, 1>(xp, wp, lp, bp, rp, op, M, N, K, act, st);
-  return launch<64, 64, 16, 4, 4>(xp, wp, lp, bp, rp, op, M, N, K, act, st);
+    return launch<8, 64, 32, 8, 1>(xp, wp, lp, bp, rp, op, M, N, K, act, b,
+                                   st);
+  return launch<64, 64, 16, 4, 4>(xp, wp, lp, bp, rp, op, M, N, K, act, b,
+                                  st);
 }

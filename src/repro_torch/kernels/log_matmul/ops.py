@@ -3,6 +3,11 @@
 ``log_matmul`` takes f32 ``x[M, K]`` and ``w[K, N]`` and returns
 ``norm(act(x @~ w + bias) + residual)`` (or ``(tail, pre_norm)``), where
 ``@~`` sums RAPID approximate products one k at a time in K order.
+Batched, it takes ``x[B, M, K]`` and ``w[B, K, N]`` (either with a batch
+of 1, or 2-D, to broadcast it over the batch; a broadcast operand may
+be a stride-0 ``expand``, which is never copied), ``bias`` ``[N]`` or
+``[B, N]`` and ``residual`` ``[B, M, N]``, in one launch; the norm
+epilogues are 2-D only.
 
 * CPU tensors run the plain version, :func:`log_matmul_plain`
   (``core.backend.log_matmul_scan`` + ``apply_epilogue_tile``).
@@ -26,7 +31,7 @@ import torch
 from repro_torch.core import backend as be
 from repro_torch.core import float_approx as fa
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import on_cuda, ptr, require, stream
+from repro_torch.kernels._launch import on_cuda, ptr, stream
 from repro_torch.kernels.fused_div import ref as fdref
 from repro_torch.kernels.fused_div.ops import fused_rms_div, fused_softmax_div
 
@@ -38,6 +43,13 @@ def log_matmul_plain(x, w, scheme, *, bias=None, activation=None,
     """Plain PyTorch version of K1 (any device)."""
     ep = be.as_epilogue(epilogue, activation)
     out = be.log_matmul_scan(x, w, fa.mul_lut_device(scheme, x.device))
+    if out.ndim == 3:  # batched: the fused epilogue, no norm stage
+        _batched_epilogue_ok(ep)
+        if bias is not None:
+            out = out + (bias if bias.ndim == 1 else bias[:, None, :])
+        if ep.activation is not None:
+            out = be.ACTIVATIONS[ep.activation](out)
+        return out if residual is None else out + residual
     if ep.norm is None:
         return be.apply_epilogue_tile(out, bias, residual, ep, n=out.shape[-1])
     n = out.shape[-1]
@@ -53,27 +65,60 @@ def log_matmul_plain(x, w, scheme, *, bias=None, activation=None,
     return res[:, :n]
 
 
+def _batched_epilogue_ok(ep: be.Epilogue) -> None:
+    if ep.norm is not None:
+        raise ValueError("norm epilogues reduce whole rows and take a 2-D "
+                         "x and w; a batched log_matmul fuses bias, "
+                         "activation and residual only")
+
+
+def _batch_stride(t, name: str, inner, batch: int) -> int:
+    """Element stride between ``t``'s batch entries (0: broadcast); the
+    [rows, cols] matrix of each entry must be contiguous."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected torch.float32, got {t.dtype}")
+    if tuple(t.shape[1:]) != tuple(inner) or t.shape[0] not in (1, batch):
+        raise ValueError(f"{name}: expected shape [{batch} or 1, "
+                         f"{', '.join(map(str, inner))}], got {tuple(t.shape)}")
+    if not t[0].is_contiguous():
+        raise ValueError(f"{name}: each batch entry must be contiguous")
+    return t.stride(0) if t.shape[0] > 1 else 0
+
+
 def _kernel(x, w, scheme, bias, residual, ep: be.Epilogue):
-    m, k = x.shape
-    n = w.shape[1]
+    batched = x.ndim == 3 or w.ndim == 3
+    x3 = x if x.ndim == 3 else x[None]
+    w3 = w if w.ndim == 3 else w[None]
+    batch = max(x3.shape[0], w3.shape[0])
+    m, k = x3.shape[1:]
+    n = w3.shape[2]
     if ep.activation not in be.ACT_CODES:
         raise NotImplementedError(
             f"the CUDA log_matmul has no {ep.activation!r} epilogue; it "
             f"fuses {tuple(a for a in be.ACT_CODES if a)} (the ported "
             f"configs' activations)")
-    require(x, "x", torch.float32)
-    require(w, "w", torch.float32, (k, n))
+    if batched:
+        _batched_epilogue_ok(ep)
+    sx = _batch_stride(x3, "x", (m, k), batch)
+    sw = _batch_stride(w3, "w", (k, n), batch)
+    sb = sr = 0
     if bias is not None:
-        require(bias, "bias", torch.float32, (n,))
+        sb = _batch_stride(bias if bias.ndim == 2 else bias[None], "bias",
+                           (n,), batch)
     if residual is not None:
-        require(residual, "residual", torch.float32, (m, n))
+        sr = _batch_stride(residual if residual.ndim == 3 else residual[None],
+                           "residual", (m, n), batch)
     lut = fa.mul_lut_device(scheme, x.device)
-    pre = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    pre = torch.empty((batch, m, n) if batched else (m, n),
+                      dtype=torch.float32, device=x.device)
+    if pre.numel() == 0:
+        raise ValueError(f"log_matmul: empty output {tuple(pre.shape)}")
     fn = _build.function("log_matmul", "rapid_log_matmul",
-                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                         + [ctypes.c_void_p])
-    err = fn(ptr(x), ptr(w), ptr(lut), ptr(bias), ptr(residual), ptr(pre),
-             m, n, k, be.ACT_CODES[ep.activation], stream(x.device))
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                         + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+    err = fn(ptr(x3), ptr(w3), ptr(lut), ptr(bias), ptr(residual), ptr(pre),
+             m, n, k, be.ACT_CODES[ep.activation], batch, sx, sw, sb, sr,
+             stream(x.device))
     _build.check(err, "log_matmul")
     log_matmul.launches += 1
     if ep.norm is None:
@@ -90,10 +135,16 @@ def log_matmul(x: torch.Tensor, w: torch.Tensor, scheme: str, *,
                activation: Optional[str] = None,
                residual: Optional[torch.Tensor] = None,
                epilogue: Optional[be.Epilogue] = None):
-    """f32 ``x[M,K] @ w[K,N]`` with RAPID products and the epilogue menu."""
+    """f32 ``x[M,K] @ w[K,N]`` (or ``x[B,M,K] @ w[B,K,N]``) with RAPID
+    products and the epilogue menu."""
     ep = be.as_epilogue(epilogue, activation)
-    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
-        raise ValueError(f"log_matmul needs x[M,K] @ w[K,N], got "
+    if x.ndim not in (2, 3) or w.ndim not in (2, 3) \
+            or x.shape[-1] != w.shape[-2] or (
+                x.ndim == w.ndim == 3
+                and x.shape[0] != w.shape[0] and 1 not in (x.shape[0],
+                                                           w.shape[0])):
+        raise ValueError(f"log_matmul needs x[M,K] @ w[K,N] or "
+                         f"x[B,M,K] @ w[B,K,N], got "
                          f"{tuple(x.shape)} @ {tuple(w.shape)}")
     if on_cuda(x, w, bias, residual):
         return _kernel(x, w, scheme, bias, residual, ep)

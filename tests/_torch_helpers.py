@@ -69,3 +69,17 @@ def assert_same_bits(got, ref) -> None:
         f"{bad.size} elements differ, first at flat index {bad[0]}: "
         f"{got.flat[bad[0]]!r} ({bits(got).flat[bad[0]]:#010x}) vs "
         f"{ref.flat[bad[0]]!r} ({bits(ref).flat[bad[0]]:#010x})")
+
+
+def int_pairs(rng, n: int, a_bits: int, b_bits: int):
+    """Random unsigned operand pairs (uint32) headed by the special
+    operands of the integer units: 0 on either side and on both, 1, the
+    largest values, a < b, and the divider's b = 0."""
+    a = rng.integers(0, 1 << a_bits, n).astype(np.uint32)
+    b = rng.integers(0, 1 << b_bits, n).astype(np.uint32)
+    amax, bmax = (1 << a_bits) - 1, (1 << b_bits) - 1
+    sa = [0, 5, 0, 1, 1, amax, amax, 1, 3, bmax, amax, 2]
+    sb = [7, 0, 0, 1, bmax, 1, bmax, 0, bmax, 1, 0, 3]
+    k = min(n, len(sa))
+    a[:k], b[:k] = sa[:k], sb[:k]
+    return a, b

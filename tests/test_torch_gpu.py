@@ -26,7 +26,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_helpers import (assert_same_bits, bits,  # noqa: E402
-                            decode_case, randn, special_sample)
+                            decode_case, int_pairs, randn, special_sample)
 from repro_torch.kernels.flash_attn.ops import (  # noqa: E402
     flash_decode_attn, flash_decode_plain)
 from repro_torch.kernels.fused_div.ops import (  # noqa: E402
@@ -305,3 +305,166 @@ def test_cuda_div_kernels_count_launches(cuda):
     fused_elementwise_div(a, torch.full((80,), 3.0, device=cuda), "rapid9")
     counts = launch_counts()
     assert counts["div_rowbcast"] == 1 and counts["div"] == 1
+
+
+# --------------------------------------------------------------------------
+# K9 / K10: the integer RAPID units, bit-equal to their plain versions
+# --------------------------------------------------------------------------
+
+def _int_operands(rng, n, a_bits, b_bits):
+    return (T(v.astype(np.int64)) for v in int_pairs(rng, n, a_bits, b_bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bits", [8, 12, 16])
+@pytest.mark.parametrize("scheme", ["mitchell", "rapid3", "rapid5", "rapid10"])
+def test_cuda_rapid_mul_matches_plain(cuda, n_bits, scheme):
+    from repro_torch.kernels.rapid_mul.ops import rapid_mul, rapid_mul_plain
+    if n_bits == 8:  # exhaustive, the Table III method
+        g = np.arange(256, dtype=np.int64)
+        a, b = (T(v.ravel().copy()) for v in np.meshgrid(g, g))
+    else:
+        a, b = _int_operands(np.random.default_rng(n_bits), 1 << 20,
+                             n_bits, n_bits)
+    got = rapid_mul(a.to(cuda).to(torch.int32), b.to(cuda), scheme, n_bits)
+    ref = rapid_mul_plain(a.to(cuda), b.to(cuda), scheme, n_bits)
+    assert got.dtype == torch.int64
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    torch.testing.assert_close(got.cpu(), rapid_mul_plain(a, b, scheme, n_bits),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bits", [4, 8, 15])
+@pytest.mark.parametrize("scheme", ["mitchell", "rapid3", "rapid5", "rapid9"])
+def test_cuda_rapid_div_matches_plain(cuda, n_bits, scheme):
+    from repro_torch.kernels.rapid_div.ops import rapid_div, rapid_div_plain
+    a, b = _int_operands(np.random.default_rng(n_bits), 1 << 20,
+                         2 * n_bits, n_bits)
+    if n_bits == 8:  # every divisor against a sweep of dividends
+        g = np.arange(1 << 16, dtype=np.int64)
+        a = torch.cat([a, T(np.tile(g, 4))])
+        b = torch.cat([b, T(np.repeat(np.arange(256, dtype=np.int64), 1024))])
+    got = rapid_div(a.to(cuda), b.to(cuda).to(torch.int16), scheme, n_bits)
+    ref = rapid_div_plain(a.to(cuda), b.to(cuda), scheme, n_bits)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    torch.testing.assert_close(got.cpu(), rapid_div_plain(a, b, scheme, n_bits),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_rapid_int_broadcast_empty_and_counts(cuda):
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.rapid_div.ops import rapid_div, rapid_div_plain
+    from repro_torch.kernels.rapid_mul.ops import rapid_mul, rapid_mul_plain
+    reset_launch_counts()
+    a = torch.arange(60, device=cuda).reshape(3, 20)
+    b = torch.arange(20, device=cuda)
+    torch.testing.assert_close(rapid_mul(a, b), rapid_mul_plain(a, b),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(rapid_div(a, b[:1] + 3), rapid_div_plain(a, b[:1] + 3),
+                               rtol=0, atol=0)
+    assert rapid_mul(a[:0], b).shape == (0, 20)
+    with pytest.raises(TypeError):
+        rapid_mul(a.float(), b)
+    counts = launch_counts()
+    assert counts["rapid_mul"] == 1 and counts["rapid_div"] == 1
+
+
+# --------------------------------------------------------------------------
+# K1 with a batch dimension
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,m,k,n", [(1024, 8, 8, 8), (3, 5, 70, 33),
+                                     (2, 9, 300, 130), (4, 1, 5, 3)])
+@pytest.mark.parametrize("bcast", ["none", "x", "w"])
+@pytest.mark.parametrize("bias_kind", [None, "shared", "per_batch"])
+def test_cuda_log_matmul_batched_bit_exact(cuda, b, m, k, n, bcast, bias_kind):
+    rng = np.random.default_rng(b + m + k + n)
+    x = T(randn(rng, b, m, k)).to(cuda)
+    w = T(randn(rng, b, k, n, scale=0.1)).to(cuda)
+    if bcast == "x":
+        x = x[:1].expand(b, m, k)  # stride 0: never copied
+    elif bcast == "w":
+        w = w[:1].expand(b, k, n)
+    bias = {None: None, "shared": T(randn(rng, n)),
+            "per_batch": T(randn(rng, b, n))}[bias_kind]
+    bias = None if bias is None else bias.to(cuda)
+    res = T(randn(rng, b, m, n)).to(cuda)
+    for act, r in ((None, None), ("silu", res)):
+        got = log_matmul(x, w, "rapid10", bias=bias, activation=act, residual=r)
+        ref = log_matmul_plain(x, w, "rapid10", bias=bias, activation=act,
+                               residual=r)
+        assert got.shape == (b, m, n)
+        np.testing.assert_array_equal(bits(got.cpu().numpy()),
+                                      bits(ref.cpu().numpy()))
+    # and each batch entry equals the 2-D call on it
+    got = log_matmul(x, w, "rapid10")
+    for i in (0, b - 1):
+        np.testing.assert_array_equal(
+            bits(got[i].cpu().numpy()),
+            bits(log_matmul(x[i].contiguous(), w[i].contiguous(),
+                            "rapid10").cpu().numpy()))
+
+
+@pytest.mark.gpu
+def test_cuda_qmatmul_batched_one_launch(cuda):
+    from repro_torch.core.ops import qmatmul_batched
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    rng = np.random.default_rng(0)
+    c = T(randn(rng, 8, 8)).to(cuda)
+    blocks = T(randn(rng, 4096, 8, 8)).to(cuda)
+    reset_launch_counts()
+    out = qmatmul_batched(c.expand(4096, 8, 8), blocks, "rapid10")
+    assert launch_counts()["log_matmul"] == 1
+    ref = log_matmul_plain(c, blocks, "rapid10")
+    np.testing.assert_array_equal(bits(out.cpu().numpy()),
+                                  bits(ref.cpu().numpy()))
+
+
+# --------------------------------------------------------------------------
+# the applications: kernel route == plain route on the card
+# --------------------------------------------------------------------------
+
+APP_VARIANTS = ["accurate", "rapid", "rapid5", "mitchell", "truncated"]
+
+
+def _both_routes(fn):
+    """``fn()`` through the kernels and through the plain versions, with
+    the launch counts of each run."""
+    from repro_torch.kernels import (launch_counts, plain_versions,
+                                     reset_launch_counts)
+    reset_launch_counts()
+    got = fn()
+    k_counts = launch_counts()
+    reset_launch_counts()
+    with plain_versions():
+        ref = fn()
+    assert not any(launch_counts().values()), launch_counts()
+    return got, ref, k_counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", APP_VARIANTS)
+def test_cuda_apps_kernel_route_equals_plain(cuda, variant):
+    from repro_torch.apps import harris, jpeg, pan_tompkins
+    from repro_torch.apps.arith import VARIANTS
+    v = VARIANTS[variant]
+    scheme = variant not in ("accurate", "truncated")
+    img = jpeg.synthetic_aerial(64, seed=1)
+    got, ref, counts = _both_routes(lambda: jpeg.jpeg_roundtrip(img, v))
+    np.testing.assert_array_equal(bits(got), bits(ref))
+    assert (counts["log_matmul"] == 4 and counts["div"] == 1) == scheme
+    sig, _ = pan_tompkins.synthetic_ecg(8, seed=1)
+    der = torch.from_numpy(pan_tompkins._bandpass_derivative(sig)).to(cuda)
+    got, ref, counts = _both_routes(
+        lambda: pan_tompkins.integrate_energy(der, v))
+    np.testing.assert_array_equal(bits(got.cpu().numpy()),
+                                  bits(ref.cpu().numpy()))
+    assert (counts["div"] == 1) == scheme
+    gx, gy = harris.normalized_gradients(harris.synthetic_scene(96, seed=1))
+    got, ref, counts = _both_routes(lambda: harris.harris_response(gx, gy, v))
+    np.testing.assert_array_equal(bits(got.cpu().numpy()),
+                                  bits(ref.cpu().numpy()))
+    assert (counts["div"] == 1) == scheme

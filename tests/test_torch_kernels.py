@@ -52,6 +52,8 @@ from repro_torch.kernels.fused_div.ops import (  # noqa: E402
     div_plain, div_rowbcast_plain, fused_elementwise_div, fused_rms_div,
     fused_softmax_div)
 from repro_torch.kernels.log_matmul.ops import log_matmul  # noqa: E402
+from repro_torch.kernels.rapid_div.ops import rapid_div  # noqa: E402
+from repro_torch.kernels.rapid_mul.ops import rapid_mul  # noqa: E402
 
 T = torch.from_numpy
 
@@ -339,9 +341,12 @@ def test_plain_calls_do_not_count_launches():
     fused_rms_div(torch.ones(2, 8), 1e-6, "rapid9")
     fused_elementwise_div(torch.ones(2, 8), torch.ones(2, 1), "rapid9")
     fused_elementwise_div(torch.ones(2, 8), torch.ones(8), "rapid9")
+    rapid_mul(torch.ones(4, dtype=torch.int32), torch.ones(4, dtype=torch.int32))
+    rapid_div(torch.ones(4, dtype=torch.int32), torch.ones(4, dtype=torch.int32))
     assert launch_counts() == {"log_matmul": 0, "rms_div": 0,
                                "softmax_div": 0, "flash_decode": 0,
-                               "div_rowbcast": 0, "div": 0}
+                               "div_rowbcast": 0, "div": 0,
+                               "rapid_mul": 0, "rapid_div": 0}
 
 
 def test_mixed_devices_raise():
