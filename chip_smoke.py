@@ -48,14 +48,35 @@ one NVIDIA H100.  It
    kernels only, host and device times apart: K1 (batched) and K6 must
    launch.
 
+9. times the serve paths at the default stage counts against depth 1
+   and depth 2 everywhere, in turns on this card (the lockstep decode
+   step and prefill, the continuous prefill tick), and
+   ``launch/k1_times.py`` at depth 1 and 2 (the depth A/B; information);
+10. trains full-width h2o_danube_1_8b (RAPID, f32 params from a seed,
+    bf16 compute, block remat) for 3 AdamW steps of 4 x 128 tokens
+    through ``make_train_step`` / ``train_loop`` into a checkpoint
+    under ``build/`` (checked, then deleted): the launch counts are set
+    to 0 just before the loop and read just after, and K1 (as K7) and
+    K2/K3 (as K8) must have launched at depth >= 2; losses and gradient
+    norms must be finite.  One more step runs under torch.profiler;
+11. runs one train step of a 2-layer full-width copy through the kernels
+    and through the plain versions: loss within rel 1e-5 and every
+    gradient within 1e-5 of its largest magnitude, the kernels launched
+    in the first run and none in the second.
+
 Step 2 also holds K9/K10 bit-equal to their plain versions (special
 operands included) and K1 batched at JPEG's 2048^2 shape, with the
-broadcast DCT basis on each side.
+broadcast DCT basis on each side; and it holds K1 (K7 at depth >= 2)
+and K2/K3/K5 (K8) at depths 1, 2, 3, 4 and 8 bit-equal to their plain
+versions, including K not a multiple of the K block, K shorter than
+depth K blocks, a single row (fewer slabs than depth) and ragged
+slabs.
 
 It exits non-zero, printing no result, when no CUDA card is present or
 when it is run outside a checkout of the repository.  Its last line is
 ``{"ok": true, "device": {...}}``; the line before holds the per-kernel
-record (launches, error, times, bound).  The whole record also goes to
+record (launches, error, times, bound; K7 and K8 as rows of their own,
+counting the launches at depth >= 2).  The whole record also goes to
 ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -107,8 +128,16 @@ PAPER_DIV = {("mitchell", 4): (3.90, 13.0), ("mitchell", 8): (4.11, 13.0),
              ("rapid5", 4): (0.79, 4.34), ("rapid5", 8): (0.79, 4.34),
              ("rapid9", 4): (0.58, 3.48), ("rapid9", 8): (0.58, 3.48)}
 
+# stage counts held against the plain versions (K1 compiles 1-4 and 8;
+# at depth >= 2 K1 is K7 and K2/K3/K5 are K8)
+DEPTHS = (1, 2, 3, 4, 8)
+# the train phase: full-width h2o_danube_1_8b, batch 4 x 128, 3 steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 3
+
 REPLACES = {
     "log_matmul": "src/repro/kernels/log_matmul/log_matmul.py:302",
+    "log_matmul_pipelined": "src/repro/kernels/log_matmul/log_matmul.py:223",
+    "rowwise_pipelined": "src/repro/kernels/fused_div/fused_div.py:129",
     "rms_div": "src/repro/kernels/fused_div/fused_div.py:202",
     "softmax_div": "src/repro/kernels/fused_div/fused_div.py:188",
     "flash_decode": "src/repro/kernels/flash_attn/flash_attn.py:113",
@@ -119,6 +148,8 @@ REPLACES = {
 }
 SOURCES = {
     "log_matmul": "src/repro_torch/csrc/log_matmul.cu",
+    "log_matmul_pipelined": "src/repro_torch/csrc/log_matmul.cu",
+    "rowwise_pipelined": "src/repro_torch/csrc/fused_div.cu",
     "rms_div": "src/repro_torch/csrc/fused_div.cu",
     "softmax_div": "src/repro_torch/csrc/fused_div.cu",
     "flash_decode": "src/repro_torch/csrc/flash_attn.cu",
@@ -261,6 +292,10 @@ def kernel_phase(torch, dev, timer):
                                                    softmax_div_plain)
     from repro_torch.kernels.log_matmul.ops import (log_matmul,
                                                     log_matmul_plain)
+    from repro_torch.kernels.spec import KernelSpec, PipelineSpec
+
+    def at(depth):
+        return KernelSpec(pipeline=PipelineSpec(depth=depth))
 
     g = torch.Generator(device=dev).manual_seed(1234)
 
@@ -289,7 +324,8 @@ def kernel_phase(torch, dev, timer):
                                  f"plain version (max_abs {err}, {ulps} ulp)")
 
     # K1 at M = 4 (decode), 64 (continuous prefill tick) and 512
-    # (lockstep prefill) for each (K, N, epilogue) of the paths;
+    # (lockstep prefill, a train step's 4 x 128 tokens) for each (K, N,
+    # epilogue) of the paths, at every stage count (depth >= 2: K7);
     # tolerance: bit-equal, silu <= 2 ulp (CUDA expf)
     rms_tail = be.Epilogue(norm="rms", div_scheme="rapid9", eps=1e-6,
                            keep_prenorm=True)
@@ -304,55 +340,97 @@ def kernel_phase(torch, dev, timer):
             w = randn(k, n, std=k ** -0.5)
             r = randn(m, n) if res else None
             kw = dict(residual=r, epilogue=ep if ep else be.Epilogue(activation=act))
-            got = log_matmul(x, w, "rapid10", **kw)
             ref = log_matmul_plain(x, w, "rapid10", **kw)
-            torch.cuda.synchronize()
-            pairs = list(zip(got, ref)) if ep else [(got, ref)]
-            err = max(abs_max(a, b) for a, b in pairs)
-            ulps = max(ulp_max(a, b) for a, b in pairs)
-            ok = ulps <= (2 if act == "silu" else 0)
-            ms = timer(lambda: log_matmul(x, w, "rapid10", **kw), 5)
             plain_ms = timer(lambda: log_matmul_plain(x, w, "rapid10", **kw),
                              1 if m > 8 else 2)
             exact_ms = timer(lambda: torch.matmul(x, w), 5)
             nbytes = 4 * (m * k + k * n + m * n * (1 + res + (ep is not None)))
-            record("log_matmul", f"{site} M={m} K={k} N={n}"
-                   + (f" {act}" if act else "") + (" +res" if res else "")
-                   + (" +rms(keep_prenorm)" if ep else ""),
-                   err, ulps, ok, ms, plain_ms, nbytes,
+            for depth in DEPTHS:
+                got = log_matmul(x, w, "rapid10", spec=at(depth), **kw)
+                torch.cuda.synchronize()
+                pairs = list(zip(got, ref)) if ep else [(got, ref)]
+                err = max(abs_max(a, b) for a, b in pairs)
+                ulps = max(ulp_max(a, b) for a, b in pairs)
+                ok = ulps <= (2 if act == "silu" else 0)
+                ms = timer(lambda: log_matmul(x, w, "rapid10", spec=at(depth),
+                                              **kw), 5)
+                record("log_matmul" if depth == 1 else "log_matmul_pipelined",
+                       f"{site} M={m} K={k} N={n}"
+                       + (f" {act}" if act else "") + (" +res" if res else "")
+                       + (" +rms(keep_prenorm)" if ep else "")
+                       + f" depth={depth}",
+                       err, ulps, ok, ms, plain_ms, nbytes,
+                       m * n * k * INT32_OPS_PER_PRODUCT, INT32_OPS_PER_S,
+                       {"exact_matmul_ms": exact_ms, "products": m * n * k,
+                        "depth": depth})
+                del got
+            del x, w, r, ref
+
+    # K1 / K7 where the ring meets its edges: K not a multiple of BK with
+    # N not a multiple of 4 (4 B copies), K % 4 != 0, and K shorter than
+    # depth K blocks (nk < depth); bit-equal at every depth
+    for m, k, n in ((CHUNK_M, 300, 130), (PREFILL_M, 129, 65),
+                    (DECODE_M, 20, 640)):
+        x, w = randn(m, k), randn(k, n, std=k ** -0.5)
+        ref = log_matmul_plain(x, w, "rapid10", activation="silu")
+        plain_ms = timer(lambda: log_matmul_plain(x, w, "rapid10",
+                                                  activation="silu"), 1)
+        for depth in DEPTHS:
+            got = log_matmul(x, w, "rapid10", activation="silu",
+                             spec=at(depth))
+            torch.cuda.synchronize()
+            ulps = ulp_max(got, ref)
+            record("log_matmul" if depth == 1 else "log_matmul_pipelined",
+                   f"ragged M={m} K={k} N={n} silu depth={depth}",
+                   abs_max(got, ref), ulps, ulps <= 2,
+                   timer(lambda: log_matmul(x, w, "rapid10", activation="silu",
+                                            spec=at(depth)), 5),
+                   plain_ms, 4 * (m * k + k * n + m * n),
                    m * n * k * INT32_OPS_PER_PRODUCT, INT32_OPS_PER_S,
-                   {"exact_matmul_ms": exact_ms, "products": m * n * k})
-            del x, w, r, got, ref
+                   {"depth": depth})
 
     # K2: ln1/ln2/final norm of a decode step (4 rows), of a continuous
-    # prefill tick (64 rows) and of the lockstep prefill (512 rows);
+    # prefill tick (64 rows) and of the lockstep prefill / a train step
+    # (512 rows), a single row (fewer slabs than depth) and 37 rows (a
+    # ragged last slab), at every stage count (depth >= 2: K8);
     # tolerance: denominators and quotients bit-equal
-    for rows in (DECODE_M, CHUNK_M, PREFILL_M):
+    for rows in (1, DECODE_M, CHUNK_M, 37, PREFILL_M):
         x = randn(rows, D, std=3.0)
-        got, den = fused_rms_div(x, 1e-6, "rapid9", return_denom=True)
         ref, rden = rms_div_plain(x, 1e-6, "rapid9", return_denom=True)
-        torch.cuda.synchronize()
-        ulps = max(ulp_max(got, ref), ulp_max(den, rden))
-        k2 = lambda: fused_rms_div(x, 1e-6, "rapid9")  # noqa: E731
-        record("rms_div", f"rows={rows} n={D}", abs_max(got, ref), ulps,
-               ulps == 0, timer.graph(k2, 100),
-               timer(lambda: rms_div_plain(x, 1e-6, "rapid9"), 3),
-               4 * (2 * rows * D), rows * D * 2, FP32_FLOPS_PER_S / 2,
-               {"call_ms": timer(k2, 20)})
+        plain_ms = timer(lambda: rms_div_plain(x, 1e-6, "rapid9"), 3)
+        for depth in DEPTHS:
+            got, den = fused_rms_div(x, 1e-6, "rapid9", return_denom=True,
+                                     spec=at(depth))
+            torch.cuda.synchronize()
+            ulps = max(ulp_max(got, ref), ulp_max(den, rden))
+            k2 = lambda: fused_rms_div(x, 1e-6, "rapid9",  # noqa: E731
+                                       spec=at(depth))
+            record("rms_div" if depth == 1 else "rowwise_pipelined",
+                   f"rms rows={rows} n={D} depth={depth}", abs_max(got, ref),
+                   ulps, ulps == 0, timer.graph(k2, 100), plain_ms,
+                   4 * (2 * rows * D), rows * D * 2, FP32_FLOPS_PER_S / 2,
+                   {"call_ms": timer(k2, 20), "depth": depth})
 
-    # K3: prefill attention probabilities, B*H*S rows of T = 128
+    # K3: prefill attention probabilities, B*H*S rows of T = 128, and a
+    # ragged 33 x 130 (n % 4 != 0: 4 B copies); every stage count
     s = randn(4 * 32 * 128, 128, std=2.0)
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    got, den = fused_softmax_div(e, "rapid9", return_denom=True)
-    ref, rden = softmax_div_plain(e, "rapid9", return_denom=True)
-    torch.cuda.synchronize()
-    ulps = max(ulp_max(got, ref), ulp_max(den, rden))
-    k3 = lambda: fused_softmax_div(e, "rapid9")  # noqa: E731
-    record("softmax_div", f"rows={e.shape[0]} n=128", abs_max(got, ref), ulps,
-           ulps == 0, timer.graph(k3, 100),
-           timer(lambda: softmax_div_plain(e, "rapid9"), 3),
-           4 * 2 * e.numel(), e.numel(), FP32_FLOPS_PER_S / 2,
-           {"call_ms": timer(k3, 20)})
+    for e in (torch.exp(s - s.amax(dim=-1, keepdim=True)),
+              torch.exp(randn(33, 130))):
+        ref, rden = softmax_div_plain(e, "rapid9", return_denom=True)
+        plain_ms = timer(lambda: softmax_div_plain(e, "rapid9"), 3)
+        for depth in DEPTHS:
+            got, den = fused_softmax_div(e, "rapid9", return_denom=True,
+                                         spec=at(depth))
+            torch.cuda.synchronize()
+            ulps = max(ulp_max(got, ref), ulp_max(den, rden))
+            k3 = lambda: fused_softmax_div(e, "rapid9",  # noqa: E731
+                                           spec=at(depth))
+            record("softmax_div" if depth == 1 else "rowwise_pipelined",
+                   f"softmax rows={e.shape[0]} n={e.shape[1]} depth={depth}",
+                   abs_max(got, ref), ulps, ulps == 0, timer.graph(k3, 100),
+                   plain_ms, 4 * 2 * e.numel(), e.numel(),
+                   FP32_FLOPS_PER_S / 2,
+                   {"call_ms": timer(k3, 20), "depth": depth})
 
     # K4: one decode step's attention, 128 prompt + 8 generated tokens in
     # a 512-slot bf16 cache; tolerance: bit-equal (the plain version takes
@@ -435,19 +513,23 @@ def kernel_phase(torch, dev, timer):
     for rows in (64 * 32, LONG_PROMPT * 32):
         a = with_specials(randn(rows, HD))
         b = with_specials(randn(rows).abs() * 40 + 1)
-        got = div_rowbcast(a, b, "rapid9")
         ref = div_rowbcast_plain(a, b, "rapid9")
-        torch.cuda.synchronize()
-        ok = same_bits(got, ref)
         fin = torch.isfinite(ref)
-        k5 = lambda: div_rowbcast(a, b, "rapid9")  # noqa: E731
-        record("div_rowbcast", f"a=[{rows},{HD}] b=[{rows}]",
-               abs_max(got[fin], ref[fin]), 0 if ok else -1, ok,
-               timer.graph(k5, 200 if rows < 10**5 else 20),
-               timer(lambda: div_rowbcast_plain(a, b, "rapid9"), 3),
-               4 * (2 * rows * HD + rows), 3 * rows * HD, INT32_OPS_PER_S,
-               {"call_ms": timer(k5, 20)})
-        del a, b, got, ref
+        plain_ms = timer(lambda: div_rowbcast_plain(a, b, "rapid9"), 3)
+        for depth in DEPTHS:
+            got = div_rowbcast(a, b, "rapid9", spec=at(depth))
+            torch.cuda.synchronize()
+            ok = same_bits(got, ref)
+            k5 = lambda: div_rowbcast(a, b, "rapid9",  # noqa: E731
+                                      spec=at(depth))
+            record("div_rowbcast" if depth == 1 else "rowwise_pipelined",
+                   f"a=[{rows},{HD}] b=[{rows}] depth={depth}",
+                   abs_max(got[fin], ref[fin]), 0 if ok else -1, ok,
+                   timer.graph(k5, 200 if rows < 10**5 else 20), plain_ms,
+                   4 * (2 * rows * HD + rows), 3 * rows * HD, INT32_OPS_PER_S,
+                   {"call_ms": timer(k5, 20), "depth": depth})
+            del got
+        del a, b, ref
     a = with_specials(randn(2048, 2048))
     b = with_specials(randn(2048, 2048))
     got = div_elementwise(a, b, "rapid9")
@@ -462,11 +544,11 @@ def kernel_phase(torch, dev, timer):
            4 * 3 * a.numel(), 3 * a.numel(), INT32_OPS_PER_S,
            {"call_ms": timer(k6, 20)})
     del a, b, got, ref
-    integer_and_batched_cases(torch, dev, timer, g, record)
+    integer_and_batched_cases(torch, dev, timer, g, record, at)
     return cases
 
 
-def integer_and_batched_cases(torch, dev, timer, g, record):
+def integer_and_batched_cases(torch, dev, timer, g, record, at):
     """K9 / K10 against their plain versions, bit for bit: every pair of
     8-bit operands, then 2^24 random pairs (K9 at 16 bits; K10 with a 16-
     and b 8-bit), each headed by the special operands (0 on either side
@@ -524,18 +606,24 @@ def integer_and_batched_cases(torch, dev, timer, g, record):
         x = c.expand(JPEG_BLOCKS, 8, 8) if side == "x" else blocks
         w = blocks if side == "x" else c.T.contiguous().expand(
             JPEG_BLOCKS, 8, 8)
-        got = log_matmul(x, w, "rapid10")
         ref = log_matmul_plain(x, w, "rapid10")
-        torch.cuda.synchronize()
-        ok = same_bits(got, ref)
-        k1b = lambda: log_matmul(x, w, "rapid10")  # noqa: E731
-        record("log_matmul", f"batched [{JPEG_BLOCKS},8,8]@[{JPEG_BLOCKS},8,8]"
-               f" {side} broadcast (JPEG 2048^2 DCT)", abs_max(got, ref),
-               ulp_max(got, ref), ok, timer.graph(k1b, 20),
-               timer(lambda: log_matmul_plain(x, w, "rapid10"), 2),
-               4 * (64 + 2 * JPEG_BLOCKS * 64),
-               JPEG_BLOCKS * 512 * INT32_OPS_PER_PRODUCT, INT32_OPS_PER_S,
-               {"call_ms": timer(k1b, 10), "products": JPEG_BLOCKS * 512})
+        plain_ms = timer(lambda: log_matmul_plain(x, w, "rapid10"), 2)
+        for depth in DEPTHS:  # one K block: nk < depth from depth 2 on
+            got = log_matmul(x, w, "rapid10", spec=at(depth))
+            torch.cuda.synchronize()
+            ok = same_bits(got, ref)
+            k1b = lambda: log_matmul(x, w, "rapid10",  # noqa: E731
+                                     spec=at(depth))
+            record("log_matmul" if depth == 1 else "log_matmul_pipelined",
+                   f"batched [{JPEG_BLOCKS},8,8]@[{JPEG_BLOCKS},8,8]"
+                   f" {side} broadcast (JPEG 2048^2 DCT) depth={depth}",
+                   abs_max(got, ref), ulp_max(got, ref), ok,
+                   timer.graph(k1b, 20), plain_ms,
+                   4 * (64 + 2 * JPEG_BLOCKS * 64),
+                   JPEG_BLOCKS * 512 * INT32_OPS_PER_PRODUCT, INT32_OPS_PER_S,
+                   {"call_ms": timer(k1b, 10), "products": JPEG_BLOCKS * 512,
+                    "depth": depth})
+            del got
 
 
 # --------------------------------------------------------------------------
@@ -647,10 +735,21 @@ def require_launches(path: str, counts, must, must_not=()) -> None:
                              f"{extra}, which it must not ({counts})")
 
 
+def counts_now() -> dict:
+    """``launch_counts()`` plus, for each kernel with a stage count, its
+    launches at depth >= 2 under ``<name>@d2+`` (K1's are K7's, K2's,
+    K3's and K5's are K8's)."""
+    from repro_torch.kernels import launch_counts, launch_counts_by_depth
+
+    counts = launch_counts()
+    for name, by_depth in launch_counts_by_depth().items():
+        counts[f"{name}@d2+"] = sum(n for d, n in by_depth.items() if d >= 2)
+    return counts
+
+
 def serve_phase(torch, dev):
     from repro_torch.configs.base import RAPID, get_config
-    from repro_torch.kernels import (launch_counts, plain_versions,
-                                     reset_launch_counts)
+    from repro_torch.kernels import plain_versions, reset_launch_counts
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import ServeEngine
 
@@ -673,7 +772,7 @@ def serve_phase(torch, dev):
     out = engine.generate(prompts, max_new=max_new)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = counts_now()
 
     n_dec = sum(len(o) for o in out) - len(out)  # tokens after the first
     dec_s = sum(timed.decode_s)
@@ -698,13 +797,13 @@ def serve_phase(torch, dev):
     t0 = time.perf_counter()
     k_tok = eng2.generate(prompts, max_new=max_new)
     t_k = time.perf_counter() - t0
-    k_counts = launch_counts()
+    k_counts = counts_now()
     reset_launch_counts()
     t0 = time.perf_counter()
     with plain_versions():
         p_tok = eng2.generate(prompts, max_new=max_new)
     t_p = time.perf_counter() - t0
-    p_counts = launch_counts()
+    p_counts = counts_now()
     # the comparison means something only if the two runs took different
     # routes: the path's kernels in the first, none in the second
     require_launches("lockstep 2-layer kernel run", k_counts, LOCKSTEP_KERNELS)
@@ -794,8 +893,7 @@ def continuous_phase(torch, cfg, params, lockstep_out):
     probed layer by layer; the same load again on the drained engine
     (warm); a profile of one tick of each kind; then the 2-layer
     kernels-vs-plain comparison."""
-    from repro_torch.kernels import (launch_counts, plain_versions,
-                                     reset_launch_counts)
+    from repro_torch.kernels import plain_versions, reset_launch_counts
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.scheduler import ContinuousServeEngine
@@ -818,7 +916,7 @@ def continuous_phase(torch, cfg, params, lockstep_out):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         if run == "cold":
-            counts = launch_counts()
+            counts = counts_now()
         pf, dc = timed.prefill_tick_s[n_pf:], timed.decode_tick_s[n_dc:]
         n_gen = sum(len(o) for o in out)
         serve_runs.append({
@@ -906,7 +1004,7 @@ def continuous_phase(torch, cfg, params, lockstep_out):
                 toks, q2, _ = drain(eng2, prompts2, 8)
         else:
             toks, q2, _ = drain(eng2, prompts2, 8)
-        runs[route] = (toks, time.perf_counter() - t0, launch_counts(),
+        runs[route] = (toks, time.perf_counter() - t0, counts_now(),
                        len(t2.prefill_tick_s), q2)
     (k_tok, t_k, k_counts, k_pf, k_q), (p_tok, t_p, p_counts, _, _) = \
         runs["kernels"], runs["plain"]
@@ -935,8 +1033,7 @@ def long_prefill_phase(torch, dev, cfg, params):
     attention (K5) and a wrapped 4096-slot ring cache, then 4 decode
     steps; and ``_attn_blockwise`` at that shape, K5 vs its plain
     version."""
-    from repro_torch.kernels import (launch_counts, plain_versions,
-                                     reset_launch_counts)
+    from repro_torch.kernels import plain_versions, reset_launch_counts
     from repro_torch.models import layers
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import ServeEngine
@@ -950,7 +1047,7 @@ def long_prefill_phase(torch, dev, cfg, params):
     reset_launch_counts()
     out = engine.generate([prompt], max_new=5)[0]  # prefill + 4 decode steps
     torch.cuda.synchronize()
-    counts = launch_counts()
+    counts = counts_now()
     log(f"long prefill: {LONG_PROMPT} tokens, 2 layers, window "
         f"{cfg.sliding_window} (ring cache wraps): prefill "
         f"{timed.prefill_s[0] * 1e3:.1f} ms, {len(timed.decode_s)} decode "
@@ -984,7 +1081,7 @@ def long_prefill_phase(torch, dev, cfg, params):
     with plain_versions():
         ref = blockwise().float()
     torch.cuda.synchronize()
-    n_k5 = launch_counts()["div_rowbcast"]
+    n_k5 = counts_now()["div_rowbcast"]
     diff = abs_max(got, ref)
     log(f"long prefill: _attn_blockwise [1,{LONG_PROMPT},8,4,80] bf16, K5 "
         f"vs plain K5: max abs diff {diff!r} (K5 launches {n_k5})")
@@ -1011,7 +1108,7 @@ def integer_units_phase(torch, dev):
     against the exact quotient where it is at least 1, beside the
     paper's fixed-point figures."""
     from repro_torch.core import schemes
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import reset_launch_counts
     from repro_torch.kernels.rapid_div.ops import rapid_div
     from repro_torch.kernels.rapid_mul.ops import rapid_mul
 
@@ -1056,7 +1153,7 @@ def integer_units_phase(torch, dev):
                 "the units' truncated integer outputs, so they differ)")
         del a, b, exact, keep
     torch.cuda.synchronize()
-    counts = launch_counts()
+    counts = counts_now()
     require_launches("integer units", counts, ("rapid_mul", "rapid_div"))
     log(f"integer units: {time.perf_counter() - t0:.1f}s, kernels "
         f"{json.dumps(counts)}")
@@ -1087,8 +1184,7 @@ def apps_phase(torch, dev):
     after: K1 and K6 must launch.  Host (numpy) and device times apart."""
     from repro_torch.apps import harris, jpeg, pan_tompkins
     from repro_torch.apps.arith import VARIANTS, psnr
-    from repro_torch.kernels import (launch_counts, plain_versions,
-                                     reset_launch_counts)
+    from repro_torch.kernels import plain_versions, reset_launch_counts
 
     names = list(VARIANTS)
     qor_counts = {}
@@ -1099,15 +1195,15 @@ def apps_phase(torch, dev):
         reset_launch_counts()
         got = fn()
         torch.cuda.synchronize()
-        for k, v in launch_counts().items():
+        for k, v in counts_now().items():
             qor_counts[k] = qor_counts.get(k, 0) + v
         reset_launch_counts()
         with plain_versions():
             ref = fn()
         torch.cuda.synchronize()
-        if any(launch_counts().values()):
+        if any(counts_now().values()):
             raise AssertionError(f"{what}: the plain route launched "
-                                 f"{launch_counts()}")
+                                 f"{counts_now()}")
         if not same_bits(got, ref):
             raise AssertionError(f"{what}: kernel and plain routes differ")
         return got
@@ -1237,7 +1333,7 @@ def apps_phase(torch, dev):
                         "device_ms": dev_ms, "wall_ms": wall_ms,
                         "rapid_corners": n_corners}
     torch.cuda.synchronize()
-    counts = launch_counts()
+    counts = counts_now()
     for app, t in timing.items():
         host = {k: round(v, 2) for k, v in t.items() if k.startswith("host")}
         log(f"apps timing {app} {t['shape']}: host ms {host}; device ms per "
@@ -1256,6 +1352,252 @@ def apps_phase(torch, dev):
                     "harris_correct_vectors_pct": hq},
             "timing": timing, "launches": launches,
             "launches_qor": qor_counts, "launches_timing": counts}
+
+
+# --------------------------------------------------------------------------
+# depth A/B of the serve paths (the default stage counts vs depth 1)
+# --------------------------------------------------------------------------
+
+def depth_ab_phase(torch, cfg, params):
+    """The serve paths at the default stage counts against depth 1 and
+    depth 2 everywhere, in turns on this card (default, 1, 2, 2, 1,
+    default): the lockstep decode step (4 tokens; K1 in its decode
+    regime), the lockstep prefill (4 x 128 tokens) and the continuous
+    prefill tick (one 64-token chunk; K1's chunk regime); then
+    ``launch/k1_times.py`` at depth 1 and 2 in turns (1, 2, 2, 1), one
+    process each.  Information: nothing here fails on a time."""
+    from repro_torch.kernels.spec import deferred_depth
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import ContinuousServeEngine
+
+    settings = {"default": None, "depth1": 1, "depth2": 2}
+    prompts = prompts_for(cfg.vocab_size)
+    chunk_prompt = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, 128).tolist()
+    runs = {k: {"decode_s": [], "prefill_s": [], "tick_s": []}
+            for k in settings}
+    for name in ("default", "depth1", "depth2", "depth2", "depth1",
+                 "default"):
+        with deferred_depth(settings[name]):
+            timed = TimedModel(torch, Model(cfg))
+            ServeEngine(timed, params, cache_n=512).generate(prompts,
+                                                             max_new=5)
+            runs[name]["decode_s"] += timed.decode_s
+            runs[name]["prefill_s"] += timed.prefill_s
+            timed = TimedModel(torch, Model(cfg))
+            engine = ContinuousServeEngine(timed, params, n_slots=4,
+                                           max_len=256, page_size=16,
+                                           prefill_chunk=64)
+            engine.submit(chunk_prompt, 2)
+            engine.step()  # the first 64-token chunk of the prompt
+            runs[name]["tick_s"] += timed.prefill_tick_s
+    out = {}
+    for name, r in runs.items():
+        out[name] = {key[:-2] + "_ms": float(np.mean(v)) * 1e3
+                     for key, v in r.items()}
+        out[name].update({key[:-2] + "_ms_each": [t * 1e3 for t in v]
+                          for key, v in r.items()})
+    for key in ("decode", "prefill", "tick"):
+        base = out["depth1"][f"{key}_ms"]
+        log(f"depth A/B {key}: default {out['default'][f'{key}_ms']:.2f} ms "
+            f"({out['default'][f'{key}_ms'] / base - 1:+.1%} vs depth 1), "
+            f"depth 1 {base:.2f} ms, depth 2 "
+            f"{out['depth2'][f'{key}_ms']:.2f} ms "
+            f"({out['depth2'][f'{key}_ms'] / base - 1:+.1%})")
+
+    k1 = []
+    for depth in (1, 2, 2, 1):
+        res = subprocess.run(
+            [sys.executable, str(ROOT / "src/repro_torch/launch/k1_times.py"),
+             "--depth", str(depth), "--reps", "5"], cwd=ROOT,
+            capture_output=True, text=True, timeout=300)
+        if res.returncode:
+            raise AssertionError(f"k1_times --depth {depth}: {res.stderr[-2000:]}")
+        k1 += [json.loads(line) for line in res.stdout.splitlines()
+               if line.startswith("{")]
+    for site in sorted({(r["site"], r["M"]) for r in k1}):
+        by = {d: [r["ms"] for r in k1 if (r["site"], r["M"]) == site
+                  and r["depth"] == d] for d in (1, 2)}
+        log(f"depth A/B k1_times {site[0]} M={site[1]}: depth 1 "
+            f"{by[1]} ms, depth 2 {by[2]} ms "
+            f"({np.mean(by[2]) / np.mean(by[1]) - 1:+.1%})")
+    out["k1_times"] = k1
+    return out
+
+
+# --------------------------------------------------------------------------
+# training: full width, then a 2-layer copy kernels vs plain
+# --------------------------------------------------------------------------
+
+def train_phase(torch, dev):
+    """Full-width h2o_danube_1_8b, RAPID, f32 params from a seed, bf16
+    compute, batch 4 x 128 (SyntheticLM), AdamW on the cosine schedule,
+    block remat: 3 steps through ``make_train_step`` / ``train_loop``,
+    ending in a checkpoint under ``build/``.  The launch counts are set
+    to 0 just before the loop and read just after; K1 must have launched
+    at depth >= 2 (K7) and K2 / K3 at depth >= 2 (K8); losses and
+    gradient norms must be finite, and the checkpoint complete."""
+    import shutil
+
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs.base import RAPID, get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import launch_counts_by_depth, reset_launch_counts
+    from repro_torch.models.model import Model
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainstep import make_train_step
+
+    cfg = get_config("h2o_danube_1_8b").with_(approx=RAPID)
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(1, dev)
+    oc = OptConfig(name=cfg.optimizer, lr=3e-4, schedule=cfg.lr_schedule,
+                   total_steps=TRAIN_STEPS)
+    init_opt, step = make_train_step(model, oc)
+    opt = init_opt(params)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"train: h2o_danube_1_8b {cfg.n_layers} layers d_model={cfg.d_model} "
+        f"RAPID, {n_params / 1e9:.3f}e9 f32 params + AdamW state, remat "
+        f"{cfg.remat}, compute {cfg.dtype}, batch {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"(init {time.perf_counter() - t0:.1f}s)")
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    free_gb = shutil.disk_usage(ROOT).free / 1e9
+    lc = LoopConfig(total_steps=TRAIN_STEPS, ckpt_every=0, log_every=1,
+                    ckpt_dir=str(ckpt), resume=False)
+    src = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state = train_loop(step, params, opt, src, lc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, by_depth = counts_now(), launch_counts_by_depth()
+    peak = torch.cuda.max_memory_allocated()
+    ckpt_s = wall - sum(state.step_s)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for i, (dt, loss, gn) in enumerate(zip(state.step_s, state.losses,
+                                           state.grad_norms)):
+        log(f"train step {i}: {dt * 1e3:.1f} ms, {tokens / dt:.1f} tokens/s, "
+            f"loss {loss:.4f}, grad norm {gn:.4f}")
+    mgr = CheckpointManager(str(ckpt))
+    files = list((ckpt / f"step_{TRAIN_STEPS:08d}").glob("*.npy"))
+    ckpt_gb = sum(f.stat().st_size for f in files) / 1e9
+    log(f"train: peak allocated {peak / 2**30:.2f} GiB; checkpoint "
+        f"{len(files)} arrays {ckpt_gb:.2f} GB in {ckpt_s:.1f}s (disk free "
+        f"before {free_gb:.0f} GB); launches by depth "
+        f"log_matmul {by_depth['log_matmul']} rms_div {by_depth['rms_div']} "
+        f"softmax_div {by_depth['softmax_div']}; kernels {json.dumps(counts)}")
+    if not (np.isfinite(state.losses).all()
+            and np.isfinite(state.grad_norms).all()
+            and len(state.losses) == TRAIN_STEPS):
+        raise AssertionError(f"train: losses {state.losses}, grad norms "
+                             f"{state.grad_norms}")
+    require_launches("train", counts, ("log_matmul@d2+", "rms_div@d2+",
+                                       "softmax_div@d2+"))
+    n_leaves = 3 * len(list(_leaves(params)))  # params, m, v
+    if mgr.latest_step() != TRAIN_STEPS or len(files) != n_leaves:
+        raise AssertionError(f"train: checkpoint step {mgr.latest_step()} "
+                             f"with {len(files)} of {n_leaves} arrays")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    prof = profile_train_step(torch, step, params, opt,
+                              src.batch_at(TRAIN_STEPS))
+    del opt
+    record = {"step_ms": [t * 1e3 for t in state.step_s],
+              "tokens_per_s": [tokens / t for t in state.step_s],
+              "losses": state.losses, "grad_norms": state.grad_norms,
+              "peak_allocated_gib": peak / 2**30, "checkpoint_s": ckpt_s,
+              "checkpoint_gb": ckpt_gb, "launches": counts,
+              "launches_by_depth": {k: {str(d): n for d, n in v.items()}
+                                    for k, v in by_depth.items()},
+              "profile": prof}
+    return cfg, params, record
+
+
+def profile_train_step(torch, step, params, opt, batch):
+    """One more train step (after the counted run) under torch.profiler:
+    wall time, the device time of its kernels, the device's busy share
+    (kernel time / wall; one stream) and the kernels that take most of
+    it.  The profiler adds host time per launch, so the wall time here
+    is longer than the loop's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, batch, TRAIN_STEPS)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev = sum(e.self_device_time_total for e in kern) / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    out = {"wall_ms": wall, "kernel_ms": dev,
+           "busy": dev / wall if dev else None,
+           "top": [(e.key[:80], e.count, e.self_device_time_total / 1e3)
+                   for e in top]}
+    busy = (f"busy {dev / wall:.1%}" if dev else
+            "device time not measured (the profiler saw no kernels)")
+    log(f"profile train step: wall {wall:.1f} ms, kernels {dev:.1f} ms, "
+        f"{busy}; top " + "; ".join(f"{k} x{n} {t:.1f} ms"
+                                    for k, n, t in out["top"]))
+    return out
+
+
+def train_check_phase(torch, cfg, params):
+    """One train step's loss and gradients on a 2-layer full-width copy
+    (the trained params' first two blocks, the same batch), through the
+    kernels and through the plain versions on this card.  Bound: the
+    kernels are bit-equal to their plain versions (silu within 2 ulp),
+    and the backward is the same torch ops on the same card, so the loss
+    must agree within rel 1e-5 and every gradient within 1e-5 x its
+    largest magnitude.  The launch counts must show the kernels (K7, K8)
+    in the first run and none in the second.  Remat off: it moves no
+    bits (``tests/test_torch_train.py``) and would run the plain
+    products twice."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import plain_versions, reset_launch_counts
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainstep import make_train_step
+
+    cfg2 = cfg.with_(n_layers=2, remat="none")
+    params2 = dict(params, blocks=params["blocks"][:2])
+    step = make_train_step(Model(cfg2), OptConfig())[1]
+    batch = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                        seed=1).batch_at(0)
+    runs = {}
+    for route in ("kernels", "plain"):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        if route == "plain":
+            with plain_versions():
+                loss, grads = step.loss_and_grads(params2, batch)
+        else:
+            loss, grads = step.loss_and_grads(params2, batch)
+        torch.cuda.synchronize()
+        runs[route] = (float(loss), grads, time.perf_counter() - t0,
+                       counts_now())
+    (lk, gk, tk, ck), (lp, gp, tp, cp) = runs["kernels"], runs["plain"]
+    require_launches("train 2-layer kernel run", ck,
+                     ("log_matmul@d2+", "rms_div@d2+", "softmax_div@d2+"))
+    require_launches("train 2-layer plain run", cp, (), cp)
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(gk, gp))
+    rel = abs(lk - lp) / abs(lp)
+    log(f"train 2-layer kernels vs plain: loss {lk!r} vs {lp!r} (rel "
+        f"{rel:.2e}), worst gradient leaf max|diff|/max|g| {worst:.2e}; "
+        f"kernels {tk:.2f}s {json.dumps(ck)}, plain {tp:.2f}s")
+    if rel > 1e-5 or worst > 1e-5:
+        raise AssertionError(f"train 2-layer: loss rel {rel}, gradient "
+                             f"{worst} beyond 1e-5")
+    return {"loss_kernels": lk, "loss_plain": lp, "loss_rel_diff": rel,
+            "grad_worst_rel_diff": worst, "kernels_s": tk, "plain_s": tp,
+            "launches_kernels": ck}
 
 
 def _leaves(tree):
@@ -1306,27 +1648,48 @@ def main() -> int:
     cfg, params, serve = serve_phase(torch, dev)
     cont = continuous_phase(torch, cfg, params, serve["tokens"])
     long_ = long_prefill_phase(torch, dev, cfg, params)
+    ab = depth_ab_phase(torch, cfg, params)
     del params
     torch.cuda.empty_cache()
     ints = integer_units_phase(torch, dev)
     apps = apps_phase(torch, dev)
+    tcfg, tparams, train = train_phase(torch, dev)
+    train_check = train_check_phase(torch, tcfg, tparams)
+    del tparams
+    torch.cuda.empty_cache()
 
     # each kernel's row: its time at the main paths' heaviest shape (K5:
     # the chunked-prefill tick's), its launches summed over the paths'
-    # runs (the two serve paths, the integer units' own path, the apps),
-    # each read just after that run
-    heaviest = {"log_matmul": "w1 M=512", "rms_div": "rows=512",
-                "softmax_div": "rows=", "flash_decode": "q=",
+    # runs (the two serve paths, the integer units' own path, the apps,
+    # training), each read just after that run.  K1 / K2 / K3 / K5 count
+    # every launch of their wrapper, as the wrappers do; K7 and K8 count
+    # the subset at depth >= 2 (K1's, and K2's + K3's + K5's)
+    heaviest = {"log_matmul": "w1 M=512",
+                "log_matmul_pipelined": "w1 M=512",
+                "rms_div": "rms rows=512", "softmax_div": "softmax rows=",
+                "rowwise_pipelined": "rms rows=512",
+                "flash_decode": "q=",
                 "div_rowbcast": "a=[2048,", "div": "a=b=",
                 "rapid_mul": f"pairs={INT_PAIRS} rapid10 n_bits=16",
                 "rapid_div": f"pairs={INT_PAIRS} rapid9 n_bits=8"}
+
+    def launches(counts, name):
+        if name == "log_matmul_pipelined":
+            return counts["log_matmul@d2+"]
+        if name == "rowwise_pipelined":
+            return sum(counts[f"{k}@d2+"]
+                       for k in ("rms_div", "softmax_div", "div_rowbcast"))
+        return counts[name]
+
     kernels = []
     for name, tag in heaviest.items():
         mine = [c for c in cases if c["kernel"] == name]
         top = next(c for c in mine if c["shape"].startswith(tag))
-        by_path = {path: runs["launches"][name] for path, runs in (
-            ("lockstep", serve), ("continuous", cont),
-            ("integer_units", ints), ("apps", apps))}
+        by_path = {path: launches(runs["launches"], name)
+                   for path, runs in (("lockstep", serve),
+                                      ("continuous", cont),
+                                      ("integer_units", ints),
+                                      ("apps", apps), ("train", train))}
         row = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -1338,8 +1701,9 @@ def main() -> int:
             "launches_by_path": by_path}
         kernels.append(row)
     record = {"card": card, "cases": cases, "serve": serve,
-              "continuous": cont, "long_prefill": long_,
-              "integer_units": ints, "apps": apps, "kernels": kernels,
+              "continuous": cont, "long_prefill": long_, "depth_ab": ab,
+              "integer_units": ints, "apps": apps, "train": train,
+              "train_2layer": train_check, "kernels": kernels,
               "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,6 +1,6 @@
 """Config system of the port: model and approximation configs.
 
-Mirrors ``repro.configs.base`` for the dense serve path.  ``ApproxConfig``
+Mirrors ``repro.configs.base`` for the dense serve and train paths.  ``ApproxConfig``
 keeps the reference's ``mul``/``div``/``on_*`` semantics but drops its
 per-site ``backends`` map and the ``RAPID_BACKEND`` environment
 variable: the port has one dispatch path, and the device of the tensor
@@ -75,6 +75,10 @@ class ModelConfig:
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
     approx: ApproxConfig = field(default_factory=ApproxConfig)
+    # training
+    remat: str = "block"        # none | block | full
+    optimizer: str = "adamw"    # adamw | adafactor
+    lr_schedule: str = "cosine"  # cosine | wsd (minicpm) | constant
 
     @property
     def hd(self) -> int:
@@ -99,6 +103,7 @@ class ModelConfig:
             vocab_size=512,
             head_dim=32,
             sliding_window=min(self.sliding_window, 16) if self.sliding_window else 0,
+            remat="none",
         )
 
 

@@ -25,6 +25,46 @@ constexpr int32_t INF_BITS = 0x7F800000;
 // row-sum grouping shared with kernels/fused_div/ref.py::lane_sum
 constexpr int LANE = 128;
 
+// cp.async (sm_80+): global -> shared copies that bypass the registers.
+// With ``pred`` false the source is not read and the destination is
+// zero-filled (src-size 0).  cp16 needs both addresses 16 B aligned.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(pred ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's committed groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Let ``kernel`` take ``bytes`` of dynamic shared memory (needed above
+// 48 KB per block).  ``granted`` is the caller's record for this kernel
+// instance (a static in the launching template), so the attribute is
+// set once per instance and size.
+template <typename Kernel>
+inline cudaError_t allow_dynamic_smem(Kernel kernel, int bytes, int& granted) {
+  if (bytes <= granted) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) granted = bytes;
+  return err;
+}
+
 __device__ __forceinline__ int32_t wrap_add(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) +
                               static_cast<uint32_t>(b));

@@ -2,7 +2,10 @@
 
 Each wrapper keeps a plain integer ``launches`` that it raises by one
 where it launches its kernel, and nowhere else; :func:`launch_counts`
-reads them and :func:`reset_launch_counts` sets them to 0.
+reads them and :func:`reset_launch_counts` sets them to 0.  The wrappers
+with a stage count (K1, K2, K3, K5) also split their launches by depth
+in ``launches_by_depth`` (:func:`launch_counts_by_depth`): K1 at depth
+>= 2 is K7, K2/K3/K5 at depth >= 2 are K8.
 :func:`plain_versions` routes the model's and the applications' kernel
 calls to the plain versions, so that one run on the card can be held
 against another that launches no kernel.
@@ -12,7 +15,8 @@ from __future__ import annotations
 from contextlib import contextmanager
 from typing import Dict
 
-__all__ = ["launch_counts", "reset_launch_counts", "plain_versions"]
+__all__ = ["launch_counts", "launch_counts_by_depth", "reset_launch_counts",
+           "plain_versions"]
 
 
 def _wrappers():
@@ -38,9 +42,18 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
+def launch_counts_by_depth() -> Dict[str, Dict[int, int]]:
+    """Launches by stage count of the wrappers that have one."""
+    return {name: dict(fn.launches_by_depth)
+            for name, fn in _wrappers().items()
+            if hasattr(fn, "launches_by_depth")}
+
+
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_depth"):
+            fn.launches_by_depth = {}
 
 
 @contextmanager

@@ -5,7 +5,7 @@ import ctypes
 
 import torch
 
-__all__ = ["on_cuda", "ptr", "stream", "require"]
+__all__ = ["on_cuda", "ptr", "stream", "require", "count_launch"]
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
@@ -43,3 +43,10 @@ def ptr(t) -> ctypes.c_void_p:
 
 def stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def count_launch(wrapper, depth: int) -> None:
+    """Count one launch of ``wrapper``'s kernel: its total ``launches``
+    and, by stage count, ``launches_by_depth``."""
+    wrapper.launches += 1
+    wrapper.launches_by_depth[depth] = wrapper.launches_by_depth.get(depth, 0) + 1

@@ -1,0 +1,64 @@
+"""Shared-memory budget of the port's kernels on Hopper.
+
+The port of ``repro.kernels.budget``.  Where the reference budgets a
+TPU core's VMEM, the port budgets what one CUDA block may hold on an
+H100 (sm_90): 227 KB (232,448 bytes) of shared memory, of which at most
+48 KB may be static; anything above that is dynamic shared memory and
+needs ``cudaFuncAttributeMaxDynamicSharedMemorySize`` set on the
+kernel.  Every number the stage-count heuristics of
+:mod:`repro_torch.kernels.spec` rely on lives here, and
+:func:`check_smem` refuses, before a launch, a plan the card would
+refuse.
+"""
+from __future__ import annotations
+
+__all__ = [
+    "LANE",
+    "ELEM_BYTES",
+    "SMEM_PER_BLOCK",
+    "STATIC_SMEM_MAX",
+    "PIPELINE_BUFFERS",
+    "MAX_DEPTH",
+    "ROW_RING_BYTES",
+    "ROW_WARPS",
+    "MAX_ROW_BM",
+    "round_up",
+    "check_smem",
+]
+
+# row-sum grouping of the divider family (one lane per CUDA thread)
+LANE = 128
+ELEM_BYTES = 4
+
+# dynamic + static shared memory one block may use on an H100
+SMEM_PER_BLOCK = 232_448
+# static (``__shared__``) shared memory a kernel may declare
+STATIC_SMEM_MAX = 48 * 1024
+
+# stages in flight when a spec leaves the depth to the heuristic; the
+# reference's default, so every call runs the pipelined form (K7 / K8)
+PIPELINE_BUFFERS = 2
+MAX_DEPTH = 8
+
+# K8: the input ring of one row-slab block (depth x bm rows) stays under
+# this many bytes, so two blocks fit on an SM; each block runs
+# ROW_WARPS warps, one row per warp at a time, and walks slabs of at
+# most MAX_ROW_BM rows
+ROW_RING_BYTES = 96 * 1024
+ROW_WARPS = 4
+MAX_ROW_BM = 32
+
+
+def round_up(v: int, mult: int) -> int:
+    """Smallest multiple of ``mult`` >= ``v``."""
+    return -(-v // mult) * mult
+
+
+def check_smem(nbytes: int, what: str = "kernel") -> None:
+    """Raise if a block would need more shared memory than the card
+    gives one block (the launch would be refused)."""
+    if nbytes > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"{what}: {nbytes} B of shared memory per block exceeds the "
+            f"H100's {SMEM_PER_BLOCK} B "
+            "(repro_torch.kernels.budget.SMEM_PER_BLOCK)")

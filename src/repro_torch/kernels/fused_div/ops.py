@@ -14,14 +14,23 @@ trailing dim 1) goes to :func:`div_rowbcast` (K5), any other broadcast to
   :func:`div_plain`).
 * CUDA tensors launch ``csrc/fused_div.cu`` (replacing the Pallas
   ``rms_div_pallas`` / ``softmax_div_pallas`` / ``div_rowbcast_pallas``
-  / ``div_pallas`` of ``src/repro/kernels/fused_div/fused_div.py``): one
-  CTA per row for K2/K3, one thread per element for K5/K6.
+  / ``div_pallas`` of ``src/repro/kernels/fused_div/fused_div.py``): at
+  depth 1 one CTA per row for K2/K3, one thread per element for K5/K6;
+  K2/K3/K5 at depth >= 2 walk row slabs with ``depth`` slabs in flight
+  (K8, replacing ``_rowwise_pipelined_call``).
+
+``spec`` (:class:`repro_torch.kernels.spec.KernelSpec`) of K2/K3/K5 sets
+the stage count and the rows per slab, resolved by ``resolve_spec``
+(default: 2 slabs in flight); it moves no bits.  The plan is checked
+against the card's shared memory on either route.  K6 has no stage
+count (nor has the reference's ``div_pallas``).
 
 ``return_denom=True`` also returns the per-row denominators ``[..., 1]``
 (the kernel writes its own), so a check can hold the quotients against
 the plain divide fed the same denominator.  Each kernel wrapper
 (``fused_rms_div``, ``fused_softmax_div``, ``div_rowbcast``,
-``div_elementwise``) counts its launches in ``.launches``.
+``div_elementwise``) counts its launches in ``.launches``; the first
+three also by stage count in ``.launches_by_depth``.
 """
 from __future__ import annotations
 
@@ -31,9 +40,11 @@ from typing import Optional
 import torch
 
 from repro_torch.core import float_approx as fa
-from repro_torch.kernels import _build
-from repro_torch.kernels._launch import on_cuda, ptr, require, stream
+from repro_torch.kernels import _build, budget
+from repro_torch.kernels._launch import (count_launch, on_cuda, ptr, require,
+                                         stream)
 from repro_torch.kernels.fused_div import ref
+from repro_torch.kernels.spec import KernelSpec, resolve_spec, row_smem
 
 __all__ = ["fused_rms_div", "fused_softmax_div", "fused_elementwise_div",
            "div_rowbcast", "div_elementwise", "rms_div_plain",
@@ -66,7 +77,16 @@ def softmax_div_plain(e, scheme: Optional[str], *,
     return (out, denom) if return_denom else out
 
 
-def _launch_rows(x, scheme, name, *consts):
+def _row_plan(family: str, x: torch.Tensor, spec: Optional[KernelSpec]):
+    """The resolved spec of a row divider over ``x``'s last dim, checked
+    against the card's shared memory."""
+    n = x.shape[-1]
+    ks = resolve_spec(family, (x.numel() // max(n, 1), n), spec)
+    budget.check_smem(row_smem(ks.bm, n, ks.depth), family)
+    return ks
+
+
+def _launch_rows(x, scheme, name, ks: KernelSpec, *consts):
     require(x, "x", torch.float32)
     n = x.shape[-1]
     if x.numel() == 0:
@@ -76,34 +96,38 @@ def _launch_rows(x, scheme, name, *consts):
                         device=x.device)
     lut = fa.div_lut_device(scheme, x.device) if scheme is not None else None
     fn = _build.function("fused_div", f"rapid_{name}",
-                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                          + [ctypes.c_float] * len(consts) + [ctypes.c_void_p])
     err = fn(ptr(x), ptr(out), ptr(denom), ptr(lut), x.numel() // n, n,
-             *consts, stream(x.device))
+             ks.depth, ks.bm, *consts, stream(x.device))
     _build.check(err, name)
     return out, denom
 
 
 def fused_rms_div(x: torch.Tensor, eps: float, scheme: Optional[str], *,
-                  return_denom: bool = False):
+                  return_denom: bool = False,
+                  spec: Optional[KernelSpec] = None):
     """Row-wise rms normalize over the last dim, f32 in/out."""
+    ks = _row_plan("fused_rms", x, spec)
     if not on_cuda(x):
         return rms_div_plain(x, eps, scheme, return_denom=return_denom)
-    out, denom = _launch_rows(x, scheme, "rms_div",
+    out, denom = _launch_rows(x, scheme, "rms_div", ks,
                               *ref.rms_consts(x.shape[-1], eps))
-    fused_rms_div.launches += 1
+    count_launch(fused_rms_div, ks.depth)
     return (out, denom) if return_denom else out
 
 
 def fused_softmax_div(e: torch.Tensor, scheme: Optional[str], *,
                       floor: float = ref.SOFTMAX_FLOOR,
-                      return_denom: bool = False):
+                      return_denom: bool = False,
+                      spec: Optional[KernelSpec] = None):
     """Row-wise softmax combine over the last dim, f32 in/out."""
+    ks = _row_plan("fused_softmax", e, spec)
     if not on_cuda(e):
         return softmax_div_plain(e, scheme, floor=floor,
                                  return_denom=return_denom)
-    out, denom = _launch_rows(e, scheme, "softmax_div", float(floor))
-    fused_softmax_div.launches += 1
+    out, denom = _launch_rows(e, scheme, "softmax_div", ks, float(floor))
+    count_launch(fused_softmax_div, ks.depth)
     return (out, denom) if return_denom else out
 
 
@@ -118,8 +142,10 @@ def div_plain(a, b, scheme: str):
     return fa.log_div_f32(a, b, fa.div_lut_device(scheme, a.device))
 
 
-def div_rowbcast(a: torch.Tensor, b: torch.Tensor, scheme: str):
+def div_rowbcast(a: torch.Tensor, b: torch.Tensor, scheme: str, *,
+                 spec: Optional[KernelSpec] = None):
     """RAPID ``a [M, N] / b [M]``, one denominator per row; f32 in/out."""
+    ks = _row_plan("fused_div_rowbcast", a, spec)
     if not on_cuda(a, b):
         return div_rowbcast_plain(a, b, scheme)
     require(a, "a", torch.float32)
@@ -131,12 +157,12 @@ def div_rowbcast(a: torch.Tensor, b: torch.Tensor, scheme: str):
                          f"1..{_MAX_ELEMENTS}")
     out = torch.empty_like(a)
     fn = _build.function("fused_div", "rapid_div_rowbcast",
-                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                          + [ctypes.c_void_p])
     err = fn(ptr(a), ptr(b), ptr(out), ptr(fa.div_lut_device(scheme, a.device)),
-             a.shape[0], a.shape[1], stream(a.device))
+             a.shape[0], a.shape[1], ks.depth, ks.bm, stream(a.device))
     _build.check(err, "div_rowbcast")
-    div_rowbcast.launches += 1
+    count_launch(div_rowbcast, ks.depth)
     return out
 
 
@@ -199,3 +225,6 @@ fused_rms_div.launches = 0
 fused_softmax_div.launches = 0
 div_rowbcast.launches = 0
 div_elementwise.launches = 0
+fused_rms_div.launches_by_depth = {}
+fused_softmax_div.launches_by_depth = {}
+div_rowbcast.launches_by_depth = {}

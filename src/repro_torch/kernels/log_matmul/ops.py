@@ -12,14 +12,22 @@ epilogues are 2-D only.
 * CPU tensors run the plain version, :func:`log_matmul_plain`
   (``core.backend.log_matmul_scan`` + ``apply_epilogue_tile``).
 * CUDA tensors launch ``csrc/log_matmul.cu`` (replacing the Pallas
-  ``log_matmul_pallas``, ``src/repro/kernels/log_matmul/log_matmul.py``),
-  which fuses bias, activation (silu or none, what the ported configs
-  use; the menu's other activations raise on the card) and residual; a
-  norm stage then runs as a K2/K3 launch on the kernel's pre-norm
+  ``log_matmul_pallas`` and, at depth >= 2, ``log_matmul_pipelined``,
+  ``src/repro/kernels/log_matmul/log_matmul.py``), which fuses bias,
+  activation (silu or none, what the ported configs use; the menu's
+  other activations raise on the card) and residual; a norm stage then
+  runs as a K2/K3 launch at the same depth on the kernel's pre-norm
   output -- the same ``apply_epilogue_tile`` semantics, not yet fused
   into whole-row tiles.
 
-``log_matmul.launches`` counts kernel launches (not plain calls).
+``spec`` (:class:`repro_torch.kernels.spec.KernelSpec`) sets the stage
+count, resolved by ``resolve_spec("log_matmul", ...)``: by default 2 K
+blocks in flight (K7); the depth moves no bits.  The plan is checked
+against the card's shared memory on either route, so a depth the card
+would refuse raises on the CPU too.
+
+``log_matmul.launches`` counts kernel launches (not plain calls), and
+``log_matmul.launches_by_depth`` splits them by stage count.
 """
 from __future__ import annotations
 
@@ -30,8 +38,10 @@ import torch
 
 from repro_torch.core import backend as be
 from repro_torch.core import float_approx as fa
-from repro_torch.kernels import _build
-from repro_torch.kernels._launch import on_cuda, ptr, stream
+from repro_torch.kernels import _build, budget
+from repro_torch.kernels._launch import count_launch, on_cuda, ptr, stream
+from repro_torch.kernels.spec import (KernelSpec, PipelineSpec, matmul_smem,
+                                      resolve_spec)
 from repro_torch.kernels.fused_div import ref as fdref
 from repro_torch.kernels.fused_div.ops import fused_rms_div, fused_softmax_div
 
@@ -85,7 +95,7 @@ def _batch_stride(t, name: str, inner, batch: int) -> int:
     return t.stride(0) if t.shape[0] > 1 else 0
 
 
-def _kernel(x, w, scheme, bias, residual, ep: be.Epilogue):
+def _kernel(x, w, scheme, bias, residual, ep: be.Epilogue, depth: int):
     batched = x.ndim == 3 or w.ndim == 3
     x3 = x if x.ndim == 3 else x[None]
     w3 = w if w.ndim == 3 else w[None]
@@ -115,18 +125,21 @@ def _kernel(x, w, scheme, bias, residual, ep: be.Epilogue):
         raise ValueError(f"log_matmul: empty output {tuple(pre.shape)}")
     fn = _build.function("log_matmul", "rapid_log_matmul",
                          [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                         + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+                         + [ctypes.c_longlong] * 4
+                         + [ctypes.c_int, ctypes.c_void_p])
     err = fn(ptr(x3), ptr(w3), ptr(lut), ptr(bias), ptr(residual), ptr(pre),
              m, n, k, be.ACT_CODES[ep.activation], batch, sx, sw, sb, sr,
-             stream(x.device))
+             depth, stream(x.device))
     _build.check(err, "log_matmul")
-    log_matmul.launches += 1
+    count_launch(log_matmul, depth)
     if ep.norm is None:
         return pre
+    tail_spec = KernelSpec(pipeline=PipelineSpec(depth=depth))
     if ep.norm == "rms":
-        tail = fused_rms_div(pre, ep.eps, ep.div_scheme)
+        tail = fused_rms_div(pre, ep.eps, ep.div_scheme, spec=tail_spec)
     else:
-        tail = fused_softmax_div(pre, ep.div_scheme, floor=ep.floor)
+        tail = fused_softmax_div(pre, ep.div_scheme, floor=ep.floor,
+                                 spec=tail_spec)
     return (tail, pre) if ep.keep_prenorm else tail
 
 
@@ -134,9 +147,10 @@ def log_matmul(x: torch.Tensor, w: torch.Tensor, scheme: str, *,
                bias: Optional[torch.Tensor] = None,
                activation: Optional[str] = None,
                residual: Optional[torch.Tensor] = None,
-               epilogue: Optional[be.Epilogue] = None):
+               epilogue: Optional[be.Epilogue] = None,
+               spec: Optional[KernelSpec] = None):
     """f32 ``x[M,K] @ w[K,N]`` (or ``x[B,M,K] @ w[B,K,N]``) with RAPID
-    products and the epilogue menu."""
+    products and the epilogue menu, ``spec``'s depth K blocks in flight."""
     ep = be.as_epilogue(epilogue, activation)
     if x.ndim not in (2, 3) or w.ndim not in (2, 3) \
             or x.shape[-1] != w.shape[-2] or (
@@ -146,10 +160,14 @@ def log_matmul(x: torch.Tensor, w: torch.Tensor, scheme: str, *,
         raise ValueError(f"log_matmul needs x[M,K] @ w[K,N] or "
                          f"x[B,M,K] @ w[B,K,N], got "
                          f"{tuple(x.shape)} @ {tuple(w.shape)}")
+    m, k, n = x.shape[-2], x.shape[-1], w.shape[-1]
+    ks = resolve_spec("log_matmul", (m, n, k), spec)
+    budget.check_smem(matmul_smem(ks.bm, ks.bn, ks.bk, ks.depth), "log_matmul")
     if on_cuda(x, w, bias, residual):
-        return _kernel(x, w, scheme, bias, residual, ep)
+        return _kernel(x, w, scheme, bias, residual, ep, ks.depth)
     return log_matmul_plain(x, w, scheme, bias=bias, residual=residual,
                             epilogue=ep)
 
 
 log_matmul.launches = 0
+log_matmul.launches_by_depth = {}

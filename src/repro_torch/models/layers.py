@@ -1,5 +1,5 @@
-"""Core NN layers of the dense serve paths: norms, RoPE, GQA/SWA
-attention, SwiGLU MLP -- RAPID-aware.
+"""Core NN layers of the dense serve and train paths: norms, RoPE,
+GQA/SWA attention, SwiGLU MLP -- RAPID-aware.
 
 The port of ``repro.models.layers`` (unsharded).  Every weight matmul
 goes through :func:`repro_torch.core.ops.qmatmul` (kernel K1 under a
@@ -162,7 +162,9 @@ def _attn_qchunk_core(qc, k, v, qp, kv_pos, window: int, causal: bool,
     s = torch.where(mask[None, None], s, -torch.inf)
     sch = acfg.div("softmax")
     if sch:
-        m = s.amax(dim=-1, keepdim=True)
+        # the max is a constant to the gradient (the reference's
+        # stop_gradient)
+        m = s.amax(dim=-1, keepdim=True).detach()
         # fused softmax combine: row-sum + floor + RAPID divide (K3)
         p = qsoftmax_div(torch.exp(s - m), sch)
     else:

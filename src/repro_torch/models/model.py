@@ -4,6 +4,9 @@ The port of the dense path of ``repro.models.model.Model``:
 
   * ``param_specs()`` / ``init(seed, device)`` -- one source of truth for
     shapes and init (models/params.py);
+  * ``loss_fn(params, batch)`` -- the training objective (masked mean
+    next-token cross entropy);
+  * ``forward(params, batch)`` -- full-sequence logits;
   * ``init_cache(batch, cache_n, device)`` -- an empty decode cache;
   * ``prefill(params, batch, cache_n)`` -- last-position logits and a
     filled (ring) decode cache;
@@ -18,9 +21,13 @@ entry per layer.  ``cache["pos"]`` is a Python int.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.ops import MatmulTape, matmul_tape
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import _MAXI32, apply_norm, dense, norm_params
 from repro_torch.models.params import P, materialize
@@ -90,6 +97,63 @@ class Model:
         cfg = self.cfg
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         return dense(x, head.to(x.dtype), cfg.approx, "logits").float()
+
+    # ------------------------------------------------------------------
+    # full-sequence forward (training / eval)
+    # ------------------------------------------------------------------
+    def _run_stack(self, blocks, body, x, remat=None):
+        """``x = body(x, lp)`` for each layer's params ``lp``.
+
+        ``remat`` (default ``cfg.remat``): ``"none"`` keeps every
+        activation for the backward; ``"block"`` runs each block under
+        ``torch.utils.checkpoint`` (non-reentrant), which keeps only the
+        block's input and recomputes the block -- its K1/K2/K3 launches
+        included -- during the backward (the reference's
+        ``nothing_saveable``); ``"full"`` does the same but records the
+        outputs of the block's :func:`~repro_torch.core.ops.qmatmul`
+        calls on a :class:`~repro_torch.core.ops.MatmulTape` and replays
+        them in the recompute, so only the cheap non-matmul ops run
+        twice (the reference's ``dots_with_no_batch_dims_saveable``: the
+        attention einsums, which carry batch dims, are recomputed).
+        """
+        remat = self.cfg.remat if remat is None else remat
+        if remat not in ("none", "block", "full"):
+            raise ValueError(f"remat must be none | block | full, got {remat!r}")
+        for lp in blocks:
+            if remat == "none":
+                x = body(x, lp)
+                continue
+            kw = {}
+            if remat == "full":
+                tape = MatmulTape()
+                kw["context_fn"] = lambda tape=tape: (
+                    matmul_tape(tape, replay=False),
+                    matmul_tape(tape, replay=True))
+            x = checkpoint(body, x, lp, use_reentrant=False, **kw)
+        return x
+
+    def forward(self, params, batch, remat=None):
+        """Logits [B, S, V] f32 at every position of ``batch["tokens"]``."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = self._embed(params, tokens)
+        pos = torch.arange(tokens.shape[1], dtype=torch.int32,
+                           device=tokens.device)
+        x = self._run_stack(params["blocks"],
+                            partial(_block_body, cfg=cfg, pos=pos), x, remat)
+        x = apply_norm(x, params["final_norm"], cfg)
+        return self._logits(params, x)
+
+    def loss_fn(self, params, batch, remat=None):
+        """Mean next-token cross entropy over positions with target >= 0."""
+        logits = self.forward(params, batch, remat)
+        tgt = batch["targets"]
+        logits = logits[:, -tgt.shape[1]:]
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1,
+                              torch.clamp_min(tgt, 0).long()[..., None])[..., 0]
+        mask = (tgt >= 0).float()
+        return ((lse - picked) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
 
     # ------------------------------------------------------------------
     # serving
@@ -176,3 +240,8 @@ class Model:
         last = torch.clamp(n_valid - 1, 0, S - 1).long()
         xl = x[torch.arange(B, device=dev), last][:, None]
         return self._logits(params, xl)[:, 0], cache
+
+
+def _block_body(x, lp, *, cfg: ModelConfig, pos):
+    """One block of the full-sequence forward, without its KV."""
+    return block_apply(x, lp, cfg, pos)[0]

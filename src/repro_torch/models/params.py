@@ -24,7 +24,8 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["P", "materialize", "load_jax_params", "tree_map"]
+__all__ = ["P", "materialize", "load_jax_params", "tree_map", "tree_leaves",
+           "tree_items"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "int32": torch.int32}
@@ -52,6 +53,18 @@ def _leaves(tree, path=()) -> Iterator[Tuple[tuple, object]]:
             yield from _leaves(v, path + (i,))
     else:
         yield path, tree
+
+
+def tree_items(tree):
+    """(path, leaf) pairs of a nested dict/list tree: dict keys sorted,
+    list entries in order (the order the optimizer and the checkpoints
+    walk)."""
+    return list(_leaves(tree))
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict/list tree, in :func:`tree_items` order."""
+    return [leaf for _, leaf in _leaves(tree)]
 
 
 def tree_map(fn, tree):
@@ -98,26 +111,32 @@ def _rebuild(tree, values: dict, path=()):
 
 
 def load_jax_params(tree, device=None):
-    """The reference's params (nested dicts of numpy arrays) -> the port's.
+    """A tree of the reference's (nested dicts of numpy arrays) -> the
+    port's.
 
-    ``tree["blocks"]`` may be stacked (every leaf ``[L, ...]``) or keyed
-    ``"l0"``, ``"l1"``, ...; either becomes a list of per-layer dicts.
-    Arrays keep their dtype (f32 params stay f32).  ``device`` goes
-    through :func:`repro_torch.device.resolve_device` (``cuda`` unless
-    the caller asks for the CPU).
+    Every ``"blocks"`` subtree may be stacked (every leaf ``[L, ...]``)
+    or keyed ``"l0"``, ``"l1"``, ...; either becomes a list of per-layer
+    dicts.  That covers params and every tree shaped like them: the
+    reference's gradients and its optimizer state (``{"m": params,
+    "v": params}``).  Arrays keep their dtype (f32 params stay f32).
+    ``device`` goes through :func:`repro_torch.device.resolve_device`
+    (``cuda`` unless the caller asks for the CPU).
     """
     device = resolve_device(device)
 
     def to_t(a):
         return torch.from_numpy(np.array(a, copy=True)).to(device)
 
-    out = {k: tree_map(to_t, v) for k, v in tree.items() if k != "blocks"}
-    blocks = tree["blocks"]
-    if "l0" in blocks:
-        out["blocks"] = [tree_map(to_t, blocks[f"l{i}"])
-                         for i in range(len(blocks))]
-    else:
-        n = next(leaf for _, leaf in _leaves(blocks)).shape[0]
-        out["blocks"] = [tree_map(lambda a, i=i: to_t(a[i]), blocks)
-                         for i in range(n)]
-    return out
+    def blocks(b):
+        if "l0" in b:
+            return [convert(b[f"l{i}"]) for i in range(len(b))]
+        n = next(leaf for _, leaf in _leaves(b)).shape[0]
+        return [tree_map(lambda a, i=i: to_t(a[i]), b) for i in range(n)]
+
+    def convert(t):
+        if isinstance(t, dict):
+            return {k: blocks(v) if k == "blocks" else convert(v)
+                    for k, v in t.items()}
+        return tree_map(to_t, t)
+
+    return convert(tree)

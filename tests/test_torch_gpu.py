@@ -468,3 +468,176 @@ def test_cuda_apps_kernel_route_equals_plain(cuda, variant):
     np.testing.assert_array_equal(bits(got.cpu().numpy()),
                                   bits(ref.cpu().numpy()))
     assert (counts["div"] == 1) == scheme
+
+
+# --------------------------------------------------------------------------
+# K7 / K8: stage counts of K1 and K2/K3/K5, bit-equal at every depth
+# --------------------------------------------------------------------------
+
+def _depth(d):
+    from repro_torch.kernels.spec import KernelSpec, PipelineSpec
+    return KernelSpec(pipeline=PipelineSpec(depth=d))
+
+
+def _misaligned(t):
+    """``t``'s values in a contiguous tensor whose data starts 4 B past a
+    16 B boundary, so the kernels take their 4 B copies."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("m,k,n", [
+    (4, 2560, 640),   # decode regime, 80 K blocks
+    (4, 20, 640),     # decode, one K block (nk < depth)
+    (130, 256, 192),  # prefill, 16 B copies, ragged M
+    (64, 300, 130),   # K % BK != 0, N % 4 != 0 (4 B copies for w)
+    (70, 129, 65),    # K % 4 != 0 (4 B copies for x)
+    (9, 24, 130),     # two K blocks, fewer than depth 3, 4, 8
+])
+def test_cuda_log_matmul_depths_bit_exact(cuda, depth, m, k, n):
+    rng = np.random.default_rng(m * k + n)
+    x = T(randn(rng, m, k)).to(cuda)
+    w = T(randn(rng, k, n, scale=k ** -0.5)).to(cuda)
+    bias = T(randn(rng, n)).to(cuda)
+    res = T(randn(rng, m, n)).to(cuda)
+    for kw in (dict(), dict(bias=bias, activation="silu", residual=res)):
+        got = log_matmul(x, w, "rapid10", spec=_depth(depth), **kw)
+        ref = log_matmul_plain(x, w, "rapid10", **kw)
+        np.testing.assert_array_equal(bits(got.cpu().numpy()),
+                                      bits(ref.cpu().numpy()))
+    got = log_matmul(_misaligned(x), _misaligned(w), "rapid10",
+                     spec=_depth(depth))
+    np.testing.assert_array_equal(bits(got.cpu().numpy()),
+                                  bits(log_matmul_plain(x, w, "rapid10")
+                                       .cpu().numpy()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 8])
+def test_cuda_log_matmul_depths_norm_tail_and_batched(cuda, depth):
+    """The rms tail (a K2 launch at K1's depth) with keep_prenorm, and
+    JPEG's batched 8 x 8 products with the basis broadcast (nk = 1)."""
+    from repro_torch.core.backend import Epilogue
+    rng = np.random.default_rng(depth)
+    x = T(randn(rng, 33, 200)).to(cuda)
+    w = T(randn(rng, 200, 300, scale=0.07)).to(cuda)
+    res = T(randn(rng, 33, 300)).to(cuda)
+    ep = Epilogue(norm="rms", div_scheme="rapid9", keep_prenorm=True)
+    got = log_matmul(x, w, "rapid10", residual=res, epilogue=ep,
+                     spec=_depth(depth))
+    ref = log_matmul_plain(x, w, "rapid10", residual=res, epilogue=ep)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(bits(a.cpu().numpy()),
+                                      bits(b.cpu().numpy()))
+    basis = T(randn(rng, 8, 8)).to(cuda)
+    blocks = T(randn(rng, 256, 8, 8)).to(cuda)
+    for xb, wb in ((basis.expand(256, 8, 8), blocks),
+                   (blocks, basis.expand(256, 8, 8))):
+        got = log_matmul(xb, wb, "rapid10", spec=_depth(depth))
+        ref = log_matmul_plain(xb, wb, "rapid10")
+        np.testing.assert_array_equal(bits(got.cpu().numpy()),
+                                      bits(ref.cpu().numpy()))
+
+
+@pytest.mark.gpu
+def test_cuda_log_matmul_counts_launches_by_depth(cuda):
+    from repro_torch.kernels import (launch_counts, launch_counts_by_depth,
+                                     reset_launch_counts)
+    x = torch.ones(4, 64, device=cuda)
+    w = torch.ones(64, 64, device=cuda)
+    reset_launch_counts()
+    log_matmul(x, w, "rapid10")
+    log_matmul(x, w, "rapid10", spec=_depth(1))
+    log_matmul(x, w, "rapid10", spec=_depth(3))
+    assert launch_counts()["log_matmul"] == 3
+    assert launch_counts_by_depth()["log_matmul"] == {2: 1, 1: 1, 3: 1}
+
+
+_ROW_CASES = [
+    (1, 2560, None),    # one slab, fewer than depth
+    (37, 1000, None),   # ragged last slab, n % 128 != 0
+    (33, 130, 3),       # n % 4 != 0: 4 B copies; bm = 3
+    (512, 2560, None),  # the train path's ln1 / ln2 / final norm
+    (5000, 12, 1),      # more slabs than blocks: each block walks several
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("rows,n,bm", _ROW_CASES)
+def test_cuda_row_dividers_depths_bit_exact(cuda, depth, rows, n, bm):
+    """K2 / K3 / K5 at every depth against their plain versions on the
+    card, denominators included; special operands head every row set."""
+    from repro_torch.kernels.spec import KernelSpec, PipelineSpec
+    spec = KernelSpec(bm=bm, pipeline=PipelineSpec(depth=depth))
+    rng = np.random.default_rng(rows + n + depth)
+    x = T(randn(rng, rows, n, scale=2.0)).to(cuda)
+    x.view(-1)[:18] = T(special_sample(rng, 18)).to(cuda)
+    got, den = fused_rms_div(x, 1e-6, "rapid9", return_denom=True, spec=spec)
+    ref, rden = rms_div_plain(x, 1e-6, "rapid9", return_denom=True)
+    assert_same_bits(den.cpu().numpy(), rden.cpu().numpy())
+    assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
+    e = torch.exp(x.clamp(-30, 30))
+    e.view(-1)[:18] = x.view(-1)[:18]
+    got, den = fused_softmax_div(e, "rapid9", return_denom=True, spec=spec)
+    ref, rden = softmax_div_plain(e, "rapid9", return_denom=True)
+    assert_same_bits(den.cpu().numpy(), rden.cpu().numpy())
+    assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
+    b = T(special_sample(rng, max(rows, 18))[:rows]).to(cuda)
+    got = div_rowbcast(x, b, "rapid9", spec=spec)
+    assert_same_bits(got.cpu().numpy(),
+                     div_rowbcast_plain(x, b, "rapid9").cpu().numpy())
+    if depth > 1:  # and from a start 4 B past a 16 B boundary
+        got = fused_rms_div(_misaligned(x), 1e-6, "rapid9", spec=spec)
+        assert_same_bits(got.cpu().numpy(),
+                         rms_div_plain(x, 1e-6, "rapid9").cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_cuda_loss_backward_through_kernels_equals_plain(cuda):
+    """``loss.backward()`` of a reduced RAPID model (4 x 32 tokens: K1 in
+    its prefill regime at depth 2, K2/K3 at depth 2) through the kernels
+    and through the plain versions on the card.  Bound: every kernel is
+    bit-equal to its plain version (silu within 2 ulp) and the backward
+    is the same torch ops, so the loss agrees within rel 1e-5 and every
+    gradient within 1e-5 x its largest magnitude."""
+    from repro_torch.configs.base import RAPID, get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import (launch_counts_by_depth, plain_versions,
+                                     reset_launch_counts)
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import tree_leaves
+
+    cfg = get_config("h2o_danube_1_8b").reduced().with_(approx=RAPID,
+                                                         remat="block")
+    model = Model(cfg)
+    params = model.init(0, cuda)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in
+             SyntheticLM(cfg.vocab_size, 32, 4, seed=2).batch_at(0).items()}
+    runs = []
+    for plain in (False, True):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.grad = None
+            p.requires_grad_(True)
+        reset_launch_counts()
+        if plain:
+            with plain_versions():
+                loss = model.loss_fn(params, batch)
+                loss.backward()
+        else:
+            loss = model.loss_fn(params, batch)
+            loss.backward()
+        runs.append((float(loss), [p.grad.clone() for p in leaves],
+                     launch_counts_by_depth()))
+    (lk, gk, ck), (lp, gp, cp) = runs
+    assert ck["log_matmul"].get(2, 0) > 0 and ck["rms_div"].get(2, 0) > 0
+    assert ck["softmax_div"].get(2, 0) > 0
+    assert not any(sum(v.values()) for v in cp.values())
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for a, b in zip(gk, gp):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
