@@ -51,7 +51,11 @@ one NVIDIA H100.  It
 9. times the serve paths at the default stage counts against depth 1
    and depth 2 everywhere, in turns on this card (the lockstep decode
    step and prefill, the continuous prefill tick), and
-   ``launch/k1_times.py`` at depth 1 and 2 (the depth A/B; information);
+   ``launch/k1_times.py`` at depths 1, 2 and 3 (the depth A/B); then K1
+   before and after: ``k1_times.py`` on the parent commit's kernels and
+   on this tree's in turns (parent, this, this, parent), where the
+   parent's sources can be unpacked; the record names the parent's
+   revision (information);
 10. trains full-width h2o_danube_1_8b (RAPID, f32 params from a seed,
     bf16 compute, block remat) for 3 AdamW steps of 4 x 128 tokens
     through ``make_train_step`` / ``train_loop`` into a checkpoint
@@ -70,7 +74,10 @@ broadcast DCT basis on each side; and it holds K1 (K7 at depth >= 2)
 and K2/K3/K5 (K8) at depths 1, 2, 3, 4 and 8 bit-equal to their plain
 versions, including K not a multiple of the K block, K shorter than
 depth K blocks, a single row (fewer slabs than depth) and ragged
-slabs.
+slabs, and K1 at full width with K blocks that take its lean product
+path and blocks that take the full one (a zero, a subnormal, an inf,
+-0, products at the lean proof's edges) in one call, and with K blocks
+on the proof's own bounds and one step outside them.
 
 It exits non-zero, printing no result, when no CUDA card is present or
 when it is run outside a checkout of the repository.  Its last line is
@@ -83,6 +90,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -98,10 +106,12 @@ HBM_BYTES_PER_S = 3.35e12
 # int32 lanes: 132 SMs x 64 INT32 lanes x 1.98 GHz (the float32 row of
 # 67 TFLOP/s is 132 x 128 FP32 lanes x 2 flops x 1.98 GHz)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# fewest int32 ops a RAPID product can take: the LUT index combine and
-# the two adds (bits + bits + coefficient); clamps, sign and the f32
-# accumulate are extra
-INT32_OPS_PER_PRODUCT = 3
+# fewest int32 ops a RAPID product can take: K1's lean loop issues two
+# IADD3s, one forming the LUT address, one adding the sign-folded
+# operands and the coefficient (a' + m' + c); the LUT gather (one
+# shared-memory word a product, 32 words a clock an SM) gives the same
+# rate; clamps, sign and the f32 accumulate are extra
+INT32_OPS_PER_PRODUCT = 2
 FP32_FLOPS_PER_S = 67e12
 
 D, KV_HEADS, G, HD, D_FF = 2560, 8, 4, 80, 6912
@@ -183,8 +193,10 @@ def card_line() -> str:
 # --------------------------------------------------------------------------
 
 class Timer:
-    """Mean time of a call by CUDA events, L2 flushed before each run
-    (the main path meets every weight cold: no layer repeats)."""
+    """Mean device time of a call by CUDA events, L2 flushed before each
+    run (the main path meets every weight cold: no layer repeats); the
+    card sleeps ~0.5 ms before the first event, so the call's host work
+    is queued behind the sleep and not counted."""
 
     def __init__(self, torch, dev):
         self.torch = torch
@@ -196,6 +208,7 @@ class Timer:
         total = 0.0
         for _ in range(reps):
             self.flush_buf.zero_()
+            torch.cuda._sleep(1_000_000)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -273,6 +286,62 @@ def card_tests() -> None:
     if out.returncode != 0 or "skipped" in tail or "passed" not in tail:
         print(out.stdout[-6000:], out.stderr[-3000:], file=sys.stderr)
         raise AssertionError(f"card tests failed: {tail}")
+
+
+def lean_loop_sass(build) -> dict:
+    """SASS instructions per product in K1's inner loops, read from the
+    built library with ``cuobjdump -sass``: for each 2-D depth-2 instance
+    of ``lean_kernel`` (chunk, prefill) and ``decode_kernel``, every loop
+    (a backward branch) that adds products -- FADDs, or in the decode
+    kernel's product phase STSs -- with its instructions per product.
+    The lean loop is the one with the fewest; the full product() loop
+    and the decode kernel's sum loop are the others."""
+    import re
+
+    so = next(build.BUILD_DIR.glob("log_matmul-*.so"))
+    dump = subprocess.run(
+        [str(Path(build._nvcc()).parent / "cuobjdump"), "-sass", str(so)],
+        capture_output=True, text=True, check=True).stdout
+    wanted = {"lean_kernelILi4ELi4ELi1ELi64ELi2ELb0E": "chunk",
+              "lean_kernelILi4ELi8ELi4ELi16ELi2ELb0E": "prefill",
+              "decode_kernelILi4ELi128ELi2ELb0E": "decode (4 rows)"}
+    out, name, body = {}, None, []
+    for line in dump.splitlines() + ["Function : end"]:
+        if "Function :" in line:
+            if name:
+                out[name] = _loops(body)
+            name = next((v for k, v in wanted.items() if k in line), None)
+            body = []
+        elif name:
+            m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(.*?);", line)
+            if m:
+                body.append((int(m.group(1), 16), m.group(2)))
+    for regime, loops in out.items():
+        log(f"sass {regime}: " + "; ".join(
+            f"loop of {n} instructions, {p} products, {n / p:.2f} a product"
+            for n, p in loops))
+    return out
+
+
+def _loops(body):
+    """(instructions, products) of each loop in ``body`` [(address,
+    instruction)] closed by a backward branch, reading shared memory and
+    holding >= 4 FADDs (or STSs, where the loop has no FADD)."""
+    import re
+
+    at = {a: i for i, (a, _) in enumerate(body)}
+    loops = []
+    for i, (addr, ins) in enumerate(body):
+        m = re.search(r"BRA (0x[0-9a-f]+)", ins)
+        if not m or int(m.group(1), 16) >= addr:
+            continue
+        seg = [op.split()[0] for _, op in
+               body[at.get(int(m.group(1), 16), i):i + 1]
+               for op in [re.sub(r"^@!?U?P\w+\s+", "", op)]]
+        products = seg.count("FADD") or seg.count("STS")
+        if products >= 4 and "LDS" in seg:  # not the LUT's upload
+            loops.append((len(seg), products))
+    return loops
 
 
 # --------------------------------------------------------------------------
@@ -388,6 +457,78 @@ def kernel_phase(torch, dev, timer):
                    plain_ms, 4 * (m * k + k * n + m * n),
                    m * n * k * INT32_OPS_PER_PRODUCT, INT32_OPS_PER_S,
                    {"depth": depth})
+
+    # K1 / K7 with lean and full K blocks in one call, at the serve
+    # paths' full width (wq's K = N = 2560): a zero, a subnormal, an inf
+    # (x) and -0 (w) each in a K block of its own, and products just
+    # inside and just outside the lean proof's MIN_NORMAL / INF_BITS
+    # edges in another; the plain model of the proof must find both
+    # verdicts among the K blocks of the tile at row 0, column 0;
+    # bit-equal at every depth
+    from repro_torch.kernels.log_matmul.ops import (edge_blocks,
+                                                    lean_block_ok,
+                                                    mixed_blocks)
+    from repro_torch.kernels.spec import matmul_geometry
+    for m in (DECODE_M, CHUNK_M, PREFILL_M):
+        bm, bn, bk = matmul_geometry(m, D)
+        xh, wh = mixed_blocks(np.random.default_rng(m), m, D, D, bk)
+        x, w = torch.from_numpy(xh).to(dev), torch.from_numpy(wh).to(dev)
+        verdicts = [lean_block_ok(x[:bm, k0:k0 + bk], w[k0:k0 + bk, :bn],
+                                  "rapid10") for k0 in range(0, D, bk)]
+        if all(verdicts) or not any(verdicts):
+            raise AssertionError(f"mixed blocks M={m}: verdicts {verdicts}")
+        ref = log_matmul_plain(x, w, "rapid10")
+        plain_ms = timer(lambda: log_matmul_plain(x, w, "rapid10"), 1)
+        for depth in DEPTHS:
+            got = log_matmul(x, w, "rapid10", spec=at(depth))
+            torch.cuda.synchronize()
+            fin = torch.isfinite(ref)
+            ok = same_bits(got, ref)
+            record("log_matmul" if depth == 1 else "log_matmul_pipelined",
+                   f"mixed lean/full M={m} K={D} N={D} "
+                   f"({sum(verdicts)}/{len(verdicts)} lean blocks at tile 0) "
+                   f"depth={depth}",
+                   abs_max(got[fin], ref[fin]), ulp_max(got[fin], ref[fin]),
+                   ok, timer(lambda: log_matmul(x, w, "rapid10",
+                                                spec=at(depth)), 5),
+                   plain_ms, 4 * (m * D + D * D + m * D),
+                   m * D * D * INT32_OPS_PER_PRODUCT, INT32_OPS_PER_S,
+                   {"depth": depth, "lean_blocks_tile0": sum(verdicts),
+                    "blocks_tile0": len(verdicts)})
+            del got
+        del x, w, ref
+
+    # K1 / K7 with the lean proof at its own bounds, at wq's full width:
+    # in every tile, K block 0's operands give min a + min m + lut_min ==
+    # MIN_NORMAL and max a + max m + lut_max == INF_BITS - 1 (proved),
+    # block 1 sits one step below the lower bound and block 2 one above
+    # the upper (refused), with real products on each bound; the plain
+    # model must give these verdicts at tile 0; bit-equal at every depth
+    for m in (DECODE_M, CHUNK_M, PREFILL_M):
+        bm, bn, bk = matmul_geometry(m, D)
+        xh, wh = edge_blocks(np.random.default_rng(m + 1), m, D, D, bk)
+        x, w = torch.from_numpy(xh).to(dev), torch.from_numpy(wh).to(dev)
+        verdicts = [lean_block_ok(x[:bm, k0:k0 + bk], w[k0:k0 + bk, :bn],
+                                  "rapid10") for k0 in range(0, 4 * bk, bk)]
+        if verdicts != [True, False, False, True]:
+            raise AssertionError(f"proof edges M={m}: verdicts {verdicts}")
+        ref = log_matmul_plain(x, w, "rapid10")
+        plain_ms = timer(lambda: log_matmul_plain(x, w, "rapid10"), 1)
+        for depth in DEPTHS:
+            got = log_matmul(x, w, "rapid10", spec=at(depth))
+            torch.cuda.synchronize()
+            fin = torch.isfinite(ref)
+            record("log_matmul" if depth == 1 else "log_matmul_pipelined",
+                   f"proof edges M={m} K={D} N={D} depth={depth}",
+                   abs_max(got[fin], ref[fin]), ulp_max(got[fin], ref[fin]),
+                   same_bits(got, ref),
+                   timer(lambda: log_matmul(x, w, "rapid10", spec=at(depth)),
+                         5),
+                   plain_ms, 4 * (m * D + D * D + m * D),
+                   m * D * D * INT32_OPS_PER_PRODUCT, INT32_OPS_PER_S,
+                   {"depth": depth})
+            del got
+        del x, w, ref
 
     # K2: ln1/ln2/final norm of a decode step (4 rows), of a continuous
     # prefill tick (64 rows) and of the lockstep prefill / a train step
@@ -1407,23 +1548,98 @@ def depth_ab_phase(torch, cfg, params):
             f"({out['depth2'][f'{key}_ms'] / base - 1:+.1%})")
 
     k1 = []
-    for depth in (1, 2, 2, 1):
-        res = subprocess.run(
-            [sys.executable, str(ROOT / "src/repro_torch/launch/k1_times.py"),
-             "--depth", str(depth), "--reps", "5"], cwd=ROOT,
-            capture_output=True, text=True, timeout=300)
-        if res.returncode:
-            raise AssertionError(f"k1_times --depth {depth}: {res.stderr[-2000:]}")
-        k1 += [json.loads(line) for line in res.stdout.splitlines()
-               if line.startswith("{")]
+    for depth in (1, 2, 3, 3, 2, 1):
+        k1 += k1_times(["--depth", str(depth)])
     for site in sorted({(r["site"], r["M"]) for r in k1}):
         by = {d: [r["ms"] for r in k1 if (r["site"], r["M"]) == site
-                  and r["depth"] == d] for d in (1, 2)}
+                  and r["depth"] == d] for d in (1, 2, 3)}
         log(f"depth A/B k1_times {site[0]} M={site[1]}: depth 1 "
             f"{by[1]} ms, depth 2 {by[2]} ms "
-            f"({np.mean(by[2]) / np.mean(by[1]) - 1:+.1%})")
+            f"({np.mean(by[2]) / np.mean(by[1]) - 1:+.1%}), depth 3 "
+            f"{by[3]} ms ({np.mean(by[3]) / np.mean(by[1]) - 1:+.1%})")
     out["k1_times"] = k1
+    out["k1_parent_ab"] = parent_ab()
     return out
+
+
+def k1_times(args, src=None):
+    """``launch/k1_times.py`` (this tree's timer) in a process of its
+    own, on this tree's kernels or on those of the tree ``src``."""
+    cmd = [sys.executable, str(ROOT / "src/repro_torch/launch/k1_times.py"),
+           "--reps", "5", *args] + (["--src", str(src)] if src else [])
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    if res.returncode:
+        raise AssertionError(f"k1_times {args} {src}: {res.stderr[-2000:]}")
+    return [json.loads(line) for line in res.stdout.splitlines()
+            if line.startswith("{")]
+
+
+def parent_src():
+    """(src, revision) of the parent commit's ``src`` for K1's
+    before/after, unpacked by ``git archive`` under ``build/k1_parent``
+    with its full revision in ``build/k1_parent/REV``.  The parent is
+    HEAD where ``src/repro_torch`` differs from it (the parent of an
+    uncommitted change), else HEAD^.  With git, a tree stamped with
+    another revision is unpacked anew; in a copy of the checkout
+    without ``.git`` a tree unpacked there beforehand is used only with
+    its stamp.  (None, why) where there is no such tree."""
+    dest = ROOT / "build" / "k1_parent"
+    stamp = dest / "REV"
+    have = stamp.read_text().strip() if stamp.is_file() else None
+    if not (dest / "src" / "repro_torch" / "csrc").is_dir():
+        have = None
+    if not (ROOT / ".git").exists() or shutil.which("git") is None:
+        if have is None:
+            return None, "no git history and no stamped build/k1_parent"
+        return dest / "src", have
+
+    def git(*args):
+        return subprocess.run(["git", *args], cwd=ROOT, capture_output=True,
+                              text=True)
+
+    dirty = git("status", "--porcelain", "--untracked-files=no", "--",
+                "src/repro_torch").stdout.strip()
+    rev = "HEAD" if dirty else "HEAD^"
+    full = git("rev-parse", "--verify", "-q", rev + "^{commit}")
+    if full.returncode:
+        return None, f"no commit {rev}"
+    full = full.stdout.strip()
+    if have != full:
+        arch = subprocess.run(["git", "archive", full, "src/repro_torch"],
+                              cwd=ROOT, capture_output=True)
+        if arch.returncode:  # a shallow or partial clone lacks it
+            return None, f"git archive {full} failed"
+        shutil.rmtree(dest, ignore_errors=True)
+        dest.mkdir(parents=True)
+        subprocess.run(["tar", "-x", "-C", str(dest)], input=arch.stdout,
+                       check=True)
+        stamp.write_text(full + "\n")
+    return dest / "src", full
+
+
+def parent_ab():
+    """K1 before and after on this card: ``k1_times.py`` at each tree's
+    default stage counts on the parent commit's kernels and on this
+    tree's, in turns (parent, this, this, parent), one process each;
+    the nine shapes with both means, and the parent's revision.
+    Information: nothing here fails on a time."""
+    src, parent = parent_src()
+    if src is None:
+        log(f"K1 parent A/B: not run -- {parent}")
+        return {"parent": None, "why": parent, "runs": []}
+    log(f"K1 parent A/B: parent {parent}")
+    runs = []
+    for who in ("parent", "this", "this", "parent"):
+        rows = k1_times([], src if who == "parent" else None)
+        runs += [dict(r, tree=who) for r in rows]
+    for site in sorted({(r["site"], r["M"]) for r in runs}):
+        by = {t: [r["ms"] for r in runs if (r["site"], r["M"]) == site
+                  and r["tree"] == t] for t in ("parent", "this")}
+        log(f"K1 parent A/B {site[0]} M={site[1]}: parent {by['parent']} "
+            f"ms, this tree {by['this']} ms "
+            f"({np.mean(by['parent']) / np.mean(by['this']):.2f}x faster)")
+    return {"parent": parent, "runs": runs}
 
 
 # --------------------------------------------------------------------------
@@ -1438,8 +1654,6 @@ def train_phase(torch, dev):
     to 0 just before the loop and read just after; K1 must have launched
     at depth >= 2 (K7) and K2 / K3 at depth >= 2 (K8); losses and
     gradient norms must be finite, and the checkpoint complete."""
-    import shutil
-
     from repro_torch.ckpt.checkpoint import CheckpointManager
     from repro_torch.configs.base import RAPID, get_config
     from repro_torch.data.pipeline import SyntheticLM
@@ -1637,10 +1851,13 @@ def main() -> int:
     _build.build_all()
     log(f"build: {sorted(p.name for p in _build.BUILD_DIR.glob('*.so'))} in "
         f"{time.perf_counter() - t0:.1f}s")
+    ptxas = []
     for f in sorted(_build.BUILD_DIR.glob("*.log")):
         for line in f.read_text().splitlines():
             if "registers" in line or "spill" in line:
-                log(f"  {f.stem}: {line.strip()}")
+                ptxas.append(f"{f.stem}: {line.strip()}")
+                log(f"  {ptxas[-1]}")
+    sass = lean_loop_sass(_build)
 
     card_tests()
     timer = Timer(torch, dev)
@@ -1664,8 +1881,11 @@ def main() -> int:
     # training), each read just after that run.  K1 / K2 / K3 / K5 count
     # every launch of their wrapper, as the wrappers do; K7 and K8 count
     # the subset at depth >= 2 (K1's, and K2's + K3's + K5's)
+    from repro_torch.kernels.spec import resolve_spec
+    k7_depth = resolve_spec("log_matmul", (PREFILL_M, D_FF, D)).depth
     heaviest = {"log_matmul": "w1 M=512",
-                "log_matmul_pipelined": "w1 M=512",
+                "log_matmul_pipelined": f"w1 M=512 K={D} N={D_FF} silu "
+                                        f"depth={k7_depth}",
                 "rms_div": "rms rows=512", "softmax_div": "softmax rows=",
                 "rowwise_pipelined": "rms rows=512",
                 "flash_decode": "q=",
@@ -1700,7 +1920,8 @@ def main() -> int:
             "library_ms": None, "shape": top["shape"],
             "launches_by_path": by_path}
         kernels.append(row)
-    record = {"card": card, "cases": cases, "serve": serve,
+    record = {"card": card, "ptxas": ptxas, "sass": sass,
+              "cases": cases, "serve": serve,
               "continuous": cont, "long_prefill": long_, "depth_ab": ab,
               "integer_units": ints, "apps": apps, "train": train,
               "train_2layer": train_check, "kernels": kernels,

@@ -21,17 +21,17 @@ Stage counts on Hopper:
     no bits: every depth computes the same sums in the same order.
   * ``depth is None`` -- deferred to the heuristic: the reference's
     default, :data:`budget.PIPELINE_BUFFERS` (2), unless a regime below
-    says otherwise or the row is too wide for two slabs.  K1 keeps depth
-    1 in two regimes where the ring measured slower on an H100
-    (``chip_smoke.py``, ``launch/k1_times.py --depth``; PERF.md): the
-    ``chunk`` regime (8 < M <= 64, one row of 64 x 64 tiles: a
-    continuous prefill tick; depth 2 was 3-9% slower) and ``block8``
-    (JPEG's 8 x 8 products, one K block: 25% slower).  Depth 2 took
-    14-16% off the decode regime and left M = 512 within 2%.
+    says otherwise or the row is too wide for two slabs.  K1's default
+    per regime is :data:`_MATMUL_DEPTH`, chosen by an A/B on an H100
+    (``chip_smoke.py``, ``launch/k1_times.py --depth``; PERF.md).
 
-K1's block geometry is fixed per regime by the instances compiled in
-``csrc/log_matmul.cu`` (:func:`matmul_geometry`); an explicit ``bm`` /
-``bn`` / ``bk`` must name that geometry.
+K1's regime and block geometry are decided here and only here
+(:func:`matmul_regime`, :func:`matmul_geometry`): the wrapper passes
+both to ``csrc/log_matmul.cu``, which launches that regime's instance
+and refuses a regime / geometry it did not compile for the shape, so
+the shared-memory check (:func:`matmul_smem`) always checks the
+instance the card runs.  An explicit ``bm`` / ``bn`` / ``bk`` must name
+that geometry.
 """
 from __future__ import annotations
 
@@ -47,6 +47,7 @@ __all__ = [
     "as_kernel_spec",
     "resolve_spec",
     "RESOLVED_FAMILIES",
+    "MATMUL_REGIMES",
     "matmul_regime",
     "matmul_geometry",
     "matmul_smem",
@@ -63,14 +64,23 @@ __all__ = [
 RESOLVED_FAMILIES = ("log_matmul", "fused_softmax", "fused_rms",
                      "fused_div_rowbcast")
 
-# K1's instances in csrc/log_matmul.cu: regime -> (bm, bn, bk)
-_MATMUL_GEOMETRY = {"block8": (8, 8, 8), "decode": (8, 64, 32),
-                    "chunk": (64, 64, 16), "prefill": (64, 64, 16)}
-# K1's stage count per regime when the spec defers it
+# K1's regimes, in the order of csrc/log_matmul.cu's regime codes
+MATMUL_REGIMES = ("block8", "decode", "chunk", "prefill")
+# K1's instances in csrc/log_matmul.cu: regime -> (bm, bn, bk); the
+# decode regime's depend on M (_decode_geometry)
+_MATMUL_GEOMETRY = {"block8": (8, 8, 8), "chunk": (16, 32, 64),
+                    "prefill": (32, 128, 16)}
+# K1's stage count per regime when the spec defers it, from the A/B of
+# launch/k1_times.py --depth on an H100 (PERF.md): depth 1 is the
+# slowest wherever K has many blocks; prefill is 2-3% faster at 3 than
+# at 2; JPEG's 8 x 8 products (one K block) are fastest at 1
 _MATMUL_DEPTH = {"block8": 1,
                  "decode": budget.PIPELINE_BUFFERS,
-                 "chunk": 1,
-                 "prefill": budget.PIPELINE_BUFFERS}
+                 "chunk": budget.PIPELINE_BUFFERS,
+                 "prefill": 3}
+# the lean kernel's per-warp reduction slots (csrc/log_matmul.cu
+# RED_SLOTS x an int4)
+_MATMUL_RED_BYTES = 8 * 16
 # the stage counts csrc/log_matmul.cu instantiates
 MATMUL_DEPTHS = (1, 2, 3, 4, 8)
 # set by deferred_depth(): the depth every deferred spec resolves to
@@ -140,8 +150,8 @@ def as_kernel_spec(spec: Optional[KernelSpec]) -> KernelSpec:
 
 def matmul_regime(m: int, n: int) -> str:
     """K1's regime for an output of ``m`` x ``n``: ``block8`` (JPEG's
-    8 x 8 products), ``decode`` (M <= 8), ``chunk`` (M <= 64: one row of
-    output tiles) or ``prefill``."""
+    8 x 8 products), ``decode`` (M <= 8), ``chunk`` (M <= 64: a
+    continuous prefill tick) or ``prefill``."""
     if m <= 8 and n <= 8:
         return "block8"
     if m <= 8:
@@ -151,15 +161,36 @@ def matmul_regime(m: int, n: int) -> str:
 
 def matmul_geometry(m: int, n: int) -> Tuple[int, int, int]:
     """K1's compiled (bm, bn, bk) for an ``m`` x ``n`` output."""
-    return _MATMUL_GEOMETRY[matmul_regime(m, n)]
+    regime = matmul_regime(m, n)
+    if regime == "decode":
+        return _decode_geometry(m)
+    return _MATMUL_GEOMETRY[regime]
 
 
-def matmul_smem(bm: int, bn: int, bk: int, depth: int) -> int:
-    """Shared memory of one K1 block: the LUT and the decoded operand
-    arrays (static), plus at depth >= 2 the ring of ``depth`` raw f32
-    x and w tiles (dynamic)."""
-    static = 4 * 256 + 2 * 4 * bk * (bm + bn)
+def _decode_geometry(m: int) -> Tuple[int, int, int]:
+    """The decode regime's instance for ``m`` <= 8 live rows: the rows
+    rounded up to 1, 2, 4 or 8, 32 columns, K blocks of 128 (64 at 8
+    rows, whose products and depth-8 ring would not fit at 128)."""
+    rows = next(r for r in (1, 2, 4, 8) if r >= m)
+    return rows, 32, 128 if rows <= 4 else 64
+
+
+def matmul_smem(regime: str, bm: int, bn: int, bk: int, depth: int) -> int:
+    """Shared memory of one K1 block of ``regime``.  Static: the LUT and
+    the staged operands, 8 bytes each (the decode regime stages only x),
+    plus the proof's reduction slots outside ``block8``.  Dynamic: the
+    decode regime's ``bk`` x ``bm`` x ``bn`` f32 products, and at depth
+    >= 2 the ring of ``depth`` raw f32 x and w tiles."""
+    if regime not in MATMUL_REGIMES:
+        raise KeyError(f"unknown log_matmul regime {regime!r}; have "
+                       f"{MATMUL_REGIMES}")
     ring = depth * 4 * (bm * bk + bk * bn) if depth > 1 else 0
+    if regime == "decode":
+        return (4 * 256 + 8 * bk * bm + _MATMUL_RED_BYTES
+                + 4 * bk * bm * bn + ring)
+    static = 4 * 256 + 8 * bk * (bm + bn)
+    if regime != "block8":
+        static += _MATMUL_RED_BYTES
     return static + ring
 
 
@@ -207,7 +238,7 @@ def resolve_spec(family: str, shapes: Sequence[int],
     if family == "log_matmul":
         m, n, _ = (int(s) for s in shapes)
         regime = matmul_regime(m, n)
-        geom = _MATMUL_GEOMETRY[regime]
+        geom = matmul_geometry(m, n)
         bm, bn, bk = (g if v is None else int(v)
                       for v, g in zip((ks.bm, ks.bn, ks.bk), geom))
         if (bm, bn, bk) != geom:

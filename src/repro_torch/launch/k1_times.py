@@ -6,7 +6,9 @@ On a machine with a CUDA card: builds the kernels of the ``repro_torch``
 package found under ``--src`` (default: this checkout's ``src``), times
 one K1 call per shape with CUDA events (L2 flushed before each call, as
 the serve path meets every weight cold; mean of ``--reps``) and prints
-one JSON line per shape with the card's name.  Pointing ``--src`` at
+one JSON line per shape with the card's name.  The card sleeps ~0.5 ms
+before the first event of each call, so the wrapper's host work is
+queued behind it and the events time the device alone.  Pointing ``--src`` at
 another checkout's ``src`` times that checkout's kernels, so two
 versions can be compared in turns inside one process launch each on the
 same card (A, B, B, A).  ``--depth`` sets K1's stage count (K blocks
@@ -63,6 +65,7 @@ def main(argv=None) -> int:
         total = 0.0
         for _ in range(args.reps):
             flush.zero_()
+            torch.cuda._sleep(1_000_000)  # covers the wrapper's host time
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()

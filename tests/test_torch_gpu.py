@@ -167,12 +167,20 @@ _NEAR_ONE = np.array([1.0000001, 1.9999999, 2.0, 1.5, 0.99999994],
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", [1, 3])
 @pytest.mark.parametrize("act", [None, "silu"])
-def test_cuda_log_matmul_special_operands(cuda, k, act):
+@pytest.mark.parametrize("regime_m", [None, 4, 9, 100])
+def test_cuda_log_matmul_special_operands(cuda, k, act, regime_m):
     """K = 1 is every pair of special operands as one product each; K = 3
-    adds the sums (inf - inf, overflow of the accumulator)."""
-    rng = np.random.default_rng(100 + k)
+    adds the sums (inf - inf, overflow of the accumulator).  ``regime_m``
+    sets M to land in the decode, chunk or prefill regime (None: 256
+    rows at K = 1, 64 at K = 3)."""
+    rng = np.random.default_rng(100 + k + (regime_m or 0))
     m, n = (256, 256) if k == 1 else (64, 96)
-    xs = special_sample(rng, m * k).reshape(m, k)
+    m = regime_m or m
+    if regime_m is None:
+        xs = special_sample(rng, m * k).reshape(m, k)
+    else:  # a few rows: a shuffled draw, so they are not all 0 / inf
+        xs = rng.permutation(special_sample(rng, max(m * k, 64)))
+        xs = xs[:m * k].reshape(m, k)
     ws = special_sample(rng, k * n)
     ws[-len(_NEAR_ONE):] = _NEAR_ONE
     x, w = T(xs).to(cuda), T(ws.reshape(k, n)).to(cuda)
@@ -491,12 +499,23 @@ def _misaligned(t):
 @pytest.mark.gpu
 @pytest.mark.parametrize("depth", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("m,k,n", [
-    (4, 2560, 640),   # decode regime, 80 K blocks
+    (4, 2560, 640),   # decode regime, 40 K blocks
     (4, 20, 640),     # decode, one K block (nk < depth)
     (130, 256, 192),  # prefill, 16 B copies, ragged M
     (64, 300, 130),   # K % BK != 0, N % 4 != 0 (4 B copies for w)
     (70, 129, 65),    # K % 4 != 0 (4 B copies for x)
     (9, 24, 130),     # two K blocks, fewer than depth 3, 4, 8
+    # every decode instance (1, 2, 4, 8 warps) and the regime edges,
+    # each with N ragged against the 32- and 128-column tiles and not a
+    # multiple of 4
+    (1, 200, 97),     # decode, one warp
+    (2, 130, 33),     # decode, two warps, one column past a tile
+    (3, 300, 70),     # decode, a padding warp (4 for 3 rows)
+    (5, 129, 131),    # decode, three padding warps (8 for 5 rows)
+    (8, 64, 65),      # decode, eight warps, exactly one K block
+    (63, 100, 97),    # chunk, a ragged last 16-row tile
+    (65, 70, 130),    # prefill, one live row in the last 32-row tile
+    (512, 48, 259),   # prefill at the train path's M
 ])
 def test_cuda_log_matmul_depths_bit_exact(cuda, depth, m, k, n):
     rng = np.random.default_rng(m * k + n)
@@ -544,17 +563,95 @@ def test_cuda_log_matmul_depths_norm_tail_and_batched(cuda, depth):
 
 
 @pytest.mark.gpu
-def test_cuda_log_matmul_counts_launches_by_depth(cuda):
+@pytest.mark.parametrize("m", [4, 64, 512])
+def test_cuda_log_matmul_counts_launches_by_depth(cuda, m):
+    """One count per launch, filed under the depth the call resolved to
+    (the regime's default when the spec defers it), in every regime."""
     from repro_torch.kernels import (launch_counts, launch_counts_by_depth,
                                      reset_launch_counts)
-    x = torch.ones(4, 64, device=cuda)
+    from repro_torch.kernels.spec import resolve_spec
+    x = torch.ones(m, 64, device=cuda)
     w = torch.ones(64, 64, device=cuda)
+    default = resolve_spec("log_matmul", (m, 64, 64)).depth
     reset_launch_counts()
     log_matmul(x, w, "rapid10")
     log_matmul(x, w, "rapid10", spec=_depth(1))
     log_matmul(x, w, "rapid10", spec=_depth(3))
     assert launch_counts()["log_matmul"] == 3
-    assert launch_counts_by_depth()["log_matmul"] == {2: 1, 1: 1, 3: 1}
+    expect = {}
+    for d in (default, 1, 3):
+        expect[d] = expect.get(d, 0) + 1
+    assert launch_counts_by_depth()["log_matmul"] == expect
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("m,n", [(4, 70), (1, 33), (64, 130), (200, 259)])
+def test_cuda_log_matmul_lean_and_full_blocks_in_one_call(cuda, depth, m, n):
+    """One call whose K blocks take both paths: a zero, a subnormal, an
+    inf and -0 each in a block of their own, and products at the lean
+    proof's MIN_NORMAL / INF_BITS edges; the plain blockwise model says
+    which blocks are lean, and the kernel must give the plain version's
+    bits at every depth."""
+    from repro_torch.kernels.log_matmul.ops import (log_matmul_blocks,
+                                                    mixed_blocks)
+    from repro_torch.kernels.spec import matmul_geometry
+    rng = np.random.default_rng(7 * m + n + depth)
+    bk = matmul_geometry(m, n)[2]
+    x, w = mixed_blocks(rng, m, 7 * bk + 5, n, bk)
+    verdicts = log_matmul_blocks(T(x), T(w), "rapid10",
+                                 *matmul_geometry(m, n))[1].values()
+    assert any(verdicts) and not all(verdicts)
+    xt, wt = T(x).to(cuda), T(w).to(cuda)
+    for args in ((xt, wt), (_misaligned(xt), _misaligned(wt))):
+        got = log_matmul(*args, "rapid10", spec=_depth(depth))
+        ref = log_matmul_plain(xt, wt, "rapid10")
+        assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 64, 65, 512])
+def test_cuda_log_matmul_lean_proof_at_its_edges(cuda, depth, m):
+    """The in-kernel proof at its own bounds, in every regime: in each
+    output tile, K block 0's operands give min a + min m + lut_min ==
+    MIN_NORMAL and max a + max m + lut_max == INF_BITS - 1 exactly (the
+    plain model proves it lean), block 1 sits one step below the lower
+    bound and block 2 one step above the upper (the model refuses both),
+    with real products on each bound; the kernel must give the plain
+    version's bits at every depth, N ragged against the tiles."""
+    from repro_torch.kernels.log_matmul.ops import (edge_blocks,
+                                                    log_matmul_blocks)
+    from repro_torch.kernels.spec import matmul_geometry
+    n = 133
+    geom = matmul_geometry(m, n)
+    bk = geom[2]
+    x, w = edge_blocks(np.random.default_rng(m + depth), m, 4 * bk + 5, n, bk)
+    verdicts = log_matmul_blocks(T(x), T(w), "rapid10", *geom)[1]
+    assert [verdicts[(0, 0, b * bk)] for b in range(4)] == [True, False,
+                                                             False, True]
+    xt, wt = T(x).to(cuda), T(w).to(cuda)
+    ref = log_matmul_plain(xt, wt, "rapid10")
+    assert torch.isfinite(ref).any()
+    for args in ((xt, wt), (_misaligned(xt), _misaligned(wt))):
+        got = log_matmul(*args, "rapid10", spec=_depth(depth))
+        assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_cuda_log_matmul_refuses_an_uncompiled_regime(cuda):
+    """The entry point launches the regime the wrapper passes and
+    refuses a regime / geometry pair it did not compile for the shape."""
+    from repro_torch.core.backend import Epilogue
+    from repro_torch.kernels.log_matmul import ops
+    from repro_torch.kernels.spec import KernelSpec, PipelineSpec
+    x = torch.ones(9, 64, device=cuda)
+    w = torch.ones(64, 64, device=cuda)
+    for regime, geom in (("decode", (8, 32, 64)), ("prefill", (64, 64, 16)),
+                         ("chunk", (32, 128, 16)), ("block8", (8, 8, 8))):
+        ks = KernelSpec(*geom, pipeline=PipelineSpec(depth=1))
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ops._kernel(x, w, "rapid10", None, None, Epilogue(), ks, regime)
 
 
 _ROW_CASES = [
@@ -600,7 +697,8 @@ def test_cuda_row_dividers_depths_bit_exact(cuda, depth, rows, n, bm):
 @pytest.mark.gpu
 def test_cuda_loss_backward_through_kernels_equals_plain(cuda):
     """``loss.backward()`` of a reduced RAPID model (4 x 32 tokens: K1 in
-    its prefill regime at depth 2, K2/K3 at depth 2) through the kernels
+    its prefill regime at its default depth, 3 -- K7 --, K2/K3 at depth
+    2) through the kernels
     and through the plain versions on the card.  Bound: every kernel is
     bit-equal to its plain version (silu within 2 ulp) and the backward
     is the same torch ops, so the loss agrees within rel 1e-5 and every
@@ -609,6 +707,7 @@ def test_cuda_loss_backward_through_kernels_equals_plain(cuda):
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels import (launch_counts_by_depth, plain_versions,
                                      reset_launch_counts)
+    from repro_torch.kernels.spec import resolve_spec
     from repro_torch.models.model import Model
     from repro_torch.models.params import tree_leaves
 
@@ -635,7 +734,11 @@ def test_cuda_loss_backward_through_kernels_equals_plain(cuda):
         runs.append((float(loss), [p.grad.clone() for p in leaves],
                      launch_counts_by_depth()))
     (lk, gk, ck), (lp, gp, cp) = runs
-    assert ck["log_matmul"].get(2, 0) > 0 and ck["rms_div"].get(2, 0) > 0
+    k1_depth = resolve_spec("log_matmul", (4 * 32, cfg.d_model,
+                                           cfg.d_model)).depth
+    assert k1_depth >= 2  # K7
+    assert ck["log_matmul"].get(k1_depth, 0) > 0
+    assert ck["rms_div"].get(2, 0) > 0
     assert ck["softmax_div"].get(2, 0) > 0
     assert not any(sum(v.values()) for v in cp.values())
     assert abs(lk - lp) <= 1e-5 * abs(lp)

@@ -38,7 +38,8 @@ from repro_torch.kernels.fused_div.ops import (  # noqa: E402
 from repro_torch.kernels.log_matmul.ops import log_matmul  # noqa: E402
 from repro_torch.kernels.spec import (KernelSpec, PipelineSpec,  # noqa: E402
                                       as_kernel_spec, matmul_geometry,
-                                      matmul_smem, resolve_spec, row_smem)
+                                      matmul_regime, matmul_smem,
+                                      resolve_spec, row_smem)
 
 T = torch.from_numpy
 _JDEPTH1 = JKernelSpec(pipeline=JPipelineSpec(depth=1))
@@ -64,7 +65,8 @@ def test_deferred_depth_is_pipeline_buffers():
     assert KernelSpec().depth == 2
     assert KernelSpec().with_depth(3).depth == 3
     assert resolve_spec("fused_rms", (512, 2560)).depth == 2
-    assert resolve_spec("log_matmul", (512, 6912, 2560)).depth == 2
+    # K1's prefill regime defers to its own A/B winner, 3 (spec.py)
+    assert resolve_spec("log_matmul", (512, 6912, 2560)).depth == 3
     assert resolve_spec("log_matmul", (4, 2560, 2560)).depth == 2
 
 
@@ -77,10 +79,18 @@ def test_as_kernel_spec():
 
 
 @pytest.mark.parametrize("m,n,geom,depth", [
-    (4, 2560, (8, 64, 32), 2),     # decode
-    (64, 2560, (64, 64, 16), 1),   # continuous prefill chunk: depth 1
-    (512, 6912, (64, 64, 16), 2),  # prefill / train
-    (8, 8, (8, 8, 8), 1),          # JPEG's 8 x 8 blocks: depth 1
+    (4, 2560, (4, 32, 128), 2),     # decode: the live rows, 128-deep K blocks
+    (1, 2560, (1, 32, 128), 2),     # decode, one row
+    (2, 640, (2, 32, 128), 2),      # decode, two rows
+    (3, 6912, (4, 32, 128), 2),     # decode, 3 rows on the 4-row instance
+    (5, 2560, (8, 32, 64), 2),      # decode, 5 rows on the 8-row instance
+    (8, 2560, (8, 32, 64), 2),      # decode, 8 rows: 64-deep K blocks
+    (9, 2560, (16, 32, 64), 2),     # chunk from 9 rows
+    (64, 2560, (16, 32, 64), 2),    # continuous prefill chunk
+    (65, 2560, (32, 128, 16), 3),   # prefill from 65 rows
+    (512, 6912, (32, 128, 16), 3),  # prefill / train
+    (8, 8, (8, 8, 8), 1),           # JPEG's 8 x 8 blocks: depth 1
+    (3, 5, (8, 8, 8), 1),           # ... and any output within 8 x 8
 ])
 def test_resolve_log_matmul_regimes(m, n, geom, depth):
     ks = resolve_spec("log_matmul", (m, n, 2560))
@@ -91,7 +101,7 @@ def test_resolve_log_matmul_regimes(m, n, geom, depth):
 
 def test_resolve_explicit_fields_win():
     ks = resolve_spec("log_matmul", (64, 2560, 2560), _d(4))
-    assert ks.depth == 4 and (ks.bm, ks.bn, ks.bk) == (64, 64, 16)
+    assert ks.depth == 4 and (ks.bm, ks.bn, ks.bk) == (16, 32, 64)
     assert resolve_spec("fused_rms", (512, 2560), _d(3, bm=5)).bm == 5
     assert resolve_spec("fused_softmax", (9, 128), _d(1)).depth == 1
 
@@ -130,8 +140,9 @@ def test_check_smem_refuses_the_card_limit():
         budget.check_smem(budget.SMEM_PER_BLOCK + 1)
     # every K1 instance fits, the depth-8 arm included
     for m, n in ((4, 2560), (512, 2560), (8, 8)):
-        assert matmul_smem(*matmul_geometry(m, n), 8) <= budget.SMEM_PER_BLOCK
-    assert matmul_smem(64, 64, 16, 1) <= budget.STATIC_SMEM_MAX
+        assert matmul_smem(matmul_regime(m, n), *matmul_geometry(m, n),
+                           8) <= budget.SMEM_PER_BLOCK
+    assert matmul_smem("block8", 8, 8, 8, 1) <= budget.STATIC_SMEM_MAX
     # the depth-8 row slabs of an 8192-wide row do not: refused on the
     # CPU too, before any launch
     assert row_smem(1, 8192, 8) > budget.SMEM_PER_BLOCK
@@ -139,6 +150,31 @@ def test_check_smem_refuses_the_card_limit():
         fused_rms_div(torch.ones(4, 8192), 1e-6, "rapid9", spec=_d(8))
     out = fused_rms_div(torch.ones(4, 8192), 1e-6, "rapid9", spec=_d(4))
     assert out.shape == (4, 8192)
+
+
+@pytest.mark.parametrize("m,n", [(1, 640), (2, 2560), (4, 2560), (8, 6912),
+                                 (64, 2560), (512, 6912), (8, 8)])
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 8])
+def test_matmul_smem_of_every_instance(m, n, depth):
+    """The plan of each compiled K1 instance, within the card's 227 KB
+    and its static part within the 48 KB a kernel may declare.  Static:
+    the LUT, 8 bytes per staged operand (the decode regime stages only
+    x) and the lean regimes' 8 reduction slots of 16 bytes; dynamic: the
+    decode regime's f32 products and the ring at depth >= 2."""
+    regime = matmul_regime(m, n)
+    bm, bn, bk = matmul_geometry(m, n)
+    ring = depth * 4 * (bm * bk + bk * bn) if depth > 1 else 0
+    if regime == "decode":
+        static = 1024 + 8 * bk * bm + 128
+        dynamic = 4 * bk * bm * bn + ring
+    else:
+        static = 1024 + 8 * bk * (bm + bn) + (0 if regime == "block8" else 128)
+        dynamic = ring
+    assert matmul_smem(regime, bm, bn, bk, depth) == static + dynamic
+    assert static <= budget.STATIC_SMEM_MAX
+    assert static + dynamic <= budget.SMEM_PER_BLOCK
+    with pytest.raises(KeyError):
+        matmul_smem("tile", bm, bn, bk, depth)
 
 
 def test_plain_calls_count_no_launches_at_any_depth():
@@ -212,8 +248,8 @@ def test_deferred_depth_context_overrides_the_heuristic_only():
         with deferred_depth(4):
             assert resolve_spec("log_matmul", (4, 2560, 2560)).depth == 4
         assert resolve_spec("log_matmul", (4, 2560, 2560)).depth == 1
-    assert resolve_spec("log_matmul", (64, 2560, 2560)).depth == 1
-    assert resolve_spec("log_matmul", (512, 2560, 2560)).depth == 2
+    assert resolve_spec("log_matmul", (64, 2560, 2560)).depth == 2
+    assert resolve_spec("log_matmul", (512, 2560, 2560)).depth == 3
     with pytest.raises(ValueError):
         with deferred_depth(0):
             pass
