@@ -52,10 +52,10 @@ one NVIDIA H100.  It
    and depth 2 everywhere, in turns on this card (the lockstep decode
    step and prefill, the continuous prefill tick), and
    ``launch/k1_times.py`` at depths 1, 2 and 3 (the depth A/B); then K1
-   before and after: ``k1_times.py`` on the parent commit's kernels and
-   on this tree's in turns (parent, this, this, parent), where the
-   parent's sources can be unpacked; the record names the parent's
-   revision (information);
+   and K4 before and after: ``k1_times.py`` and ``k4_times.py`` on the
+   parent commit's kernels and on this tree's in turns (parent, this,
+   this, parent), where the parent's sources can be unpacked; the record
+   names the parent's revision (information);
 10. trains full-width h2o_danube_1_8b (RAPID, f32 params from a seed,
     bf16 compute, block remat) for 3 AdamW steps of 4 x 128 tokens
     through ``make_train_step`` / ``train_loop`` into a checkpoint
@@ -68,13 +68,17 @@ one NVIDIA H100.  It
     gradient within 1e-5 of its largest magnitude, the kernels launched
     in the first run and none in the second.
 
-Step 2 also holds K9/K10 bit-equal to their plain versions (special
-operands included) and K1 batched at JPEG's 2048^2 shape, with the
-broadcast DCT basis on each side; and it holds K1 (K7 at depth >= 2)
-and K2/K3/K5 (K8) at depths 1, 2, 3, 4 and 8 bit-equal to their plain
-versions, including K not a multiple of the K block, K shorter than
-depth K blocks, a single row (fewer slabs than depth) and ragged
-slabs, and K1 at full width with K blocks that take its lean product
+Step 2 holds K4 bit-equal to its plain version, both arms, at the
+lockstep step (512 slots, 136 live), the full 4096-slot window and the
+continuous tick's paged views, and times beside each the library's
+``scaled_dot_product_attention`` on the exact arm as a yardstick (the
+port never calls it).  It also holds K9/K10 bit-equal to their plain
+versions (special operands included) and K1 batched at JPEG's 2048^2
+shape, with the broadcast DCT basis on each side; and it holds K1 (K7
+at depth >= 2) and K2/K3/K5 (K8) at depths 1, 2, 3, 4 and 8 bit-equal
+to their plain versions, including K not a multiple of the K block, K
+shorter than depth K blocks, a single row (fewer slabs than depth) and
+ragged slabs, and K1 at full width with K blocks that take its lean product
 path and blocks that take the full one (a zero, a subnormal, an inf,
 -0, products at the lean proof's edges) in one call, and with K blocks
 on the proof's own bounds and one step outside them.
@@ -361,7 +365,8 @@ def kernel_phase(torch, dev, timer):
                                                    softmax_div_plain)
     from repro_torch.kernels.log_matmul.ops import (log_matmul,
                                                     log_matmul_plain)
-    from repro_torch.kernels.spec import KernelSpec, PipelineSpec
+    from repro_torch.kernels.spec import (KernelSpec, PipelineSpec,
+                                          resolve_spec)
 
     def at(depth):
         return KernelSpec(pipeline=PipelineSpec(depth=depth))
@@ -385,6 +390,8 @@ def kernel_phase(torch, dev, timer):
         row.update(extra or {})
         cases.append(row)
         call = (f" call_ms={row['call_ms']:.4f}" if "call_ms" in row else "")
+        if "library_ms" in row:
+            call += f" library_ms={row['library_ms']:.4f}"
         log(f"kernel {kernel:12s} {shape:44s} max_abs={err:.3e} "
             f"max_ulp={ulps} ms={ms:.4f}{call} plain_ms={plain_ms:.3f} "
             f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
@@ -573,37 +580,67 @@ def kernel_phase(torch, dev, timer):
                    FP32_FLOPS_PER_S / 2,
                    {"call_ms": timer(k3, 20), "depth": depth})
 
-    # K4: one decode step's attention, 128 prompt + 8 generated tokens in
-    # a 512-slot bf16 cache; tolerance: bit-equal (the plain version takes
-    # the kernel's steps in its order)
-    B, C, pos, window = 4, 512, 135, 4096
+    # K4 at the paths' shapes (and the full window), with the geometry of
+    # kernels/spec.py; tolerance: bit-equal (the plain version takes the
+    # kernel's steps in its order).  Positions are an int32 device vector,
+    # so a timed call launches K4 alone.  Library: SDPA on the exact arm
+    # (bf16, boolean mask, GQA): a yardstick with no RAPID divide, NaN on
+    # a fully masked row, never called by the port
+    def k4_row(label, qf, kc, vc, sp, posv, window):
+        before = flash_decode_attn.launches
+        got = flash_decode_attn(qf, kc, vc, sp, posv, window, "rapid9")
+        per_call = flash_decode_attn.launches - before
+        ref = flash_decode_plain(qf, kc, vc, sp, posv, window, "rapid9")
+        exact = flash_decode_attn(qf, kc, vc, sp, posv, window, None)
+        exact_ref = flash_decode_plain(qf, kc, vc, sp, posv, window, None)
+        torch.cuda.synchronize()
+        ok = same_bits(got, ref) and same_bits(exact, exact_ref)
+        valid = (sp <= posv[:, None]) & (sp > posv[:, None] - window)
+        live = int(valid.sum())  # slots this step's data needs
+        b, kv, g, hd = qf.shape
+        nbytes = (4 * qf.numel() * 2 + 2 * kc.element_size() * live * kv * hd
+                  + 4 * sp.numel() + 4 * b)
+        qs = qf.reshape(b, kv * g, 1, hd).to(kc.dtype)
+        kt, vt = kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)
+        mask = valid[:, None, None, :]
+        sdpa_fn = torch.nn.functional.scaled_dot_product_attention
+        sdpa = lambda: sdpa_fn(qs, kt, vt, attn_mask=mask,  # noqa: E731
+                               scale=1.0, enable_gqa=True)
+        k4 = lambda: flash_decode_attn(qf, kc, vc, sp, posv,  # noqa: E731
+                                       window, "rapid9")
+        ks = resolve_spec("flash_attn", (b * kv, kc.shape[1]))
+        record("flash_decode", label, abs_max(got, ref), ulp_max(got, ref),
+               ok, timer.graph(k4, 100),
+               timer(lambda: flash_decode_plain(qf, kc, vc, sp, posv, window,
+                                                "rapid9"), 3),
+               nbytes, 2 * 2 * kv * g * live * hd, FP32_FLOPS_PER_S,
+               {"call_ms": timer(k4, 20), "library_ms": timer.graph(sdpa, 100),
+                "library": "scaled_dot_product_attention, exact arm (no "
+                           "RAPID divide; NaN on a fully masked row)",
+                "bk": ks.bk, "bn": ks.bn, "launches_a_call": per_call,
+                "blocks": b * kv * -(-kc.shape[1] // ks.bn)})
+        return got
+
+    # one lockstep decode step: 128 prompt + 8 generated tokens in a
+    # 512-slot bf16 cache, and the model's full 4096-slot window, all live
+    B, window = 4, 4096
     qf = randn(B, KV_HEADS, G, HD, std=HD ** -0.5)
-    kc = randn(B, C, KV_HEADS, HD).to(torch.bfloat16)
-    vc = randn(B, C, KV_HEADS, HD).to(torch.bfloat16)
-    base = torch.arange(C, dtype=torch.int32, device=dev)
-    sp = torch.where(base <= pos, base, 2**31 - 1).expand(B, C).contiguous()
-    got = flash_decode_attn(qf, kc, vc, sp, pos, window, "rapid9")
-    ref = flash_decode_plain(qf, kc, vc, sp, pos, window, "rapid9")
-    torch.cuda.synchronize()
-    err = abs_max(got, ref)
-    ok = same_bits(got, ref)
-    live = pos + 1  # slots this step's data needs
-    nbytes = (4 * qf.numel() * 2 + 2 * 2 * B * live * KV_HEADS * HD
-              + 4 * B * C)
-    k4 = lambda: flash_decode_attn(qf, kc, vc, sp, pos, window,  # noqa: E731
-                                   "rapid9")
-    record("flash_decode", f"q=[4,8,4,80] cache=[4,{C},8,80] bf16 live={live}",
-           err, ulp_max(got, ref), ok, timer.graph(k4, 100),
-           timer(lambda: flash_decode_plain(qf, kc, vc, sp, pos, window,
-                                            "rapid9"), 5),
-           nbytes, 2 * 2 * B * KV_HEADS * G * live * HD, FP32_FLOPS_PER_S,
-           {"call_ms": timer(k4, 20)})
+    for C, live in ((512, 136), (4096, 4096)):
+        kc = randn(B, C, KV_HEADS, HD).to(torch.bfloat16)
+        vc = randn(B, C, KV_HEADS, HD).to(torch.bfloat16)
+        base = torch.arange(C, dtype=torch.int32, device=dev)
+        sp = torch.where(base < live, base, 2**31 - 1).expand(B, C)
+        sp = sp.contiguous()
+        posv = torch.full((B,), live - 1, dtype=torch.int32, device=dev)
+        k4_row(f"q=[4,8,4,80] cache=[4,{C},8,80] bf16 live={live}", qf, kc,
+               vc, sp, posv, window)
+    del kc, vc
 
     # K4 at the continuous decode tick: 4 slots, each gathering its
     # 256-slot view out of the [65, 16, 8, 80] bf16 page pool through the
     # page table as block_decode_paged does, slot positions from kv_len,
     # a [4] position vector of distinct depths and one inactive slot
-    # (kv_len 0: every slot INT32_MAX); tolerance: bit-equal
+    # (kv_len 0: every slot INT32_MAX, output 0)
     n_pages, ps, pps = 65, 16, 16
     pool_k = randn(n_pages, ps, KV_HEADS, HD).to(torch.bfloat16)
     pool_v = randn(n_pages, ps, KV_HEADS, HD).to(torch.bfloat16)
@@ -611,27 +648,16 @@ def kernel_phase(torch, dev, timer):
     table[:3] = (torch.randperm(n_pages - 1, generator=g, device=dev)
                  [:3 * pps] + 1).reshape(3, pps)
     kv_len = torch.tensor([131, 98, 201, 0], dtype=torch.int32, device=dev)
-    posv = torch.clamp(kv_len - 1, min=0)
     C = pps * ps
     kg = pool_k[table].reshape(B, C, KV_HEADS, HD)
     vg = pool_v[table].reshape(B, C, KV_HEADS, HD)
     j = torch.arange(C, dtype=torch.int32, device=dev)
     sp = torch.where(j[None] < kv_len[:, None], j[None], 2**31 - 1)
-    got = flash_decode_attn(qf, kg, vg, sp, posv, window, "rapid9")
-    ref = flash_decode_plain(qf, kg, vg, sp, posv, window, "rapid9")
-    torch.cuda.synchronize()
-    ok = same_bits(got, ref) and not bool(got[3].any())
-    live = int(kv_len.sum())
-    k4p = lambda: flash_decode_attn(qf, kg, vg, sp, posv,  # noqa: E731
-                                    window, "rapid9")
-    record("flash_decode", f"q=[4,8,4,80] paged view=[4,{C},8,80] bf16 "
-           f"kv_len={kv_len.tolist()}", abs_max(got, ref), ulp_max(got, ref),
-           ok, timer.graph(k4p, 100),
-           timer(lambda: flash_decode_plain(qf, kg, vg, sp, posv, window,
-                                            "rapid9"), 5),
-           4 * qf.numel() * 2 + 2 * 2 * live * KV_HEADS * HD + 4 * B * (C + 1),
-           2 * 2 * KV_HEADS * G * live * HD, FP32_FLOPS_PER_S,
-           {"call_ms": timer(k4p, 20)})
+    got = k4_row(f"q=[4,8,4,80] paged view=[4,{C},8,80] bf16 "
+                 f"kv_len={kv_len.tolist()}", qf, kg, vg, sp,
+                 torch.clamp(kv_len - 1, min=0), window)
+    if got[3].any():
+        raise AssertionError("flash_decode: the inactive slot attends")
     del pool_k, pool_v, kg, vg
 
     # K5: the online-softmax combine acc / l of a 64-token prefill chunk
@@ -1558,19 +1584,20 @@ def depth_ab_phase(torch, cfg, params):
             f"({np.mean(by[2]) / np.mean(by[1]) - 1:+.1%}), depth 3 "
             f"{by[3]} ms ({np.mean(by[3]) / np.mean(by[1]) - 1:+.1%})")
     out["k1_times"] = k1
-    out["k1_parent_ab"] = parent_ab()
+    out["parent_ab"] = parent_ab()
     return out
 
 
-def k1_times(args, src=None):
-    """``launch/k1_times.py`` (this tree's timer) in a process of its
-    own, on this tree's kernels or on those of the tree ``src``."""
-    cmd = [sys.executable, str(ROOT / "src/repro_torch/launch/k1_times.py"),
+def k1_times(args, src=None, script="k1_times.py"):
+    """``launch/k1_times.py`` (or ``k4_times.py``: this tree's timers) in
+    a process of its own, on this tree's kernels or on those of the tree
+    ``src``."""
+    cmd = [sys.executable, str(ROOT / "src/repro_torch/launch" / script),
            "--reps", "5", *args] + (["--src", str(src)] if src else [])
     res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
                          timeout=600)
     if res.returncode:
-        raise AssertionError(f"k1_times {args} {src}: {res.stderr[-2000:]}")
+        raise AssertionError(f"{script} {args} {src}: {res.stderr[-2000:]}")
     return [json.loads(line) for line in res.stdout.splitlines()
             if line.startswith("{")]
 
@@ -1619,26 +1646,32 @@ def parent_src():
 
 
 def parent_ab():
-    """K1 before and after on this card: ``k1_times.py`` at each tree's
-    default stage counts on the parent commit's kernels and on this
-    tree's, in turns (parent, this, this, parent), one process each;
-    the nine shapes with both means, and the parent's revision.
-    Information: nothing here fails on a time."""
+    """K1 and K4 before and after on this card: ``k1_times.py`` at each
+    tree's default stage counts and ``k4_times.py`` at each tree's
+    geometry, on the parent commit's kernels and on this tree's, in
+    turns (parent, this, this, parent), one process each; every shape
+    with both means, and the parent's revision.  Information: nothing
+    here fails on a time."""
     src, parent = parent_src()
     if src is None:
-        log(f"K1 parent A/B: not run -- {parent}")
+        log(f"parent A/B: not run -- {parent}")
         return {"parent": None, "why": parent, "runs": []}
-    log(f"K1 parent A/B: parent {parent}")
+    log(f"parent A/B: parent {parent}")
     runs = []
-    for who in ("parent", "this", "this", "parent"):
-        rows = k1_times([], src if who == "parent" else None)
-        runs += [dict(r, tree=who) for r in rows]
-    for site in sorted({(r["site"], r["M"]) for r in runs}):
-        by = {t: [r["ms"] for r in runs if (r["site"], r["M"]) == site
-                  and r["tree"] == t] for t in ("parent", "this")}
-        log(f"K1 parent A/B {site[0]} M={site[1]}: parent {by['parent']} "
-            f"ms, this tree {by['this']} ms "
-            f"({np.mean(by['parent']) / np.mean(by['this']):.2f}x faster)")
+    for kernel, script, key in (("K1", "k1_times.py", ("site", "M")),
+                                ("K4", "k4_times.py", ("shape", "C"))):
+        mine = []
+        for who in ("parent", "this", "this", "parent"):
+            rows = k1_times([], src if who == "parent" else None, script)
+            mine += [dict(r, tree=who, kernel=kernel) for r in rows]
+        for site in sorted({tuple(r[k] for k in key) for r in mine}):
+            by = {t: [r["ms"] for r in mine
+                      if tuple(r[k] for k in key) == site and r["tree"] == t]
+                  for t in ("parent", "this")}
+            log(f"{kernel} parent A/B {site[0]} {key[1]}={site[1]}: parent "
+                f"{by['parent']} ms, this tree {by['this']} ms "
+                f"({np.mean(by['parent']) / np.mean(by['this']):.2f}x faster)")
+        runs += mine
     return {"parent": parent, "runs": runs}
 
 
@@ -1917,8 +1950,10 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-            "library_ms": None, "shape": top["shape"],
+            "library_ms": top.get("library_ms"), "shape": top["shape"],
             "launches_by_path": by_path}
+        if "launches_a_call" in top:
+            row["launches_a_call"] = top["launches_a_call"]
         kernels.append(row)
     record = {"card": card, "ptxas": ptxas, "sass": sass,
               "cases": cases, "serve": serve,

@@ -14,8 +14,10 @@ wrap, which torch's int32 add gives on both CPU and CUDA (each op is its
 own kernel, so no compiler sees the add and the sign test together).
 
 :func:`approx_mul` / :func:`approx_div` are the public elementwise ops
-by scheme name, forward only; their straight-through gradients (as
-``torch.autograd.Function``) come with the training slice.
+by scheme name.  Like the reference's ``custom_jvp`` pair, they pass the
+gradient of the ideal product / quotient straight through the
+approximation (``torch.autograd.Function``s whose backward is the
+transpose of the reference's jvp).
 """
 from __future__ import annotations
 
@@ -147,17 +149,80 @@ def log_recip_f32(b: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     return log_div_f32(torch.ones_like(b), b, lut)
 
 
+def _unbroadcast(g: torch.Tensor, shape) -> torch.Tensor:
+    """Sum ``g`` down to ``shape`` (the transpose of a broadcast), as the
+    reference's ``reduce_sum`` in ``g``'s dtype: every partial sum is
+    rounded to that dtype.  torch's sum of a bf16 / f16 tensor keeps an
+    f32 accumulator, so those are folded here one slice at a time, in
+    index order."""
+    lead = g.ndim - len(shape)
+    dims = tuple(range(lead)) + tuple(
+        lead + i for i, d in enumerate(shape)
+        if d == 1 and g.shape[lead + i] != 1)
+    if not dims:
+        return g.reshape(shape)
+    if g.element_size() >= 4:
+        return g.sum(dim=dims, keepdim=True).reshape(shape)
+    rest = tuple(i for i in range(g.ndim) if i not in dims)
+    slices = g.permute(dims + rest).reshape(-1, *(g.shape[i] for i in rest))
+    acc = torch.zeros_like(slices[0])
+    for sl in slices:
+        acc = acc + sl
+    return acc.reshape(shape)
+
+
+class _ApproxMul(torch.autograd.Function):
+    """RAPID ``a * b``; backward: the transpose of the reference's jvp
+    ``a * db + b * da``."""
+
+    @staticmethod
+    def forward(ctx, a, b, scheme):
+        ctx.save_for_backward(a, b)
+        lut = mul_lut_device(scheme, a.device)
+        return log_mul_f32(a.float(), b.float(), lut).to(a.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = _unbroadcast(g * b, a.shape).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = _unbroadcast(g * a, b.shape).to(b.dtype)
+        return ga, gb, None
+
+
+class _ApproxDiv(torch.autograd.Function):
+    """RAPID ``a / b``; backward: the transpose of the reference's jvp
+    ``(da * b - a * db) / (b * b)``."""
+
+    @staticmethod
+    def forward(ctx, a, b, scheme):
+        ctx.save_for_backward(a, b)
+        lut = div_lut_device(scheme, a.device)
+        return log_div_f32(a.float(), b.float(), lut).to(a.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        t = g / (b * b)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = _unbroadcast(t * b, a.shape).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = _unbroadcast(-(t * a), b.shape).to(b.dtype)
+        return ga, gb, None
+
+
 def approx_mul(a: torch.Tensor, b: torch.Tensor,
                scheme: SchemeArg = "rapid10") -> torch.Tensor:
     """RAPID ``a * b`` by scheme name, computed in f32, in ``a``'s dtype
-    (broadcasting ok).  Forward only."""
-    lut = mul_lut_device(scheme, a.device)
-    return log_mul_f32(a.float(), b.float(), lut).to(a.dtype)
+    (broadcasting ok); the gradient is the exact product's."""
+    return _ApproxMul.apply(a, b, scheme)
 
 
 def approx_div(a: torch.Tensor, b: torch.Tensor,
                scheme: SchemeArg = "rapid9") -> torch.Tensor:
     """RAPID ``a / b`` by scheme name, computed in f32, in ``a``'s dtype
-    (broadcasting ok).  Forward only."""
-    lut = div_lut_device(scheme, a.device)
-    return log_div_f32(a.float(), b.float(), lut).to(a.dtype)
+    (broadcasting ok); the gradient is the exact quotient's."""
+    return _ApproxDiv.apply(a, b, scheme)

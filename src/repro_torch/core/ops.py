@@ -26,6 +26,7 @@ from typing import List, Optional
 import torch
 
 from repro_torch.core import backend as be
+from repro_torch.core.float_approx import _unbroadcast
 from repro_torch.kernels.flash_attn.ops import flash_decode_attn
 from repro_torch.kernels.fused_div.ops import (fused_elementwise_div,
                                               fused_rms_div,
@@ -317,15 +318,6 @@ def qdiv(a: torch.Tensor, b: torch.Tensor,
     if _exact(scheme):
         return a / b
     return _QDiv.apply(a, b, scheme)
-
-
-def _unbroadcast(g: torch.Tensor, shape) -> torch.Tensor:
-    """Sum ``g`` down to ``shape`` (the transpose of a broadcast)."""
-    lead = g.ndim - len(shape)
-    if lead:
-        g = g.sum(dim=tuple(range(lead)))
-    dims = tuple(i for i, d in enumerate(shape) if d == 1 and g.shape[i] != 1)
-    return g.sum(dim=dims, keepdim=True) if dims else g
 
 
 class _QDiv(torch.autograd.Function):

@@ -22,6 +22,7 @@ __all__ = [
     "ROW_RING_BYTES",
     "ROW_WARPS",
     "MAX_ROW_BM",
+    "SMS",
     "round_up",
     "check_smem",
 ]
@@ -29,6 +30,9 @@ __all__ = [
 # row-sum grouping of the divider family (one lane per CUDA thread)
 LANE = 128
 ELEM_BYTES = 4
+
+# streaming multiprocessors of an H100 SXM
+SMS = 132
 
 # dynamic + static shared memory one block may use on an H100
 SMEM_PER_BLOCK = 232_448

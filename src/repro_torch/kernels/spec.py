@@ -32,6 +32,13 @@ and refuses a regime / geometry it did not compile for the shape, so
 the shared-memory check (:func:`matmul_smem`) always checks the
 instance the card runs.  An explicit ``bm`` / ``bn`` / ``bk`` must name
 that geometry.
+
+K4's geometry is decided here too (:func:`flash_geometry`): ``bk`` is
+the cache chunk of its online softmax and ``bn`` the segment, the cache
+slots one block folds before the segments are combined.  Both the
+wrapper and the plain version take them from :func:`resolve_spec`, so
+the plain version always runs the kernel's order.  K4 has one stage
+count: it double-buffers its chunks (:data:`FLASH_DEPTH`).
 """
 from __future__ import annotations
 
@@ -54,6 +61,10 @@ __all__ = [
     "row_smem",
     "MATMUL_DEPTHS",
     "deferred_depth",
+    "FLASH_CHUNK",
+    "FLASH_MAX_SEGMENT_CHUNKS",
+    "FLASH_DEPTH",
+    "flash_geometry",
 ]
 
 #: families :func:`resolve_spec` resolves, with their ``shapes`` tuple:
@@ -61,8 +72,9 @@ __all__ = [
 #:   fused_softmax       (rows, n)
 #:   fused_rms           (rows, n)
 #:   fused_div_rowbcast  (rows, n)
+#:   flash_attn          (rows, c): rows = batch x kv heads, c cache slots
 RESOLVED_FAMILIES = ("log_matmul", "fused_softmax", "fused_rms",
-                     "fused_div_rowbcast")
+                     "fused_div_rowbcast", "flash_attn")
 
 # K1's regimes, in the order of csrc/log_matmul.cu's regime codes
 MATMUL_REGIMES = ("block8", "decode", "chunk", "prefill")
@@ -83,6 +95,18 @@ _MATMUL_DEPTH = {"block8": 1,
 _MATMUL_RED_BYTES = 8 * 16
 # the stage counts csrc/log_matmul.cu instantiates
 MATMUL_DEPTHS = (1, 2, 3, 4, 8)
+# K4 (csrc/flash_attn.cu): cache slots a chunk (BC, one per lane of a
+# warp), the most chunks one block's segment may hold (MAX_SEG_CHUNKS,
+# one bit each in the block's live-chunk word), and its one stage count
+# (chunk c + 1 in flight while chunk c is folded)
+FLASH_CHUNK = 32
+FLASH_MAX_SEGMENT_CHUNKS = 32
+FLASH_DEPTH = 2
+# K4 blocks one SM holds at once at G = 4 (h2o_danube_1_8b): 128 threads
+# of 123 registers, four to the 65 536-register file.  Segments are sized
+# so the grid is about one such wave (PERF.md: the A/B of segment
+# lengths on an H100)
+_FLASH_BLOCKS_PER_SM = 4
 # set by deferred_depth(): the depth every deferred spec resolves to
 _DEFERRED_DEPTH: Optional[int] = None
 
@@ -175,6 +199,40 @@ def _decode_geometry(m: int) -> Tuple[int, int, int]:
     return rows, 32, 128 if rows <= 4 else 64
 
 
+def flash_geometry(rows: int, c: int) -> Tuple[int, int]:
+    """K4's (chunk, segment) in cache slots for ``rows`` (batch x kv
+    head) rows of ``c`` slots: segments of whole chunks, the fewest
+    chunks a segment that keep rows x segments within one wave of
+    blocks on the card (one chunk a segment while the whole cache fits
+    one wave, so a short live region is split as finely as it can be;
+    at most :data:`FLASH_MAX_SEGMENT_CHUNKS`)."""
+    n_chunks = max(1, -(-c // FLASH_CHUNK))
+    wave = budget.SMS * _FLASH_BLOCKS_PER_SM
+    seg_chunks = min(FLASH_MAX_SEGMENT_CHUNKS,
+                     max(1, -(-max(1, rows) * n_chunks // wave)))
+    return FLASH_CHUNK, seg_chunks * FLASH_CHUNK
+
+
+def _resolve_flash(rows: int, c: int, ks: KernelSpec) -> KernelSpec:
+    bk, bn = flash_geometry(rows, c)
+    if ks.bk is not None and int(ks.bk) != bk:
+        raise ValueError(f"flash_attn compiles a chunk of {bk} slots; got "
+                         f"bk={ks.bk}")
+    if ks.bn is not None:
+        bn = int(ks.bn)
+        if bn < bk or bn % bk or bn > FLASH_MAX_SEGMENT_CHUNKS * bk:
+            raise ValueError(
+                f"flash_attn compiles segments of 1 to "
+                f"{FLASH_MAX_SEGMENT_CHUNKS} chunks of {bk} slots; got "
+                f"bn={bn}")
+    depth = ks.pipeline.depth
+    if depth is not None and int(depth) != FLASH_DEPTH:
+        raise ValueError(f"flash_attn compiles depth {FLASH_DEPTH}; got "
+                         f"{depth}")
+    return replace(ks, bm=None, bn=bn, bk=bk,
+                   pipeline=PipelineSpec(depth=FLASH_DEPTH))
+
+
 def matmul_smem(regime: str, bm: int, bn: int, bk: int, depth: int) -> int:
     """Shared memory of one K1 block of ``regime``.  Static: the LUT and
     the staged operands, 8 bytes each (the decode regime stages only x),
@@ -225,13 +283,17 @@ def resolve_spec(family: str, shapes: Sequence[int],
     """Resolve a (possibly partial) spec to concrete geometry and depth.
 
     Per field: explicit > :func:`deferred_depth` > heuristic.
-    Idempotent.  Raises on a K1
-    geometry or depth that ``csrc/log_matmul.cu`` does not compile.
+    Idempotent.  Raises on a K1 or K4 geometry or depth that
+    ``csrc/log_matmul.cu`` / ``csrc/flash_attn.cu`` does not compile
+    (K4 has one depth, which :func:`deferred_depth` does not move).
     """
     if family not in RESOLVED_FAMILIES:
         raise KeyError(f"unknown kernel family {family!r}; have "
                        f"{RESOLVED_FAMILIES}")
     ks = as_kernel_spec(spec)
+    if family == "flash_attn":
+        rows, c = (int(s) for s in shapes[:2])
+        return _resolve_flash(rows, c, ks)
     depth = ks.pipeline.depth
     if depth is None:
         depth = _DEFERRED_DEPTH

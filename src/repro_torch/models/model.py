@@ -46,6 +46,17 @@ class Model:
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"the port serves the dense family; {cfg.name} is {cfg.family}")
+        # the port's blocks run rms norms and the silu-gated MLP only:
+        # LN (with its bias), gelu and the ungated MLP of starcoder2_7b
+        # are still to be ported, so refuse them rather than build a
+        # different model from the reference's
+        for field, value, ported in (("act", cfg.act, "silu"),
+                                     ("norm", cfg.norm, "rms")):
+            if value != ported:
+                raise NotImplementedError(
+                    f"{cfg.name}: {field}={value!r} is not ported (only "
+                    f"{field}={ported!r}); starcoder2_7b's LN/gelu path is "
+                    "still to be ported")
         self.cfg = cfg
         self.dtype = _DTYPES[cfg.dtype]
 

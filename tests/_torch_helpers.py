@@ -83,3 +83,65 @@ def int_pairs(rng, n: int, a_bits: int, b_bits: int):
     k = min(n, len(sa))
     a[:k], b[:k] = sa[:k], sb[:k]
     return a, b
+
+
+def fold_every_chunk(qf, kc, vc, sp, pos, window, scheme, bc, seg):
+    """K4's order of operations with no chunk skipped (torch tensors on
+    any device): ``flash_decode_plain`` folds a chunk without a live slot
+    into (m, l, acc) here instead of passing over it, so equal bits show
+    that the skip moves nothing (for finite caches: 0 x inf would not
+    vanish)."""
+    import torch
+
+    from repro_torch.core import float_approx as fa
+    from repro_torch.kernels.fused_div.ref import SOFTMAX_FLOOR
+    B, KV, G, hd = qf.shape
+    C = kc.shape[1]
+    n = -(-C // bc)
+    pad = n * bc - C
+    posq = torch.as_tensor(pos, dtype=torch.int32,
+                           device=qf.device).reshape(-1, 1)
+    valid = sp <= posq
+    if window:
+        valid &= sp > posq - window
+    valid = torch.nn.functional.pad(valid, (0, pad), value=False)
+    kt = torch.nn.functional.pad(kc.float(), (0, 0, 0, 0, 0, pad))
+    vt = torch.nn.functional.pad(vc.float(), (0, 0, 0, 0, 0, pad))
+    kt, vt = kt.permute(0, 2, 3, 1), vt.permute(0, 2, 1, 3)
+    dot = torch.zeros((B, KV, G, n * bc), device=qf.device)
+    for d in range(hd):
+        dot = dot + qf[..., d, None] * kt[:, :, None, d, :]
+    s = torch.where(valid[:, None, None, :], dot, -torch.inf)
+    parts = []
+    for lo in range(0, n, seg // bc):
+        m = torch.full((B, KV, G), -torch.inf, device=qf.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, KV, G, hd), device=qf.device)
+        for ci in range(lo, min(lo + seg // bc, n)):
+            sc = s[..., ci * bc:(ci + 1) * bc]
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.where(torch.isfinite(m_new)[..., None],
+                            torch.exp(sc - m_new[..., None]), 0.0)
+            pv = torch.zeros_like(acc)
+            for j in range(bc):
+                pv = pv + p[..., j, None] * vt[:, :, None, ci * bc + j, :]
+            total = p
+            while total.shape[-1] > 1:
+                h = total.shape[-1] // 2
+                total = total[..., :h] + total[..., h:]
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_new), 0.0)
+            l = l * corr + total[..., 0]
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        parts.append((m, l, acc))
+    m_g = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    l_g, acc_g = torch.zeros_like(m_g), torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_g), 0.0)
+        l_g = l_g + l * corr
+        acc_g = acc_g + acc * corr[..., None]
+    den = torch.where(l_g < SOFTMAX_FLOOR, SOFTMAX_FLOOR, l_g)[..., None]
+    if scheme:
+        return fa.log_div_f32(acc_g, den,
+                              fa.div_lut_device(scheme, qf.device))
+    return acc_g / den

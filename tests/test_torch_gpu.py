@@ -10,8 +10,9 @@ kernel's); K2/K3 bit-equal (the kernels reduce in the plain version's
 fixed lane grouping); K4 bit-equal to its plain version on the card
 (the plain version takes the kernel's steps in its order) and within
 rtol 1e-5, atol 1e-6 of it on the CPU (the CPU's exp and the card's
-differ in the last bit); K5/K6 bit-equal (one log-domain divide per
-element, no reduction).
+differ in the last bit), at every segment geometry, run to run, and
+equal to the order that folds the chunks its skips; K5/K6 bit-equal
+(one log-domain divide per element, no reduction).
 
 The special-operand cases feed each kernel 0, -0, +-inf, NaNs,
 subnormals and the operands next to the overflow edge
@@ -148,6 +149,148 @@ def test_cuda_flash_decode_paged_decode_tick(cuda, scheme):
     ref = flash_decode_plain(qf, kg, vg, sp, pos, 4096, scheme)
     assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
     assert not got[3].any()  # the inactive slot attends to nothing
+
+
+def _flash_rows(seed, B, C, KV=2, G=4, hd=80):
+    rng = np.random.default_rng(seed)
+    qf = randn(rng, B, KV, G, hd, scale=hd ** -0.5)
+    kc, vc = randn(rng, B, C, KV, hd), randn(rng, B, C, KV, hd)
+    sp = np.broadcast_to(np.arange(C, dtype=np.int32), (B, C)).copy()
+    return qf, kc, vc, sp
+
+
+def _on(cuda, dtype, qf, kc, vc, sp):
+    return [T(qf).to(cuda), T(kc).to(cuda, dtype), T(vc).to(cuda, dtype),
+            T(sp).to(cuda)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,bn", [(1, None), (32, None), (64, 64),
+                                  (96, None), (200, 64), (130, 96)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("scheme", ["rapid9", None])
+def test_cuda_flash_decode_geometries_bit_equal(cuda, C, bn, dtype, scheme):
+    """The split-cache kernel at every geometry the CPU tests hold the
+    plain version to the reference at: per-row positions (last slot, an
+    empty tail, a wrapped ring, none at all), windows, a scalar pos."""
+    from repro_torch.kernels.spec import KernelSpec
+    spec = None if bn is None else KernelSpec(bn=bn)
+    qf, kc, vc, sp = _flash_rows(C + (bn or 0), 4, C)
+    sp[1, C // 2:] = np.iinfo(np.int32).max
+    sp[2] = (sp[2] - 3) % C + 1000
+    args = _on(cuda, dtype, qf, kc, vc, sp)
+    posv = torch.tensor([C - 1, C - 1, 1000 + C - 4, -1], dtype=torch.int32,
+                        device=cuda)
+    for p, window in ((posv, 0), (posv, max(1, C // 3)), (C // 2, 5)):
+        got = flash_decode_attn(*args, p, window, scheme, spec=spec)
+        ref = flash_decode_plain(*args, p, window, scheme, spec=spec)
+        assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
+        if p is posv and not window:
+            assert not got[3].any()  # row 3 sees no slot
+
+
+def _lockstep(cuda, dtype, C=512, live=136):
+    qf, kc, vc, _ = _flash_rows(C, 4, C, KV=8)
+    base = np.arange(C, dtype=np.int32)
+    sp = np.broadcast_to(np.where(base < live, base, 2**31 - 1),
+                         (4, C)).copy()
+    return _on(cuda, dtype, qf, kc, vc, sp), live - 1
+
+
+def _paged(cuda, dtype):
+    rng = np.random.default_rng(29)
+    B, NP, PS, P, KV, G, hd = 4, 65, 16, 16, 8, 4, 80
+    pool_k = T(randn(rng, NP, PS, KV, hd)).to(cuda, dtype)
+    pool_v = T(randn(rng, NP, PS, KV, hd)).to(cuda, dtype)
+    table = np.zeros((B, P), np.int64)
+    table[:3] = rng.permutation(np.arange(1, NP))[:3 * P].reshape(3, P)
+    pt = T(table).to(cuda)
+    kv_len = torch.tensor([131, 98, 201, 0], dtype=torch.int32, device=cuda)
+    j = torch.arange(P * PS, dtype=torch.int32, device=cuda)
+    sp = torch.where(j[None] < kv_len[:, None], j[None], 2**31 - 1)
+    qf = T(randn(rng, B, KV, G, hd, scale=hd ** -0.5)).to(cuda)
+    return ([qf, pool_k[pt].reshape(B, P * PS, KV, hd),
+             pool_v[pt].reshape(B, P * PS, KV, hd), sp],
+            torch.clamp(kv_len - 1, min=0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["lockstep", "paged", "window4096"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("scheme", ["rapid9", None])
+def test_cuda_flash_decode_main_path_shapes(cuda, shape, dtype, scheme):
+    """K4 at the serve paths' shapes with the spec's own geometry: the
+    lockstep step (4 x 8 rows, 512 slots, 136 live), the continuous tick
+    (256-slot paged views, kv_len 131/98/201/0) and the full 4096-slot
+    window, all live; rows x segments fill the 132 SMs."""
+    from repro_torch.kernels.spec import resolve_spec
+    if shape == "paged":
+        args, pos = _paged(cuda, dtype)
+    else:
+        C = 512 if shape == "lockstep" else 4096
+        args, pos = _lockstep(cuda, dtype, C, 136 if C == 512 else C)
+    rows, C = args[0].shape[0] * args[0].shape[1], args[1].shape[1]
+    ks = resolve_spec("flash_attn", (rows, C))
+    assert rows * -(-C // ks.bn) >= 132
+    got = flash_decode_attn(*args, pos, 4096, scheme)
+    ref = flash_decode_plain(*args, pos, 4096, scheme)
+    assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bn", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_decode_skip_equals_fold(cuda, bn, dtype):
+    """On the card, the kernel (which skips chunks with no live slot)
+    gives the bits of the order that folds every chunk: a lone live slot
+    opening a chunk and one closing a chunk, a ring with holes, a fully
+    masked row."""
+    from _torch_helpers import fold_every_chunk
+    from repro_torch.kernels.spec import KernelSpec
+    qf, kc, vc, sp = _flash_rows(bn, 4, 160)
+    empty = np.iinfo(np.int32).max
+    sp[0], sp[1] = empty, empty
+    sp[0, 64], sp[1, 95] = 500, 500
+    sp[2] = (np.arange(160) - 7) % 160 + 300
+    sp[2, ::3] = empty
+    args = _on(cuda, dtype, qf, kc, vc, sp)
+    posv = torch.tensor([500, 500, 459, -1], dtype=torch.int32, device=cuda)
+    for window in (0, 40):
+        got = flash_decode_attn(*args, posv, window, "rapid9",
+                                spec=KernelSpec(bn=bn))
+        ref = fold_every_chunk(*args, posv, window, "rapid9", 32, bn)
+        assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
+    assert not got[3].any()
+
+
+@pytest.mark.gpu
+def test_cuda_flash_decode_same_bits_run_to_run(cuda):
+    """The combine reads the segments' partials in index order, whichever
+    block finishes last: 20 launches give one result, one launch each."""
+    for C, live in ((512, 136), (4096, 4096)):
+        args, pos = _lockstep(cuda, torch.bfloat16, C, live)
+        before = flash_decode_attn.launches
+        first = flash_decode_attn(*args, pos, 4096, "rapid9")
+        for _ in range(19):
+            again = flash_decode_attn(*args, pos, 4096, "rapid9")
+            assert_same_bits(again.cpu().numpy(), first.cpu().numpy())
+        assert flash_decode_attn.launches - before == 20
+
+
+@pytest.mark.gpu
+def test_cuda_flash_decode_refuses_an_uncompiled_geometry(cuda):
+    """The entry point refuses a chunk or segment it did not compile,
+    and the wrapper a head_dim the 16 B staging cannot take."""
+    from repro_torch.kernels.flash_attn import ops
+    args, pos = _lockstep(cuda, torch.bfloat16, 128, 100)
+    posv = torch.full((4,), pos, dtype=torch.int32, device=cuda)
+    for bk, bn in ((16, 64), (32, 48), (32, 16), (32, 33 * 32), (64, 64)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ops._launch(*args, posv, None, 0, 1e-30, bk, bn)
+    q, k, v, sp = args
+    with pytest.raises(ValueError, match="16 B"):
+        flash_decode_attn(q[..., :12].contiguous(), k[..., :12].contiguous(),
+                          v[..., :12].contiguous(), sp, pos)
 
 
 @pytest.mark.gpu

@@ -13,7 +13,8 @@ Tolerances, each with its reason:
     grouping itself and XLA groups it otherwise (rule 3).
   * flash decode plain vs ``decode_attn_ref``: rtol 1e-5, atol 1e-6
     (the plain version keeps the kernel's running max over 32-slot
-    chunks, the reference takes one max; sums in other orders).
+    chunks within a segment and combines the segments' maxima, the
+    reference takes one max; sums in other orders).
   * elementwise divides (K5 row-broadcast, K6 general) vs
     ``float_approx.approx_div`` and the reference's depth-1 Pallas
     ``fused_elementwise_div`` in interpret mode: bit-exact, special
@@ -229,6 +230,104 @@ def test_flash_decode_vector_pos_and_fully_masked():
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-6)
     assert np.all(got.numpy()[1] == 0.0)
+
+
+def _flash_case(seed, B, C, KV=2, G=4, hd=16):
+    rng = np.random.default_rng(seed)
+    qf = randn(rng, B, KV, G, hd, scale=0.3)
+    kc, vc = randn(rng, B, C, KV, hd), randn(rng, B, C, KV, hd)
+    sp = np.broadcast_to(np.arange(C, dtype=np.int32), (B, C)).copy()
+    return qf, kc, vc, sp
+
+
+def _flash_vs_reference(qf, kc, vc, sp, pos, window, scheme, spec=None):
+    ref = jflash.decode_attn_ref(jnp.asarray(qf), jnp.asarray(kc),
+                                 jnp.asarray(vc), jnp.asarray(sp),
+                                 jnp.asarray(pos), window, scheme)
+    tpos = T(pos) if isinstance(pos, np.ndarray) else pos
+    got = flash_decode_attn(T(qf), T(kc), T(vc), T(sp), tpos, window,
+                            scheme, spec=spec)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
+    return got.numpy()
+
+
+# (C, segment bn or None for the spec's): one slot; one chunk; one
+# segment of two chunks; three one-chunk segments; 7 chunks in segments
+# of 2 with a ragged last chunk; 5 chunks in segments of 3
+_FLASH_GEOMETRIES = [(1, None), (32, None), (64, 64), (96, None),
+                     (200, 64), (130, 96)]
+
+
+@pytest.mark.parametrize("C,bn", _FLASH_GEOMETRIES)
+@pytest.mark.parametrize("scheme", ["rapid9", None])
+def test_flash_decode_plain_geometries_vs_reference(C, bn, scheme):
+    """The split-cache order at every geometry against the one-max
+    oracle: per-row positions (the last slot, mid-cache, none at all),
+    empty slots, a sliding window and a ring cache."""
+    from repro_torch.kernels.spec import KernelSpec
+    spec = None if bn is None else KernelSpec(bn=bn)
+    qf, kc, vc, sp = _flash_case(C + (bn or 0), 4, C)
+    sp[1, C // 2:] = np.iinfo(np.int32).max           # empty tail
+    sp[2] = (sp[2] - 3) % C + 1000                     # a ring, wrapped
+    posv = np.array([C - 1, C - 1, 1000 + C - 4, -1], np.int32)
+    out = _flash_vs_reference(qf, kc, vc, sp, posv, 0, scheme, spec)
+    assert np.all(out[3] == 0.0)                       # fully masked row
+    _flash_vs_reference(qf, kc, vc, sp, posv, max(1, C // 3), scheme, spec)
+    _flash_vs_reference(qf, kc, vc, sp, C // 2, 5, scheme, spec)
+
+
+@pytest.mark.parametrize("pos", [63, 64, 31, 32, 127])
+def test_flash_decode_plain_live_region_at_segment_edges(pos):
+    """The live slots end on a segment edge (63: segment 0 full, segment
+    1 empty), start one past it (64: a single live slot opens segment
+    1), or end on a chunk edge inside a segment (31, 32), or fill all."""
+    from repro_torch.kernels.spec import KernelSpec
+    qf, kc, vc, sp = _flash_case(pos, 2, 128)
+    for window in (0, 1):
+        _flash_vs_reference(qf, kc, vc, sp, pos, window, "rapid9",
+                            KernelSpec(bn=64))
+
+
+def _skip_cases(seed, C=160, hd=16):
+    """Rows whose chunks are mostly empty: row 0's one live slot opens a
+    chunk (slot 64), row 1's closes one (slot 95), row 2 is a ring cache
+    with holes (every third slot empty), row 3 sees nothing."""
+    qf, kc, vc, sp = _flash_case(seed, 4, C, hd=hd)
+    empty = np.iinfo(np.int32).max
+    sp[0], sp[1] = empty, empty
+    sp[0, 64], sp[1, 95] = 500, 500
+    sp[2] = (np.arange(C) - 7) % C + 300
+    sp[2, ::3] = empty
+    posv = np.array([500, 500, 300 + C - 1, -1], np.int32)
+    return qf, kc, vc, sp, posv
+
+
+@pytest.mark.parametrize("bn", [32, 64])
+def test_flash_decode_plain_skip_equals_fold(bn):
+    """Skipping a chunk with no live slot gives the bits of folding it."""
+    from _torch_helpers import fold_every_chunk
+    from repro_torch.kernels.spec import KernelSpec
+    qf, kc, vc, sp, posv = _skip_cases(bn)
+    args = [T(a) for a in (qf, kc, vc, sp)]
+    for window in (0, 40):
+        got = flash_decode_attn(*args, T(posv), window, "rapid9",
+                                spec=KernelSpec(bn=bn))
+        ref = fold_every_chunk(*args, T(posv), window, "rapid9", 32, bn)
+        assert_same_bits(got.numpy(), ref.numpy())
+    assert not got.numpy()[3].any()
+
+
+def test_flash_decode_plain_same_for_every_segment_length():
+    """Segment lengths move only the order of the combine: every
+    geometry agrees within the oracle's tolerance."""
+    from repro_torch.kernels.spec import KernelSpec
+    qf, kc, vc, sp = _flash_case(3, 2, 300)
+    outs = [flash_decode_attn(T(qf), T(kc), T(vc), T(sp), 250, 0, "rapid9",
+                              spec=KernelSpec(bn=bn)).numpy()
+            for bn in (32, 64, 96, 320)]
+    for o in outs[1:]:
+        np.testing.assert_allclose(o, outs[0], rtol=1e-5, atol=1e-6)
 
 
 # --------------------------------------------------------------------------

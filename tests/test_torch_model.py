@@ -174,3 +174,21 @@ def test_importing_the_port_sets_exact_numerics():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.split() == ["False"] * 3
+
+
+@pytest.mark.parametrize("over", [dict(act="gelu"), dict(norm="ln"),
+                                  dict(act="gelu", norm="ln")])
+def test_model_refuses_unported_act_and_norm(over):
+    """An LN / gelu config would build another model than the
+    reference's (no LN bias, a w3 gate the reference drops): refused."""
+    cfg = tget("minicpm_2b").reduced().with_(**over)
+    field = "act" if "act" in over else "norm"
+    with pytest.raises(NotImplementedError,
+                       match=f"{cfg.name}: {field}=.*starcoder2_7b"):
+        TModel(cfg)
+
+
+def test_model_builds_silu_rms():
+    cfg = tget("minicpm_2b").reduced().with_(act="silu", norm="rms")
+    params = TModel(cfg).init(0, device="cpu")
+    assert set(params["blocks"][0]["ffn"]) == {"w1", "w3", "w2"}

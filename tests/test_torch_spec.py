@@ -112,7 +112,14 @@ def test_resolve_rejects_what_the_card_does_not_compile():
     with pytest.raises(ValueError, match="depths"):
         resolve_spec("log_matmul", (512, 512, 512), _d(5))
     with pytest.raises(KeyError):
-        resolve_spec("flash_attn", (4, 512, 4, 80))
+        resolve_spec("rapid_mul", (4, 512))
+    with pytest.raises(ValueError, match="compiles a chunk"):
+        resolve_spec("flash_attn", (32, 512), KernelSpec(bk=16))
+    for bn in (16, 48, 33 * 32):
+        with pytest.raises(ValueError, match="compiles segments"):
+            resolve_spec("flash_attn", (32, 512), KernelSpec(bn=bn))
+    with pytest.raises(ValueError, match="compiles depth"):
+        resolve_spec("flash_attn", (32, 512), _d(3))
     with pytest.raises(ValueError, match="rows per slab"):
         resolve_spec("fused_rms", (4, 80), KernelSpec(bm=0))
 
@@ -239,6 +246,32 @@ def test_row_dividers_same_bits_at_every_depth(rows, n):
             np.testing.assert_array_equal(bits(a), bits(r))
 
 
+@pytest.mark.parametrize("rows,c,bn", [
+    (32, 512, 32),         # lockstep decode: 4 x 8 rows, 1-chunk segments
+    (32, 256, 32),         # continuous decode tick: 256-slot paged views
+    (32, 4096, 256),       # the full 4096-slot window: 8 chunks a segment
+    (2, 1, 32),            # one slot: one chunk, one segment
+    (256, 512, 256),       # many rows: 8 chunks a segment
+    (32, 1 << 20, 1024),   # a very long cache: the 32-chunk limit
+])
+def test_resolve_flash_attn_geometry(rows, c, bn):
+    """K4's geometry from (rows, C): chunks of FLASH_CHUNK slots and
+    segments of whole chunks, as short as keep the grid within one wave
+    of blocks, so rows x segments reaches the card's SMs where the cache
+    has the chunks for it."""
+    from repro_torch.kernels.spec import (FLASH_CHUNK, FLASH_DEPTH,
+                                          flash_geometry)
+    ks = resolve_spec("flash_attn", (rows, c))
+    assert (ks.bk, ks.bn) == (FLASH_CHUNK, bn) == flash_geometry(rows, c)
+    assert ks.depth == FLASH_DEPTH and ks.bm is None
+    assert resolve_spec("flash_attn", (rows, c), ks) == ks  # idempotent
+    n_chunks = -(-c // FLASH_CHUNK)
+    n_seg = -(-n_chunks // (bn // FLASH_CHUNK))
+    assert rows * n_seg >= min(budget.SMS, rows * n_chunks)
+    explicit = resolve_spec("flash_attn", (rows, c), KernelSpec(bn=64))
+    assert (explicit.bk, explicit.bn) == (FLASH_CHUNK, 64)
+
+
 def test_deferred_depth_context_overrides_the_heuristic_only():
     from repro_torch.kernels.spec import deferred_depth
     with deferred_depth(1):
@@ -248,6 +281,7 @@ def test_deferred_depth_context_overrides_the_heuristic_only():
         with deferred_depth(4):
             assert resolve_spec("log_matmul", (4, 2560, 2560)).depth == 4
         assert resolve_spec("log_matmul", (4, 2560, 2560)).depth == 1
+        assert resolve_spec("flash_attn", (32, 512)).depth == 2  # one depth
     assert resolve_spec("log_matmul", (64, 2560, 2560)).depth == 2
     assert resolve_spec("log_matmul", (512, 2560, 2560)).depth == 3
     with pytest.raises(ValueError):

@@ -39,6 +39,7 @@ from repro.ckpt.checkpoint import CheckpointManager as JCheckpointManager  # noq
 from repro.configs.base import RAPID as JRAPID  # noqa: E402
 from repro.configs.base import get_config as jget  # noqa: E402
 from repro.core import backend as jbe  # noqa: E402
+from repro.core import float_approx as jfa  # noqa: E402
 from repro.core import ops as jops  # noqa: E402
 from repro.data.pipeline import SyntheticLM as JSyntheticLM  # noqa: E402
 from repro.models.layers import ParallelCtx  # noqa: E402
@@ -50,6 +51,7 @@ from repro_torch.ckpt.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs.base import RAPID as TRAPID  # noqa: E402
 from repro_torch.configs.base import get_config as tget  # noqa: E402
 from repro_torch.core import backend as tbe  # noqa: E402
+from repro_torch.core import float_approx as tfa  # noqa: E402
 from repro_torch.core import ops as tops  # noqa: E402
 from repro_torch.data.pipeline import (BinCorpus, SyntheticLM,  # noqa: E402
                                        host_slice, make_source)
@@ -176,6 +178,44 @@ def test_qdiv_grads_match_reference(b_shape):
                        .sum(), a, b)
     for g, wnt in zip(got, want):
         _close(g, wnt)
+
+
+@pytest.mark.parametrize("op", ["approx_mul", "approx_div"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b_shape", [(4, 8), (8,), (4, 1)])
+def test_approx_mul_div_grads_match_reference(op, dtype, b_shape):
+    """``float_approx.approx_mul`` / ``approx_div`` at their default
+    schemes pass the ideal product's / quotient's gradient through, as
+    the reference's ``custom_jvp`` rules do, in the inputs' dtype."""
+    rng = np.random.default_rng(len(b_shape) + len(op))
+    a = randn(rng, 4, 8)
+    b = np.abs(randn(rng, *b_shape)) + 0.5
+    cot = randn(rng, 4, 8)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    jfn, tfn = getattr(jfa, op), getattr(tfa, op)
+    want = jax.grad(lambda a, b: (jfn(a, b) * cot.astype(jdt)).sum(),
+                    argnums=(0, 1))(jnp.asarray(a, jdt), jnp.asarray(b, jdt))
+    ta, tb = (T(v).to(tdt).requires_grad_(True) for v in (a, b))
+    got = torch.autograd.grad((tfn(ta, tb) * T(cot).to(tdt)).sum(), (ta, tb))
+    for g, w, t in zip(got, want, (ta, tb)):
+        assert g.dtype == tdt and g.shape == t.shape
+        _close(g.float().numpy(), np.asarray(w, np.float32))
+
+
+def test_approx_mul_div_without_grad_unchanged():
+    """Under ``no_grad`` (the apps' arithmetic) the ops give the log-domain
+    bits and track nothing."""
+    rng = np.random.default_rng(5)
+    a, b = T(randn(rng, 4, 8)), T(np.abs(randn(rng, 8)) + 0.5)
+    for op, log_op, lut, scheme in (
+            ("approx_mul", tfa.log_mul_f32, tfa.mul_lut_device, "rapid10"),
+            ("approx_div", tfa.log_div_f32, tfa.div_lut_device, "rapid9")):
+        with torch.no_grad():
+            got = getattr(tfa, op)(a.requires_grad_(True), b, scheme)
+        assert not got.requires_grad
+        want = log_op(a.detach(), b, lut(scheme, a.device))
+        np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                      want.numpy().view(np.int32))
 
 
 @pytest.mark.parametrize("op", ["qsoftmax_div", "qrms_div", "approx_softmax",
