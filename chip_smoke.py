@@ -51,11 +51,11 @@ one NVIDIA H100.  It
 9. times the serve paths at the default stage counts against depth 1
    and depth 2 everywhere, in turns on this card (the lockstep decode
    step and prefill, the continuous prefill tick), and
-   ``launch/k1_times.py`` at depths 1, 2 and 3 (the depth A/B); then K1
-   and K4 before and after: ``k1_times.py`` and ``k4_times.py`` on the
-   parent commit's kernels and on this tree's in turns (parent, this,
-   this, parent), where the parent's sources can be unpacked; the record
-   names the parent's revision (information);
+   ``launch/k1_times.py`` at depths 1, 2 and 3 (the depth A/B); then K1,
+   K4 and K8 before and after: ``k1_times.py``, ``k4_times.py`` and
+   ``k8_times.py`` on the parent commit's kernels and on this tree's in
+   turns (parent, this, this, parent), where the parent's sources can be
+   unpacked; the record names the parent's revision (information);
 10. trains full-width h2o_danube_1_8b (RAPID, f32 params from a seed,
     bf16 compute, block remat) for 3 AdamW steps of 4 x 128 tokens
     through ``make_train_step`` / ``train_loop`` into a checkpoint
@@ -81,7 +81,11 @@ shorter than depth K blocks, a single row (fewer slabs than depth) and
 ragged slabs, and K1 at full width with K blocks that take its lean product
 path and blocks that take the full one (a zero, a subnormal, an inf,
 -0, products at the lean proof's edges) in one call, and with K blocks
-on the proof's own bounds and one step outside them.
+on the proof's own bounds and one step outside them.  Beside the row
+dividers it times library yardsticks the port never calls (torch's f32
+``rms_norm`` at the rms rows, ``a / b[:, None]`` at the row-broadcast
+rows; exact divides, no RAPID one) and the card's launch floor, one
+graph-replayed one-element torch op (information).
 
 It exits non-zero, printing no result, when no CUDA card is present or
 when it is run outside a checkout of the repository.  Its last line is
@@ -185,13 +189,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 # --------------------------------------------------------------------------
 # timing and comparison
 # --------------------------------------------------------------------------
@@ -228,23 +225,10 @@ class Timer:
         wrappers' Python path costs ~20 us a call, more than the small
         kernels themselves).  Inputs stay L2-warm across the launches
         where they fit, as on the path, where the producer just wrote
-        them.  ``fn`` must have run once outside the capture."""
-        torch = self.torch
-        fn()
-        torch.cuda.synchronize()
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(n):
-                fn()
-        g.replay()  # warm
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        g.replay()
-        b.record()
-        b.synchronize()
-        del g
-        return a.elapsed_time(b) / n
+        them."""
+        from repro_torch.launch.kernel_timing import graph_ms
+
+        return graph_ms(self.torch, fn, n)
 
 
 def ulp_max(a, b) -> int:
@@ -537,15 +521,30 @@ def kernel_phase(torch, dev, timer):
             del got
         del x, w, ref
 
+    # the card's launch floor: one graph-replayed one-element torch op
+    # (information: bound_ms stays max(bytes, ops) as defined)
+    one = torch.zeros(1, device=dev)
+    floor_ms = timer.graph(lambda: one.add_(1.0), 200)
+    cases.append({"kernel": "launch_floor", "shape": "add_ on 1 f32 element",
+                  "ms": floor_ms})
+    log(f"launch floor: one graph-replayed one-element add_ "
+        f"ms={floor_ms:.4f}")
+
     # K2: ln1/ln2/final norm of a decode step (4 rows), of a continuous
     # prefill tick (64 rows) and of the lockstep prefill / a train step
     # (512 rows), a single row (fewer slabs than depth) and 37 rows (a
     # ragged last slab), at every stage count (depth >= 2: K8);
-    # tolerance: denominators and quotients bit-equal
+    # tolerance: denominators and quotients bit-equal.  Library: torch's
+    # f32 rms_norm, a yardstick with an exact divide and no RAPID one
+    rms_norm = torch.nn.functional.rms_norm
     for rows in (1, DECODE_M, CHUNK_M, 37, PREFILL_M):
         x = randn(rows, D, std=3.0)
         ref, rden = rms_div_plain(x, 1e-6, "rapid9", return_denom=True)
         plain_ms = timer(lambda: rms_div_plain(x, 1e-6, "rapid9"), 3)
+        lib = {"library_ms": timer.graph(lambda: rms_norm(x, (D,), eps=1e-6),
+                                         100),
+               "library": "torch.nn.functional.rms_norm, f32 (exact "
+                          "divide, no RAPID; never called by the port)"}
         for depth in DEPTHS:
             got, den = fused_rms_div(x, 1e-6, "rapid9", return_denom=True,
                                      spec=at(depth))
@@ -557,7 +556,7 @@ def kernel_phase(torch, dev, timer):
                    f"rms rows={rows} n={D} depth={depth}", abs_max(got, ref),
                    ulps, ulps == 0, timer.graph(k2, 100), plain_ms,
                    4 * (2 * rows * D), rows * D * 2, FP32_FLOPS_PER_S / 2,
-                   {"call_ms": timer(k2, 20), "depth": depth})
+                   {"call_ms": timer(k2, 20), "depth": depth, **lib})
 
     # K3: prefill attention probabilities, B*H*S rows of T = 128, and a
     # ragged 33 x 130 (n % 4 != 0: 4 B copies); every stage count
@@ -662,10 +661,12 @@ def kernel_phase(torch, dev, timer):
 
     # K5: the online-softmax combine acc / l of a 64-token prefill chunk
     # (64 x 32 heads rows of head_dim 80) and of an 8320-token blockwise
-    # prefill; K6 at 2048 x 2048.  Special operands (0, -0, +-inf, NaN,
-    # subnormals, the overflow edge) head every operand; tolerance:
-    # bit-equal, NaN payloads aside.  Bound: bytes (each operand read
-    # once, the output written once), ops = 3 int32 ops per divide.
+    # prefill, at every stage count (depth >= 2: K8); K6 at 2048 x 2048.
+    # Special operands (0, -0, +-inf, NaN, subnormals, the overflow edge)
+    # head every operand; tolerance: bit-equal, NaN payloads aside.
+    # Bound: bytes (each operand read once, the output written once), ops
+    # = 3 int32 ops per divide.  Library (K5): torch's f32 a / b[:, None],
+    # a yardstick with an exact divide
     specials = torch.tensor(
         [0.0, -0.0, float("inf"), -float("inf"), float("nan"), 1e-40,
          -1e-42, 3.4e38, -3.4e38, 1e-38, 2.0**64, 2.0**-64], device=dev)
@@ -683,6 +684,10 @@ def kernel_phase(torch, dev, timer):
         ref = div_rowbcast_plain(a, b, "rapid9")
         fin = torch.isfinite(ref)
         plain_ms = timer(lambda: div_rowbcast_plain(a, b, "rapid9"), 3)
+        reps = 200 if rows < 10**5 else 20
+        lib = {"library_ms": timer.graph(lambda: a / b[:, None], reps),
+               "library": "a / b[:, None], f32 (exact divide, no RAPID; "
+                          "never called by the port)"}
         for depth in DEPTHS:
             got = div_rowbcast(a, b, "rapid9", spec=at(depth))
             torch.cuda.synchronize()
@@ -692,9 +697,9 @@ def kernel_phase(torch, dev, timer):
             record("div_rowbcast" if depth == 1 else "rowwise_pipelined",
                    f"a=[{rows},{HD}] b=[{rows}] depth={depth}",
                    abs_max(got[fin], ref[fin]), 0 if ok else -1, ok,
-                   timer.graph(k5, 200 if rows < 10**5 else 20), plain_ms,
+                   timer.graph(k5, reps), plain_ms,
                    4 * (2 * rows * HD + rows), 3 * rows * HD, INT32_OPS_PER_S,
-                   {"call_ms": timer(k5, 20), "depth": depth})
+                   {"call_ms": timer(k5, 20), "depth": depth, **lib})
             del got
         del a, b, ref
     a = with_specials(randn(2048, 2048))
@@ -1589,7 +1594,8 @@ def depth_ab_phase(torch, cfg, params):
 
 
 def k1_times(args, src=None, script="k1_times.py"):
-    """``launch/k1_times.py`` (or ``k4_times.py``: this tree's timers) in
+    """``launch/k1_times.py`` (or ``k4_times.py``, ``k8_times.py``: this
+    tree's timers) in
     a process of its own, on this tree's kernels or on those of the tree
     ``src``."""
     cmd = [sys.executable, str(ROOT / "src/repro_torch/launch" / script),
@@ -1646,9 +1652,11 @@ def parent_src():
 
 
 def parent_ab():
-    """K1 and K4 before and after on this card: ``k1_times.py`` at each
-    tree's default stage counts and ``k4_times.py`` at each tree's
-    geometry, on the parent commit's kernels and on this tree's, in
+    """K1, K4 and K8 before and after on this card: ``k1_times.py`` at
+    each tree's default stage counts, ``k4_times.py`` at each tree's
+    geometry and ``k8_times.py`` (the row dividers at depths 1, 2 and 3,
+    each tree's geometry), on the parent commit's kernels and on this
+    tree's, in
     turns (parent, this, this, parent), one process each; every shape
     with both means, and the parent's revision.  Information: nothing
     here fails on a time."""
@@ -1659,7 +1667,8 @@ def parent_ab():
     log(f"parent A/B: parent {parent}")
     runs = []
     for kernel, script, key in (("K1", "k1_times.py", ("site", "M")),
-                                ("K4", "k4_times.py", ("shape", "C"))):
+                                ("K4", "k4_times.py", ("shape", "C")),
+                                ("K8", "k8_times.py", ("shape", "depth"))):
         mine = []
         for who in ("parent", "this", "this", "parent"):
             rows = k1_times([], src if who == "parent" else None, script)
@@ -1874,6 +1883,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build
+    from repro_torch.launch.kernel_timing import card_line
 
     t_start = time.perf_counter()
     dev = resolve_device("cuda")
@@ -1912,8 +1922,8 @@ def main() -> int:
     # the chunked-prefill tick's), its launches summed over the paths'
     # runs (the two serve paths, the integer units' own path, the apps,
     # training), each read just after that run.  K1 / K2 / K3 / K5 count
-    # every launch of their wrapper, as the wrappers do; K7 and K8 count
-    # the subset at depth >= 2 (K1's, and K2's + K3's + K5's)
+    # their wrappers' launches at depth 1, K7 and K8 those at depth >= 2
+    # (K1's, and K2's + K3's + K5's), so no launch is counted twice
     from repro_torch.kernels.spec import resolve_spec
     k7_depth = resolve_spec("log_matmul", (PREFILL_M, D_FF, D)).depth
     heaviest = {"log_matmul": "w1 M=512",
@@ -1932,6 +1942,8 @@ def main() -> int:
         if name == "rowwise_pipelined":
             return sum(counts[f"{k}@d2+"]
                        for k in ("rms_div", "softmax_div", "div_rowbcast"))
+        if f"{name}@d2+" in counts:  # the depth-1 form's own launches
+            return counts[name] - counts[f"{name}@d2+"]
         return counts[name]
 
     kernels = []

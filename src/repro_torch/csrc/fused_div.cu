@@ -24,6 +24,8 @@
 // optional output receives each row's denominator, so a check can hold
 // the quotients against the plain divide fed the kernel's own
 // denominator.
+#include <atomic>
+
 #include "rapid.cuh"
 
 namespace {
@@ -69,19 +71,41 @@ row_div_kernel(const float* __restrict__ x, float* __restrict__ out,
 }  // namespace
 
 namespace {
-int launch_slabs(int op, int depth, const float* x, const float* b,
-                 float* out, float* denom_out, const int32_t* lut, int rows,
-                 int n, int bm, float c_add, float c_mul, float floor,
-                 cudaStream_t stream);
+cudaError_t launch_slabs(int op, int depth, int warps, int grid,
+                         const float* x, const float* b, float* out,
+                         float* denom_out, const int32_t* lut, int rows,
+                         int n, int bm, float c_add, float c_mul, float floor,
+                         cudaStream_t stream);
+
+// the card's SMs into *sms, read once per process (a failed read is
+// returned, and read again at the next call)
+cudaError_t sm_count(int* sms) {
+  static std::atomic<int> cached{0};
+  int count = cached.load(std::memory_order_relaxed);
+  if (count == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err != cudaSuccess) return err;
+    cached.store(count, std::memory_order_relaxed);
+  }
+  *sms = count;
+  return cudaSuccess;
+}
 }  // namespace
 
-// depth 1: one block per row; depth >= 2: K8, slabs of bm rows
+// depth 1: one block per row; depth >= 2: K8, slabs of bm rows, warps a
+// row and the grid from kernels/spec.py::row_geometry
 extern "C" int rapid_rms_div(const void* x, void* out, void* denom_out,
                              const void* lut, int rows, int n, int depth,
-                             int bm, float c_add, float c_mul, void* stream) {
+                             int bm, int warps, int grid,
+                             float c_add, float c_mul, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   if (depth > 1)
-    return launch_slabs(0, depth, static_cast<const float*>(x), nullptr,
+    return launch_slabs(0, depth, warps, grid,
+                        static_cast<const float*>(x), nullptr,
                         static_cast<float*>(out),
                         static_cast<float*>(denom_out),
                         static_cast<const int32_t*>(lut), rows, n, bm, c_add,
@@ -95,10 +119,12 @@ extern "C" int rapid_rms_div(const void* x, void* out, void* denom_out,
 
 extern "C" int rapid_softmax_div(const void* e, void* out, void* denom_out,
                                  const void* lut, int rows, int n, int depth,
-                                 int bm, float floor, void* stream) {
+                                 int bm, int warps, int grid,
+                                 float floor, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   if (depth > 1)
-    return launch_slabs(1, depth, static_cast<const float*>(e), nullptr,
+    return launch_slabs(1, depth, warps, grid,
+                        static_cast<const float*>(e), nullptr,
                         static_cast<float*>(out),
                         static_cast<float*>(denom_out),
                         static_cast<const int32_t*>(lut), rows, n, bm, 0.0f,
@@ -146,31 +172,38 @@ elementwise_div_kernel(const float* __restrict__ a,
                                 s_lut);
 }
 
-int div_grid(unsigned total) {
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+cudaError_t div_grid(unsigned total, int* grid) {
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
   const unsigned want = (total + DIV_THREADS - 1) / DIV_THREADS;
   const unsigned cap = 8u * static_cast<unsigned>(sms);
-  return static_cast<int>(want < cap ? want : cap);
+  *grid = static_cast<int>(want < cap ? want : cap);
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // a [rows, n] / b [rows] (one denominator per row); rows * n < 2^31.
-// depth 1: one thread per element; depth >= 2: K8, slabs of bm rows.
+// depth 1: one thread per element; depth >= 2: K8, slabs of bm rows
+// walked flat (warps 0).
 extern "C" int rapid_div_rowbcast(const void* a, const void* b, void* out,
                                   const void* lut, int rows, int n, int depth,
-                                  int bm, void* stream) {
+                                  int bm, int warps, int grid,
+                                  void* stream) {
   if (depth > 1)
-    return launch_slabs(2, depth, static_cast<const float*>(a),
+    return launch_slabs(2, depth, warps, grid,
+                        static_cast<const float*>(a),
                         static_cast<const float*>(b), static_cast<float*>(out),
                         nullptr, static_cast<const int32_t*>(lut), rows, n,
                         bm, 0.0f, 0.0f, 0.0f,
                         static_cast<cudaStream_t>(stream));
   const unsigned total = static_cast<unsigned>(rows) * static_cast<unsigned>(n);
+  int blocks = 0;
+  const cudaError_t err = div_grid(total, &blocks);
+  if (err != cudaSuccess) return err;
   elementwise_div_kernel<true>
-      <<<div_grid(total), DIV_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      <<<blocks, DIV_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const float*>(a), static_cast<const float*>(b),
           static_cast<float*>(out), static_cast<const int32_t*>(lut), total,
           static_cast<unsigned>(n));
@@ -181,8 +214,11 @@ extern "C" int rapid_div_rowbcast(const void* a, const void* b, void* out,
 extern "C" int rapid_div(const void* a, const void* b, void* out,
                          const void* lut, int total, void* stream) {
   const unsigned t = static_cast<unsigned>(total);
+  int blocks = 0;
+  const cudaError_t err = div_grid(t, &blocks);
+  if (err != cudaSuccess) return err;
   elementwise_div_kernel<false>
-      <<<div_grid(t), DIV_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      <<<blocks, DIV_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const float*>(a), static_cast<const float*>(b),
           static_cast<float*>(out), static_cast<const int32_t*>(lut), t, 1u);
   return cudaGetLastError();
@@ -196,46 +232,117 @@ extern "C" int rapid_div(const void* a, const void* b, void* out,
 // rms_div_pallas, softmax_div_pallas and div_rowbcast_pallas).
 //
 // What bounds it on an H100: device memory, as K2 / K3 / K5 -- each row
-// read once (into shared memory) and written once.
+// read once (into shared memory) and written once.  At the few rows of a
+// decode step it is latency: one row's loads, its sum and its divides in
+// a chain, so what counts there is how many threads share a row and how
+// many SMs the rows land on.
 //
-// Design: a grid of at most (#SMs x the blocks that fit on an SM)
-// blocks of ROW_WARPS warps; block g walks slabs g, g + gridDim.x, ...
-// of bm rows, with the next DEPTH-1 slabs of its own in flight by
-// cp.async into a ring of DEPTH slabs in dynamic shared memory (16 B
-// copies where bm * n is a multiple of 4 and x is 16 B aligned, so
-// every slab starts aligned; 4 B copies for the rest).  Slab i is
-// waited for with cp.async.wait_group(DEPTH-2) and a barrier; slab
-// i+DEPTH-1 is then issued into the slot slab i-1 left.  Each warp takes
-// one row of the slab at a time: lane l sums elements l, l+32, l+64 and
-// l+96 of the 128-lane grouping as four separate partial sums (each one
-// lane's sum of row_div_kernel, in the same order), folds them as the
-// halving steps h = 64 and h = 32 do, and the steps h = 16 .. 1 by
-// shuffles: the denominator is bit-equal to K2 / K3's, and so is every
-// quotient.  The stores of slab i are plain global stores: they drain
-// while slab i+DEPTH-1 loads, which is what the reference's out-DMA ring
-// arranges by hand.  K5 reads its [rows] denominator per row from
-// global memory (the reference keeps the [M, 1] column resident in
-// VMEM).
+// Design: blocks of ROW_WARPS warps; the geometry, grid included, comes
+// from kernels/spec.py::row_geometry, and a warp count this file did not
+// compile for the op, an empty slab, or a grid past the slabs or past
+// one wave the card holds at once, is refused before the launch.
+//
+// * The grid: one block a slab of bm rows, up to one wave (the SMs x
+//   the blocks an SM holds).  Where the slabs outnumber the wave, block
+//   g walks slabs g, g + gridDim.x, ... with the next DEPTH-1 of its own
+//   in flight by cp.async into a ring of DEPTH slabs in dynamic shared
+//   memory (16 B copies where x and out are 16 B aligned and n % 4 == 0,
+//   so every slab starts aligned; 4 B copies for the rest).  Slab i is
+//   waited for with cp.async.wait_group(DEPTH-2) and a barrier; slab
+//   i+DEPTH-1 is then issued into the slot slab i-1 left.  A block with
+//   a single slab issues all of its loads at once and waits once; the
+//   LUT rides in slab 0's group, so it costs no round trip of its own,
+//   and the divide (LUT or IEEE) is a template parameter, not a branch.
+// * Wide rows (WARPS = ROW_WARPS: rms / softmax rows from ROW_WIDE_N
+//   elements, and narrower ones where the rows, a block each, fit one
+//   wave): the block's 128 threads share a row, thread t as grouping
+//   lane t, summing elements t, t+128, ... in order (row_div_kernel's
+//   sums); the steps h = 64 and h = 32 cross warps through one of two
+//   fold buffers in shared memory (the rows alternate, so one barrier a
+//   row), h = 16 .. 1 are shuffles, every warp folding the same
+//   partials.  The divides then take the row 16 B a thread.
+// * Narrow rows (WARPS = 1, where they outnumber a wave of blocks; fewer
+//   take the wide form): a warp a row; lane l holds grouping lanes
+//   l, l+32, l+64 and l+96, their four chains advanced side by side one
+//   round of 128 at a time, folded as the steps h = 64 and h = 32 do,
+//   then h = 16 .. 1 by shuffles.
+// * The row broadcast (OP 2, WARPS = 0) has no sum: its threads walk the
+//   slab flat, 16 B each, and find the row as index / n; the slab's
+//   denominators ride in the same cp.async group, so no load of b waits
+//   behind the slab.
+//
+// Either way each denominator is bit-equal to the plain version's
+// lane_sum, and so is every quotient.  The stores are plain global
+// stores: they drain while the next slab loads, which is what the
+// reference's out-DMA ring arranges by hand.
 namespace {
 
 constexpr int ROW_WARPS = 4;
 constexpr int ROW_THREADS = ROW_WARPS * 32;
+// blocks an SM must hold at once (kernels/budget.py ROW_BLOCKS_PER_SM):
+// the launch bounds keep a thread within 64 registers
+constexpr int ROW_BLOCKS_PER_SM = 8;
 
-template <int OP, int DEPTH>  // OP 0: rms, 1: softmax, 2: row broadcast
-__global__ void __launch_bounds__(ROW_THREADS)
+template <bool RAPID>
+__device__ __forceinline__ float row_quotient(float v, float d,
+                                              const int32_t* s_lut) {
+  if constexpr (RAPID) return rapid::log_div_f32(v, d, s_lut);
+  return __fdiv_rn(v, d);
+}
+
+template <bool RAPID>
+__device__ __forceinline__ float4 row_quotient4(float4 v, float d,
+                                                const int32_t* s_lut) {
+  return make_float4(row_quotient<RAPID>(v.x, d, s_lut),
+                     row_quotient<RAPID>(v.y, d, s_lut),
+                     row_quotient<RAPID>(v.z, d, s_lut),
+                     row_quotient<RAPID>(v.w, d, s_lut));
+}
+
+// the steps h = 16 .. 1 of the fold; every lane gets lane 0's sum
+__device__ __forceinline__ float warp_fold(float s) {
+#pragma unroll
+  for (int h = 16; h > 0; h >>= 1)
+    s = __fadd_rn(s, __shfl_down_sync(0xFFFFFFFFu, s, h));
+  return __shfl_sync(0xFFFFFFFFu, s, 0);
+}
+
+template <int OP>
+__device__ __forceinline__ float row_denom(float s, float c_add,
+                                           float c_mul, float floor) {
+  // softmax: max(sum, floor) with NaN propagating, as torch.maximum
+  return OP == 0 ? __fsqrt_rn(__fmul_rn(__fadd_rn(s, c_add), c_mul))
+                 : (s < floor ? floor : s);
+}
+
+template <int OP>
+__device__ __forceinline__ float row_term(float v) {
+  return OP == 0 ? __fmul_rn(v, v) : v;
+}
+
+// OP 0: rms, 1: softmax, 2: row broadcast; RAPID: the LUT divide (else
+// an IEEE one)
+template <int OP, int DEPTH, int WARPS, bool RAPID>
+__global__ void __launch_bounds__(ROW_THREADS, ROW_BLOCKS_PER_SM)
 row_slab_kernel(const float* __restrict__ x, const float* __restrict__ b,
                 float* __restrict__ out, float* __restrict__ denom_out,
                 const int32_t* __restrict__ lut, int rows, int n, int bm,
                 float c_add, float c_mul, float floor, bool vec) {
-  __shared__ int32_t s_lut[256];
-  extern __shared__ __align__(16) float ring[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (lut)
-    for (int i = tid; i < 256; i += ROW_THREADS) s_lut[i] = lut[i];
+  static_assert(OP == 2 ? WARPS == 0 : (WARPS == 1 || WARPS == ROW_WARPS),
+                "rms / softmax rows take 1 or ROW_WARPS warps, the row "
+                "broadcast none");
+  __shared__ __align__(16) int32_t s_lut[256];
+  // [two fold buffers of LANE partials where the warps share a row]
+  // [ring of DEPTH slabs][the row broadcast's DEPTH x bm denominators]
+  extern __shared__ __align__(16) float smem[];
+  constexpr int FOLD = WARPS == ROW_WARPS ? 2 * LANE : 0;
+  float* ring = smem + FOLD;
+  const int tid = threadIdx.x, lane = tid & 31;
   const int nslabs = (rows + bm - 1) / bm;
   const int mine = (nslabs - 1 - static_cast<int>(blockIdx.x)) /
                        static_cast<int>(gridDim.x) + 1;
-  const size_t slab = static_cast<size_t>(bm) * n;
+  const int slab = bm * n;
+  float* denoms = ring + DEPTH * slab;
 
   // rows of this block's i-th slab: [first, first + count)
   auto slab_rows = [&](int i, long long& first) {
@@ -244,141 +351,235 @@ row_slab_kernel(const float* __restrict__ x, const float* __restrict__ b,
     const long long left = rows - first;
     return static_cast<int>(left < bm ? left : bm);
   };
-  // the i-th slab of this block into ring slot i % DEPTH
+  // the i-th slab of this block into ring slot i % DEPTH (with its
+  // denominators, for the row broadcast)
   auto issue = [&](int i) {
     long long r0;
-    const long long len = static_cast<long long>(slab_rows(i, r0)) * n;
+    const int nr = slab_rows(i, r0), len = nr * n;
+    if constexpr (OP == 2)
+      for (int r = tid; r < nr; r += ROW_THREADS)
+        rapid::cp_async4(denoms + (i % DEPTH) * bm + r, b + r0 + r, true);
     const float* src = x + r0 * n;
-    float* dst = ring + static_cast<size_t>(i % DEPTH) * slab;
-    long long done = 0;
-    if (vec) {
-      done = len / 4 * 4;
-      for (long long c = tid; c < len / 4; c += ROW_THREADS)
+    float* dst = ring + (i % DEPTH) * slab;
+    if (vec) {  // n % 4 == 0, so len is whole 16 B copies
+      for (int c = tid; c < len / 4; c += ROW_THREADS)
         rapid::cp_async16(dst + 4 * c, src + 4 * c, true);
+    } else {
+      for (int e = tid; e < len; e += ROW_THREADS)
+        rapid::cp_async4(dst + e, src + e, true);
     }
-    for (long long e = done + tid; e < len; e += ROW_THREADS)
-      rapid::cp_async4(dst + e, src + e, true);
   };
 
+  if constexpr (RAPID) {  // the LUT lands with slab 0, in its group
+    if ((reinterpret_cast<uintptr_t>(lut) & 15u) == 0) {
+      if (tid < 64) rapid::cp_async16(s_lut + 4 * tid, lut + 4 * tid, true);
+    } else {
+      for (int i = tid; i < 256; i += ROW_THREADS)
+        rapid::cp_async4(s_lut + i, lut + i, true);
+    }
+  }
   for (int i = 0; i < DEPTH - 1; ++i) {
     if (i < mine) issue(i);
     rapid::cp_async_commit();
   }
   for (int i = 0; i < mine; ++i) {
     rapid::cp_async_wait<DEPTH - 2>();  // slab i has landed
-    // slab i is visible to every warp, and every warp is done with
-    // slab i-1, whose slot the next issue reuses
+    // slab i (and the LUT) is visible to every warp, and every warp is
+    // done with slab i-1, whose slot the next issue reuses
     __syncthreads();
     if (i + DEPTH - 1 < mine) issue(i + DEPTH - 1);
     rapid::cp_async_commit();
     long long r0;
     const int nr = slab_rows(i, r0);
-    const float* sl = ring + static_cast<size_t>(i % DEPTH) * slab;
-    for (int r = warp; r < nr; r += ROW_WARPS) {
-      const float* xr = sl + static_cast<size_t>(r) * n;
-      const long long row = r0 + r;
-      float d;
-      if constexpr (OP == 2) {
-        d = __ldg(b + row);
-      } else {
-        float p[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          p[q] = 0.0f;
-          for (int j = lane + 32 * q; j < n; j += LANE) {
-            const float v = xr[j];
-            p[q] = __fadd_rn(p[q], OP == 0 ? __fmul_rn(v, v) : v);
-          }
+    const float* sl = ring + (i % DEPTH) * slab;
+    if constexpr (WARPS == 0) {  // the flat walk: 16 B a thread
+      const int len = nr * n;
+      const float* bs = denoms + (i % DEPTH) * bm;
+      float* o = out + r0 * n;
+      if (vec) {  // a 16 B chunk lies in one row
+        for (int c = tid; c < len / 4; c += ROW_THREADS) {
+          const float4 v = reinterpret_cast<const float4*>(sl)[c];
+          reinterpret_cast<float4*>(o)[c] =
+              row_quotient4<RAPID>(v, bs[4 * c / n], s_lut);
         }
-        // row_div_kernel's halving steps: h = 64, then h = 32
-        float s = __fadd_rn(__fadd_rn(p[0], p[2]), __fadd_rn(p[1], p[3]));
-#pragma unroll
-        for (int h = 16; h > 0; h >>= 1)
-          s = __fadd_rn(s, __shfl_down_sync(0xFFFFFFFFu, s, h));
-        s = __shfl_sync(0xFFFFFFFFu, s, 0);
-        d = OP == 0 ? __fsqrt_rn(__fmul_rn(__fadd_rn(s, c_add), c_mul))
-                    : (s < floor ? floor : s);
-        if (denom_out && lane == 0) denom_out[row] = d;
+      } else {
+        for (int e = tid; e < len; e += ROW_THREADS)
+          o[e] = row_quotient<RAPID>(sl[e], bs[e / n], s_lut);
       }
-      float* orow = out + row * n;
-      for (int j = lane; j < n; j += 32)
-        orow[j] = lut ? rapid::log_div_f32(xr[j], d, s_lut)
-                      : __fdiv_rn(xr[j], d);
+    } else if constexpr (WARPS == 1) {  // a warp a row
+      for (int r = tid >> 5; r < nr; r += ROW_WARPS) {
+        const float* xr = sl + r * n;
+        float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f, p3 = 0.0f;
+        for (int j = lane; j < n; j += LANE) {  // one round of 128
+          p0 = __fadd_rn(p0, row_term<OP>(xr[j]));
+          if (j + 32 < n) p1 = __fadd_rn(p1, row_term<OP>(xr[j + 32]));
+          if (j + 64 < n) p2 = __fadd_rn(p2, row_term<OP>(xr[j + 64]));
+          if (j + 96 < n) p3 = __fadd_rn(p3, row_term<OP>(xr[j + 96]));
+        }
+        // h = 64 (l += l + 64, l + 32 += l + 96), then h = 32
+        const float s = warp_fold(__fadd_rn(__fadd_rn(p0, p2),
+                                            __fadd_rn(p1, p3)));
+        const float d = row_denom<OP>(s, c_add, c_mul, floor);
+        const long long row = r0 + r;
+        if (denom_out && lane == 0) denom_out[row] = d;
+        float* orow = out + row * n;
+        if (vec) {
+          for (int c = lane; c < n / 4; c += 32)
+            reinterpret_cast<float4*>(orow)[c] = row_quotient4<RAPID>(
+                reinterpret_cast<const float4*>(xr)[c], d, s_lut);
+        } else {
+          for (int j = lane; j < n; j += 32)
+            orow[j] = row_quotient<RAPID>(xr[j], d, s_lut);
+        }
+      }
+    } else {  // the block's four warps on one row
+      for (int r = 0; r < nr; ++r) {
+        const float* xr = sl + r * n;
+        float p = 0.0f;
+        for (int j = tid; j < n; j += LANE)
+          p = __fadd_rn(p, row_term<OP>(xr[j]));
+        float* fold = smem + (r & 1) * LANE;
+        fold[tid] = p;
+        __syncthreads();
+        // h = 64, then h = 32: every warp folds the same partials, and
+        // the next row writes the other buffer, so no second barrier
+        const float s = warp_fold(
+            __fadd_rn(__fadd_rn(fold[lane], fold[lane + 64]),
+                      __fadd_rn(fold[lane + 32], fold[lane + 96])));
+        const float d = row_denom<OP>(s, c_add, c_mul, floor);
+        const long long row = r0 + r;
+        if (denom_out && tid == 0) denom_out[row] = d;
+        float* orow = out + row * n;
+        if (vec) {
+          for (int c = tid; c < n / 4; c += ROW_THREADS)
+            reinterpret_cast<float4*>(orow)[c] = row_quotient4<RAPID>(
+                reinterpret_cast<const float4*>(xr)[c], d, s_lut);
+        } else {
+          for (int j = tid; j < n; j += ROW_THREADS)
+            orow[j] = row_quotient<RAPID>(xr[j], d, s_lut);
+        }
+      }
     }
   }
 }
 
-template <int OP, int DEPTH>
-cudaError_t launch_slabs_depth(const float* x, const float* b, float* out,
-                               float* denom_out, const int32_t* lut, int rows,
-                               int n, int bm, float c_add, float c_mul,
-                               float floor, cudaStream_t stream) {
-  auto kernel = row_slab_kernel<OP, DEPTH>;
-  const long long ring = static_cast<long long>(DEPTH) * bm * n * 4;
-  if (bm < 1 || ring > 0x7FFFFFFFll) return cudaErrorInvalidValue;
-  static int granted = 0, occ_ring = -1, occ_blocks = 0;
-  cudaError_t err =
-      rapid::allow_dynamic_smem(kernel, static_cast<int>(ring), granted);
-  if (err != cudaSuccess) return err;
-  if (occ_ring != ring) {  // blocks of this size that fit on one SM
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &occ_blocks, kernel, ROW_THREADS, static_cast<size_t>(ring));
-    if (err != cudaSuccess) return err;
-    occ_ring = static_cast<int>(ring);
+using SlabKernel = void (*)(const float*, const float*, float*, float*,
+                            const int32_t*, int, int, int, float, float,
+                            float, bool);
+
+template <int OP, int WARPS, bool RAPID>
+SlabKernel slab_kernel_at(int depth) {
+  switch (depth) {
+    case 2: return row_slab_kernel<OP, 2, WARPS, RAPID>;
+    case 3: return row_slab_kernel<OP, 3, WARPS, RAPID>;
+    case 4: return row_slab_kernel<OP, 4, WARPS, RAPID>;
+    case 5: return row_slab_kernel<OP, 5, WARPS, RAPID>;
+    case 6: return row_slab_kernel<OP, 6, WARPS, RAPID>;
+    case 7: return row_slab_kernel<OP, 7, WARPS, RAPID>;
+    case 8: return row_slab_kernel<OP, 8, WARPS, RAPID>;
+    default: return nullptr;
   }
-  if (occ_blocks < 1) return cudaErrorInvalidConfiguration;
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+template <int OP, int WARPS>
+SlabKernel slab_kernel_at(int depth, bool rapid) {
+  return rapid ? slab_kernel_at<OP, WARPS, true>(depth)
+               : slab_kernel_at<OP, WARPS, false>(depth);
+}
+
+// the instance of (op, depth, warps, divide), or null where this file
+// compiles none: rms and softmax rows take 1 or ROW_WARPS warps a row,
+// the row broadcast's flat walk 0 (and only the LUT divide)
+SlabKernel slab_kernel(int op, int depth, int warps, bool rapid) {
+  if (op == 2)
+    return warps == 0 && rapid ? slab_kernel_at<2, 0, true>(depth) : nullptr;
+  if (op == 0 && warps == 1) return slab_kernel_at<0, 1>(depth, rapid);
+  if (op == 0 && warps == ROW_WARPS)
+    return slab_kernel_at<0, ROW_WARPS>(depth, rapid);
+  if (op == 1 && warps == 1) return slab_kernel_at<1, 1>(depth, rapid);
+  if (op == 1 && warps == ROW_WARPS)
+    return slab_kernel_at<1, ROW_WARPS>(depth, rapid);
+  return nullptr;
+}
+
+// dynamic shared memory of one block (kernels/spec.py::row_smem less
+// the static LUT): the fold buffers, the ring, the row broadcast's
+// denominators
+long long slab_dynamic_bytes(int depth, int warps, int bm, int n) {
+  return (warps == ROW_WARPS ? 2ll * LANE * 4 : 0) +
+         static_cast<long long>(depth) * bm * n * 4 +
+         (warps == 0 ? static_cast<long long>(depth) * bm * 4 : 0);
+}
+
+// per instance: the dynamic shared memory granted, and the blocks of
+// occ_bytes dynamic bytes that one SM holds
+struct SlabInstance {
+  int granted = 0;
+  long long occ_bytes = -1;
+  int occ_blocks = 0;
+};
+
+SlabInstance& slab_instance(int op, int depth, int warps, bool rapid) {
+  static SlabInstance table[3][9][ROW_WARPS + 1][2];
+  return table[op][depth][warps][rapid];
+}
+
+cudaError_t launch_slabs(int op, int depth, int warps, int grid,
+                         const float* x, const float* b, float* out,
+                         float* denom_out, const int32_t* lut, int rows,
+                         int n, int bm, float c_add, float c_mul, float floor,
+                         cudaStream_t stream) {
+  const bool rapid = lut != nullptr;
+  const SlabKernel kernel = slab_kernel(op, depth, warps, rapid);
+  if (!kernel || rows < 1 || n < 1 || bm < 1) return cudaErrorInvalidValue;
+  const long long dyn = slab_dynamic_bytes(depth, warps, bm, n);
+  if (dyn > 0x7FFFFFFFll) return cudaErrorInvalidValue;
+  SlabInstance& inst = slab_instance(op, depth, warps, rapid);
+  if (inst.occ_bytes < 0) {  // first use: the largest shared carveout
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+  }
+  cudaError_t err =
+      rapid::allow_dynamic_smem(kernel, static_cast<int>(dyn), inst.granted);
+  if (err != cudaSuccess) return err;
+  if (inst.occ_bytes != dyn) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &inst.occ_blocks, kernel, ROW_THREADS, static_cast<size_t>(dyn));
+    if (err != cudaSuccess) return err;
+    inst.occ_bytes = dyn;
+  }
+  // the grid kernels/spec.py planned: at most a block a slab, and one
+  // wave that the card holds at once
+  int sms = 0;
+  err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
   const long long nslabs = (static_cast<long long>(rows) + bm - 1) / bm;
-  const long long cap = static_cast<long long>(sms) * occ_blocks;
-  const int grid = static_cast<int>(nslabs < cap ? nslabs : cap);
+  if (grid < 1 || grid > nslabs ||
+      grid > static_cast<long long>(sms) * inst.occ_blocks)
+    return cudaErrorInvalidConfiguration;
   const bool vec = (reinterpret_cast<uintptr_t>(x) & 15u) == 0 &&
-                   (static_cast<long long>(bm) * n) % 4 == 0;
-  kernel<<<grid, ROW_THREADS, static_cast<size_t>(ring), stream>>>(
+                   (reinterpret_cast<uintptr_t>(out) & 15u) == 0 &&
+                   n % 4 == 0;
+  kernel<<<grid, ROW_THREADS, static_cast<size_t>(dyn), stream>>>(
       x, b, out, denom_out, lut, rows, n, bm, c_add, c_mul, floor, vec);
   return cudaGetLastError();
 }
 
-template <int OP>
-cudaError_t launch_slabs_op(int depth, const float* x, const float* b,
-                            float* out, float* denom_out, const int32_t* lut,
-                            int rows, int n, int bm, float c_add, float c_mul,
-                            float floor, cudaStream_t st) {
-  switch (depth) {
-#define RAPID_SLAB_DEPTH(D)                                                   \
-  case D:                                                                     \
-    return launch_slabs_depth<OP, D>(x, b, out, denom_out, lut, rows, n, bm, \
-                                     c_add, c_mul, floor, st);
-    RAPID_SLAB_DEPTH(2)
-    RAPID_SLAB_DEPTH(3)
-    RAPID_SLAB_DEPTH(4)
-    RAPID_SLAB_DEPTH(5)
-    RAPID_SLAB_DEPTH(6)
-    RAPID_SLAB_DEPTH(7)
-    RAPID_SLAB_DEPTH(8)
-#undef RAPID_SLAB_DEPTH
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-int launch_slabs(int op, int depth, const float* x, const float* b,
-                 float* out, float* denom_out, const int32_t* lut, int rows,
-                 int n, int bm, float c_add, float c_mul, float floor,
-                 cudaStream_t stream) {
-  if (rows < 1 || n < 1) return cudaErrorInvalidValue;
-  switch (op) {
-    case 0:
-      return launch_slabs_op<0>(depth, x, b, out, denom_out, lut, rows, n,
-                                bm, c_add, c_mul, floor, stream);
-    case 1:
-      return launch_slabs_op<1>(depth, x, b, out, denom_out, lut, rows, n,
-                                bm, c_add, c_mul, floor, stream);
-    default:
-      return launch_slabs_op<2>(depth, x, b, out, denom_out, lut, rows, n,
-                                bm, c_add, c_mul, floor, stream);
-  }
-}
-
 }  // namespace
+
+// The shared memory one K8 block of (op, depth, warps) allocates over
+// slabs of bm rows of n -- static (as compiled) plus dynamic -- into
+// *bytes, for the check that kernels/spec.py::row_smem counts it.
+extern "C" int rapid_row_slab_smem(int op, int depth, int warps, int bm,
+                                   int n, long long* bytes) {
+  const SlabKernel kernel = slab_kernel(op, depth, warps, true);
+  if (!kernel || bm < 1 || n < 1) return cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  *bytes = static_cast<long long>(attr.sharedSizeBytes) +
+           slab_dynamic_bytes(depth, warps, bm, n);
+  return cudaSuccess;
+}

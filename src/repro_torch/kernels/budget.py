@@ -21,8 +21,14 @@ __all__ = [
     "MAX_DEPTH",
     "ROW_RING_BYTES",
     "ROW_WARPS",
+    "ROW_THREADS",
+    "ROW_WIDE_N",
+    "ROW_BLOCKS_PER_SM",
     "MAX_ROW_BM",
     "SMS",
+    "SMEM_PER_SM",
+    "SMEM_RESERVED_PER_BLOCK",
+    "SMEM_ALLOC_UNIT",
     "round_up",
     "check_smem",
 ]
@@ -36,6 +42,13 @@ SMS = 132
 
 # dynamic + static shared memory one block may use on an H100
 SMEM_PER_BLOCK = 232_448
+# shared memory of one SM (the largest carveout), what the runtime
+# reserves for each resident block, and the unit a block's shared memory
+# is allocated in: the blocks of B bytes one SM holds at once are
+# SMEM_PER_SM // (round_up(B, SMEM_ALLOC_UNIT) + SMEM_RESERVED_PER_BLOCK)
+SMEM_PER_SM = 233_472
+SMEM_RESERVED_PER_BLOCK = 1024
+SMEM_ALLOC_UNIT = 128
 # static (``__shared__``) shared memory a kernel may declare
 STATIC_SMEM_MAX = 48 * 1024
 
@@ -45,11 +58,17 @@ PIPELINE_BUFFERS = 2
 MAX_DEPTH = 8
 
 # K8: the input ring of one row-slab block (depth x bm rows) stays under
-# this many bytes, so two blocks fit on an SM; each block runs
-# ROW_WARPS warps, one row per warp at a time, and walks slabs of at
-# most MAX_ROW_BM rows
+# this many bytes where a slab holds more than one row, and a slab holds
+# at most MAX_ROW_BM rows.  A block runs ROW_WARPS warps: from
+# ROW_WIDE_N elements a row all of them share one row (one thread per
+# grouping lane), below it each warp takes a row of its own.  The
+# kernel's launch bounds promise ROW_BLOCKS_PER_SM resident blocks (at
+# most 64 registers a thread), the most a grid assumes an SM holds
 ROW_RING_BYTES = 96 * 1024
 ROW_WARPS = 4
+ROW_THREADS = ROW_WARPS * 32
+ROW_WIDE_N = 512
+ROW_BLOCKS_PER_SM = 8
 MAX_ROW_BM = 32
 
 

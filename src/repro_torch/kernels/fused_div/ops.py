@@ -21,8 +21,10 @@ trailing dim 1) goes to :func:`div_rowbcast` (K5), any other broadcast to
 
 ``spec`` (:class:`repro_torch.kernels.spec.KernelSpec`) of K2/K3/K5 sets
 the stage count and the rows per slab, resolved by ``resolve_spec``
-(default: 2 slabs in flight); it moves no bits.  The plan is checked
-against the card's shared memory on either route.  K6 has no stage
+(default: 2 slabs in flight); it moves no bits.  The rest of K8's
+geometry (warps on a row, the grid) comes from ``row_geometry`` and
+goes to the kernel with it.  The plan is checked against the card's
+shared memory on either route.  K6 has no stage
 count (nor has the reference's ``div_pallas``).
 
 ``return_denom=True`` also returns the per-row denominators ``[..., 1]``
@@ -44,7 +46,8 @@ from repro_torch.kernels import _build, budget
 from repro_torch.kernels._launch import (count_launch, on_cuda, ptr, require,
                                          stream)
 from repro_torch.kernels.fused_div import ref
-from repro_torch.kernels.spec import KernelSpec, resolve_spec, row_smem
+from repro_torch.kernels.spec import (KernelSpec, RowGeometry, resolve_spec,
+                                      row_geometry)
 
 __all__ = ["fused_rms_div", "fused_softmax_div", "fused_elementwise_div",
            "div_rowbcast", "div_elementwise", "rms_div_plain",
@@ -78,15 +81,19 @@ def softmax_div_plain(e, scheme: Optional[str], *,
 
 
 def _row_plan(family: str, x: torch.Tensor, spec: Optional[KernelSpec]):
-    """The resolved spec of a row divider over ``x``'s last dim, checked
-    against the card's shared memory."""
+    """The resolved spec of a row divider over ``x``'s last dim and its
+    geometry (``kernels/spec.py``), checked against the card's shared
+    memory."""
     n = x.shape[-1]
-    ks = resolve_spec(family, (x.numel() // max(n, 1), n), spec)
-    budget.check_smem(row_smem(ks.bm, n, ks.depth), family)
-    return ks
+    rows = x.numel() // max(n, 1)
+    ks = resolve_spec(family, (rows, n), spec)
+    geom = row_geometry(family, rows, n, ks.depth, ks.bm)
+    budget.check_smem(geom.smem, family)
+    return ks, geom
 
 
-def _launch_rows(x, scheme, name, ks: KernelSpec, *consts):
+def _launch_rows(x, scheme, name, ks: KernelSpec, geom: RowGeometry,
+                 *consts):
     require(x, "x", torch.float32)
     n = x.shape[-1]
     if x.numel() == 0:
@@ -96,10 +103,11 @@ def _launch_rows(x, scheme, name, ks: KernelSpec, *consts):
                         device=x.device)
     lut = fa.div_lut_device(scheme, x.device) if scheme is not None else None
     fn = _build.function("fused_div", f"rapid_{name}",
-                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                          + [ctypes.c_float] * len(consts) + [ctypes.c_void_p])
     err = fn(ptr(x), ptr(out), ptr(denom), ptr(lut), x.numel() // n, n,
-             ks.depth, ks.bm, *consts, stream(x.device))
+             ks.depth, geom.bm, geom.warps, geom.grid, *consts,
+             stream(x.device))
     _build.check(err, name)
     return out, denom
 
@@ -108,10 +116,10 @@ def fused_rms_div(x: torch.Tensor, eps: float, scheme: Optional[str], *,
                   return_denom: bool = False,
                   spec: Optional[KernelSpec] = None):
     """Row-wise rms normalize over the last dim, f32 in/out."""
-    ks = _row_plan("fused_rms", x, spec)
+    ks, geom = _row_plan("fused_rms", x, spec)
     if not on_cuda(x):
         return rms_div_plain(x, eps, scheme, return_denom=return_denom)
-    out, denom = _launch_rows(x, scheme, "rms_div", ks,
+    out, denom = _launch_rows(x, scheme, "rms_div", ks, geom,
                               *ref.rms_consts(x.shape[-1], eps))
     count_launch(fused_rms_div, ks.depth)
     return (out, denom) if return_denom else out
@@ -122,11 +130,12 @@ def fused_softmax_div(e: torch.Tensor, scheme: Optional[str], *,
                       return_denom: bool = False,
                       spec: Optional[KernelSpec] = None):
     """Row-wise softmax combine over the last dim, f32 in/out."""
-    ks = _row_plan("fused_softmax", e, spec)
+    ks, geom = _row_plan("fused_softmax", e, spec)
     if not on_cuda(e):
         return softmax_div_plain(e, scheme, floor=floor,
                                  return_denom=return_denom)
-    out, denom = _launch_rows(e, scheme, "softmax_div", ks, float(floor))
+    out, denom = _launch_rows(e, scheme, "softmax_div", ks, geom,
+                              float(floor))
     count_launch(fused_softmax_div, ks.depth)
     return (out, denom) if return_denom else out
 
@@ -145,7 +154,7 @@ def div_plain(a, b, scheme: str):
 def div_rowbcast(a: torch.Tensor, b: torch.Tensor, scheme: str, *,
                  spec: Optional[KernelSpec] = None):
     """RAPID ``a [M, N] / b [M]``, one denominator per row; f32 in/out."""
-    ks = _row_plan("fused_div_rowbcast", a, spec)
+    ks, geom = _row_plan("fused_div_rowbcast", a, spec)
     if not on_cuda(a, b):
         return div_rowbcast_plain(a, b, scheme)
     require(a, "a", torch.float32)
@@ -155,14 +164,20 @@ def div_rowbcast(a: torch.Tensor, b: torch.Tensor, scheme: str, *,
     if not 0 < a.numel() <= _MAX_ELEMENTS:
         raise ValueError(f"div_rowbcast: {a.numel()} elements, expected "
                          f"1..{_MAX_ELEMENTS}")
+    out = _launch_rowbcast(a, b, scheme, ks, geom)
+    count_launch(div_rowbcast, ks.depth)
+    return out
+
+
+def _launch_rowbcast(a, b, scheme, ks: KernelSpec, geom: RowGeometry):
     out = torch.empty_like(a)
     fn = _build.function("fused_div", "rapid_div_rowbcast",
-                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                          + [ctypes.c_void_p])
     err = fn(ptr(a), ptr(b), ptr(out), ptr(fa.div_lut_device(scheme, a.device)),
-             a.shape[0], a.shape[1], ks.depth, ks.bm, stream(a.device))
+             a.shape[0], a.shape[1], ks.depth, geom.bm, geom.warps,
+             geom.grid, stream(a.device))
     _build.check(err, "div_rowbcast")
-    count_launch(div_rowbcast, ks.depth)
     return out
 
 

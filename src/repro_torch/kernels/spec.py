@@ -33,6 +33,14 @@ the shared-memory check (:func:`matmul_smem`) always checks the
 instance the card runs.  An explicit ``bm`` / ``bn`` / ``bk`` must name
 that geometry.
 
+K8's geometry is decided here and only here (:func:`row_geometry`): the
+rows per slab, the warps on one row and the grid, from the blocks an SM
+is assumed to hold.  The wrapper passes the three to
+``csrc/fused_div.cu``, which launches that grid and refuses a warp count
+it did not compile for the op and a grid past the slabs or past what the
+card holds at once, so :func:`row_smem` and the shared-memory check
+count the block the card runs.
+
 K4's geometry is decided here too (:func:`flash_geometry`): ``bk`` is
 the cache chunk of its online softmax and ``bn`` the segment, the cache
 slots one block folds before the segments are combined.  Both the
@@ -44,7 +52,8 @@ from __future__ import annotations
 
 from contextlib import contextmanager
 from dataclasses import dataclass, field, replace
-from typing import Optional, Sequence, Tuple
+from functools import lru_cache
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 from repro_torch.kernels import budget
 
@@ -59,6 +68,8 @@ __all__ = [
     "matmul_geometry",
     "matmul_smem",
     "row_smem",
+    "RowGeometry",
+    "row_geometry",
     "MATMUL_DEPTHS",
     "deferred_depth",
     "FLASH_CHUNK",
@@ -252,30 +263,119 @@ def matmul_smem(regime: str, bm: int, bn: int, bk: int, depth: int) -> int:
     return static + ring
 
 
-def row_smem(bm: int, n: int, depth: int) -> int:
-    """Shared memory of one row-divider block: the LUT, plus at depth
-    >= 2 the ring of ``depth`` input slabs of ``bm`` rows of ``n``."""
-    return 4 * 256 + (depth * bm * n * budget.ELEM_BYTES if depth > 1 else 0)
+def row_smem(bm: int, n: int, depth: int, warps: int = 1) -> int:
+    """Shared memory of one row-divider block, as the kernel allocates
+    it: the LUT (static), and at depth 1 K2/K3's fold of LANE partial
+    sums (``warps`` = ROW_WARPS; K5 has none); at depth >= 2 (K8),
+    dynamic: two fold buffers of LANE partial sums where ROW_WARPS warps
+    share a row, then the ring of ``depth`` slabs of ``bm`` rows of
+    ``n``, and for the row broadcast (``warps`` 0) the ring of each
+    slab's ``bm`` denominators."""
+    lut = 4 * 256
+    fold = budget.LANE * budget.ELEM_BYTES if warps == budget.ROW_WARPS else 0
+    if depth == 1:
+        return lut + fold
+    denoms = depth * bm * budget.ELEM_BYTES if warps == 0 else 0
+    return lut + 2 * fold + depth * bm * n * budget.ELEM_BYTES + denoms
 
 
 def _row_depth(n: int) -> int:
     """The deferred depth of a row divider: PIPELINE_BUFFERS, less where
     even one-row slabs at that depth would not fit one block."""
     depth = budget.PIPELINE_BUFFERS
-    while depth > 1 and row_smem(1, n, depth) > budget.SMEM_PER_BLOCK:
+    while depth > 1 and (row_smem(1, n, depth, budget.ROW_WARPS)
+                         > budget.SMEM_PER_BLOCK):
         depth -= 1
     return depth
 
 
-def _row_bm(n: int, depth: int) -> int:
-    """Rows per slab: as many as keep ``depth`` slabs inside
-    ROW_RING_BYTES (at least 1, at most MAX_ROW_BM), a multiple of the
-    block's ROW_WARPS warps where there are that many."""
-    rows = budget.ROW_RING_BYTES // max(1, depth * n * budget.ELEM_BYTES)
-    rows = max(1, min(budget.MAX_ROW_BM, rows))
-    if rows >= budget.ROW_WARPS:
-        rows -= rows % budget.ROW_WARPS
-    return rows
+class RowGeometry(NamedTuple):
+    """One row-divider call's geometry (:func:`row_geometry`)."""
+
+    #: rows per slab
+    bm: int
+    #: warps on one row: ROW_WARPS (one thread per grouping lane), 1 (a
+    #: warp per row), or 0 (the row broadcast's flat walk, where no warp
+    #: owns a row)
+    warps: int
+    #: blocks one SM is assumed to hold at once (K8; 0 at depth 1)
+    blocks_per_sm: int
+    #: blocks the kernel launches: the slabs, at most budget.SMS x
+    #: blocks_per_sm (the kernel refuses a grid its card cannot hold at
+    #: once; 0 at depth 1, where the kernels size their own grids)
+    grid: int
+    #: shared memory of one block (:func:`row_smem`)
+    smem: int
+
+
+_ROW_FAMILIES = ("fused_rms", "fused_softmax", "fused_div_rowbcast")
+
+
+def _blocks_per_sm(smem: int) -> int:
+    """Blocks of ``smem`` bytes one SM holds at once, at most the
+    kernel's launch bounds promise (0: not even one)."""
+    unit = (budget.round_up(smem, budget.SMEM_ALLOC_UNIT)
+            + budget.SMEM_RESERVED_PER_BLOCK)
+    return min(budget.ROW_BLOCKS_PER_SM, budget.SMEM_PER_SM // unit)
+
+
+@lru_cache(maxsize=1024)
+def row_geometry(family: str, rows: int, n: int, depth: int,
+                 bm: Optional[int] = None) -> RowGeometry:
+    """The geometry of a row divider over ``rows`` rows of ``n`` at
+    stage count ``depth``; ``bm``, where given, is kept.
+
+    At depth 1 K2/K3 run one block of ROW_WARPS warps a row and K5 one
+    thread an element (``bm`` 1).  At depth >= 2 (K8):
+
+    * warps on a row: rms / softmax rows from ROW_WIDE_N elements are
+      shared by ROW_WARPS warps, one thread per grouping lane, and so
+      are narrower ones where the rows, a block each, fit one wave (few
+      rows: latency bounds them, and four warps a row shorten each
+      row's chain of divides); otherwise a narrow row takes a warp; the
+      row broadcast walks its slab flat;
+    * rows per slab, at most MAX_ROW_BM and, past one row, within
+      ROW_RING_BYTES for ``depth`` slabs: the fewest that keep every
+      thread of a block busy (a wide row; a row a warp; 16 B a thread
+      of the flat walk) and let one wave of blocks -- budget.SMS x the
+      blocks an SM holds at that slab -- cover the rows; where none
+      does, the fewest that put the most rows in one wave;
+    * the grid: one block a slab up to that wave.  Only where the slabs
+      outnumber it does a block walk several, ``depth`` of them in
+      flight.
+    """
+    if family not in _ROW_FAMILIES:
+        raise KeyError(f"unknown row-divider family {family!r}; have "
+                       f"{_ROW_FAMILIES}")
+    rows = max(1, rows)
+    if family == "fused_div_rowbcast":
+        warps = 0
+    elif depth == 1 or n >= budget.ROW_WIDE_N or rows <= budget.SMS * \
+            _blocks_per_sm(row_smem(1, n, depth, budget.ROW_WARPS)):
+        warps = budget.ROW_WARPS
+    else:
+        warps = 1
+    if depth == 1:
+        bm = 1 if bm is None else bm
+        return RowGeometry(bm, warps, 0, 0, row_smem(bm, n, 1, warps))
+    if bm is None:
+        width = max(1, n)
+        cap = budget.ROW_RING_BYTES // (depth * width * budget.ELEM_BYTES)
+        cap = max(1, min(budget.MAX_ROW_BM, rows, cap))
+        least = {budget.ROW_WARPS: 1, 1: budget.ROW_WARPS,
+                 0: -(-4 * budget.ROW_THREADS // width)}[warps]
+        bm, most = min(cap, least), 0  # most: rows one wave holds at bm
+        for b in range(bm, cap + 1):
+            wave = budget.SMS * _blocks_per_sm(row_smem(b, n, depth, warps))
+            if wave * b >= rows:
+                bm = b
+                break
+            if wave * b > most:
+                bm, most = b, wave * b
+    smem = row_smem(bm, n, depth, warps)
+    per_sm = _blocks_per_sm(smem)
+    grid = min(-(-rows // bm), budget.SMS * max(1, per_sm))
+    return RowGeometry(bm, warps, per_sm, grid, smem)
 
 
 def resolve_spec(family: str, shapes: Sequence[int],
@@ -311,10 +411,12 @@ def resolve_spec(family: str, shapes: Sequence[int],
             raise ValueError(f"log_matmul compiles depths {MATMUL_DEPTHS}; "
                              f"got {depth}")
     else:
-        _, n = (int(s) for s in shapes[:2])
+        rows, n = (int(s) for s in shapes[:2])
         depth = _row_depth(n) if depth is None else int(depth)
-        bm = _row_bm(n, depth) if ks.bm is None else int(ks.bm)
-        if bm < 1:
-            raise ValueError(f"{family}: rows per slab must be >= 1, got {bm}")
+        if ks.bm is not None and int(ks.bm) < 1:
+            raise ValueError(f"{family}: rows per slab must be >= 1, got "
+                             f"{ks.bm}")
+        bm = row_geometry(family, rows, n, depth,
+                          None if ks.bm is None else int(ks.bm)).bm
         bn, bk = ks.bn, ks.bk
     return replace(ks, bm=bm, bn=bn, bk=bk, pipeline=PipelineSpec(depth=depth))

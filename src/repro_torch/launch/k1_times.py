@@ -17,11 +17,10 @@ in flight; default: the checkout's own default) where the checkout's
 """
 from __future__ import annotations
 
-import argparse
 import json
-import subprocess
 import sys
-from pathlib import Path
+
+from kernel_timing import card_line, parse
 
 # rows of K1 on the serve paths: (site, M, K, N, activation, residual);
 # M = 4 is a decode step, 64 a continuous prefill tick, 512 the
@@ -32,25 +31,17 @@ SHAPES = [("wq", m, 2560, 2560, None, False) for m in (4, 64, 512)] + [
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]),
-                    help="directory holding the repro_torch package to time")
-    ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--depth", type=int, default=None,
-                    help="K blocks in flight (a checkout without stage "
-                         "counts takes only the default)")
-    args = ap.parse_args(argv)
-    sys.path.insert(0, str(Path(args.src).resolve()))
+    args = parse(__doc__, argv, reps=10, add=lambda ap: ap.add_argument(
+        "--depth", type=int, default=None,
+        help="K blocks in flight (a checkout without stage counts takes "
+             "only the default)"))
     import torch
 
     from repro_torch.device import resolve_device
     from repro_torch.kernels.log_matmul.ops import log_matmul
 
     dev = resolve_device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     kw = {}
     if args.depth is not None:
         from repro_torch.kernels.spec import KernelSpec, PipelineSpec

@@ -1,6 +1,7 @@
 """Time kernel K4 (``flash_decode_attn``) at the serve paths' shapes.
 
-    python src/repro_torch/launch/k4_times.py [--src DIR] [--bn SLOTS ...]
+    python src/repro_torch/launch/k4_times.py [--src DIR] [--reps N]
+        [--bn SLOTS ...]
 
 On a machine with a CUDA card: builds the kernels of the ``repro_torch``
 package found under ``--src`` (default: this checkout's ``src``) and
@@ -14,7 +15,7 @@ attention (8 kv heads of 4 queries, head_dim 80, 4 sequences):
 * ``window``: the full 4096-slot window, every slot live.
 
 Positions are an int32 device vector, so a call launches K4 alone.
-Device time per call by CUDA-graph replay of ``--calls`` launches (the
+Device time per call by CUDA-graph replay of CALLS launches (the
 wrapper's host path costs more than the kernel, so it is kept out), the
 mean of ``--reps`` replays; one JSON line per shape and segment length
 with the card's name.  ``--bn`` times the given segment lengths (cache
@@ -27,13 +28,13 @@ whose K4 takes a ``spec``.
 """
 from __future__ import annotations
 
-import argparse
 import json
-import subprocess
 import sys
-from pathlib import Path
+
+from kernel_timing import card_line, graph_ms, parse
 
 B, KV, G, HD, WINDOW = 4, 8, 4, 80, 4096
+CALLS = 100
 
 
 def shapes(torch, dev, g):
@@ -67,46 +68,17 @@ def shapes(torch, dev, g):
     return out
 
 
-def graph_ms(torch, fn, calls: int, reps: int) -> float:
-    """Device ms per call: ``calls`` calls captured in one CUDA graph,
-    replayed ``reps`` times after a warm replay."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        graph.replay()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / (calls * reps)
-
-
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]),
-                    help="directory holding the repro_torch package to time")
-    ap.add_argument("--bn", type=int, nargs="*", default=None,
-                    help="segment lengths to time (default: the spec's)")
-    ap.add_argument("--calls", type=int, default=100)
-    ap.add_argument("--reps", type=int, default=5)
-    args = ap.parse_args(argv)
-    sys.path.insert(0, str(Path(args.src).resolve()))
+    args = parse(__doc__, argv, reps=5, add=lambda ap: ap.add_argument(
+        "--bn", type=int, nargs="*", default=None,
+        help="segment lengths to time (default: the spec's)"))
     import torch
 
     from repro_torch.device import resolve_device
     from repro_torch.kernels.flash_attn.ops import flash_decode_attn
 
     dev = resolve_device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     cases = shapes(torch, dev, torch.Generator(device=dev).manual_seed(1234))
     for name, (qf, k, v, sp, pos) in cases.items():
         for bn in args.bn or [None]:
@@ -116,7 +88,7 @@ def main(argv=None) -> int:
                 kw["spec"] = KernelSpec(bn=bn)
             ms = graph_ms(torch, lambda: flash_decode_attn(
                 qf, k, v, sp, pos, WINDOW, "rapid9", **kw),
-                args.calls, args.reps)
+                CALLS, args.reps)
             print(json.dumps({"src": args.src, "card": card, "shape": name,
                               "C": k.shape[1], "bn": bn, "ms": ms}),
                   flush=True)

@@ -803,38 +803,147 @@ _ROW_CASES = [
     (33, 130, 3),       # n % 4 != 0: 4 B copies; bm = 3
     (512, 2560, None),  # the train path's ln1 / ln2 / final norm
     (5000, 12, 1),      # more slabs than blocks: each block walks several
+    # the paths' shapes: a decode step's norms, a continuous prefill
+    # tick's, prefill attention, the online-softmax combine of a 64-token
+    # chunk and of the long prefill, and the ragged softmax edge
+    (4, 2560, None), (64, 2560, None), (16384, 128, None), (2048, 80, None),
+    (266240, 80, None), (33, 130, None),
+    # where a warp a row meets four warps a row (past one wave of rows),
+    # and a narrow row under four warps (few rows)
+    (2000, 256, None), (2000, 512, None), (40, 256, None),
+    # more than 8 slabs a block at every op: one-row slabs past eight waves
+    (12000, 20, 1), (9000, 512, 1),
 ]
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["rapid9", None])
 @pytest.mark.parametrize("depth", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("rows,n,bm", _ROW_CASES)
-def test_cuda_row_dividers_depths_bit_exact(cuda, depth, rows, n, bm):
+def test_cuda_row_dividers_depths_bit_exact(cuda, depth, rows, n, bm,
+                                            scheme):
     """K2 / K3 / K5 at every depth against their plain versions on the
-    card, denominators included; special operands head every row set."""
+    card, denominators included, with the LUT divide and (rms, softmax:
+    K1's norm tail passes None on an exact divide) the IEEE one; special
+    operands head every row set, and at depth >= 2 each op also runs
+    from a start 4 B past a 16 B boundary (4 B copies, no 16 B
+    stores).  The row broadcast is RAPID only."""
     from repro_torch.kernels.spec import KernelSpec, PipelineSpec
     spec = KernelSpec(bm=bm, pipeline=PipelineSpec(depth=depth))
     rng = np.random.default_rng(rows + n + depth)
     x = T(randn(rng, rows, n, scale=2.0)).to(cuda)
     x.view(-1)[:18] = T(special_sample(rng, 18)).to(cuda)
-    got, den = fused_rms_div(x, 1e-6, "rapid9", return_denom=True, spec=spec)
-    ref, rden = rms_div_plain(x, 1e-6, "rapid9", return_denom=True)
+    got, den = fused_rms_div(x, 1e-6, scheme, return_denom=True, spec=spec)
+    ref, rden = rms_div_plain(x, 1e-6, scheme, return_denom=True)
     assert_same_bits(den.cpu().numpy(), rden.cpu().numpy())
     assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
     e = torch.exp(x.clamp(-30, 30))
     e.view(-1)[:18] = x.view(-1)[:18]
-    got, den = fused_softmax_div(e, "rapid9", return_denom=True, spec=spec)
-    ref, rden = softmax_div_plain(e, "rapid9", return_denom=True)
-    assert_same_bits(den.cpu().numpy(), rden.cpu().numpy())
-    assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
-    b = T(special_sample(rng, max(rows, 18))[:rows]).to(cuda)
-    got = div_rowbcast(x, b, "rapid9", spec=spec)
-    assert_same_bits(got.cpu().numpy(),
-                     div_rowbcast_plain(x, b, "rapid9").cpu().numpy())
+    got, den = fused_softmax_div(e, scheme, return_denom=True, spec=spec)
+    sref, sden = softmax_div_plain(e, scheme, return_denom=True)
+    assert_same_bits(den.cpu().numpy(), sden.cpu().numpy())
+    assert_same_bits(got.cpu().numpy(), sref.cpu().numpy())
+    if scheme is not None:
+        b = T(special_sample(rng, max(rows, 18))[:rows]).to(cuda)
+        got = div_rowbcast(x, b, scheme, spec=spec)
+        bref = div_rowbcast_plain(x, b, scheme)
+        assert_same_bits(got.cpu().numpy(), bref.cpu().numpy())
     if depth > 1:  # and from a start 4 B past a 16 B boundary
-        got = fused_rms_div(_misaligned(x), 1e-6, "rapid9", spec=spec)
-        assert_same_bits(got.cpu().numpy(),
-                         rms_div_plain(x, 1e-6, "rapid9").cpu().numpy())
+        got = fused_rms_div(_misaligned(x), 1e-6, scheme, spec=spec)
+        assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
+        got = fused_softmax_div(_misaligned(e), scheme, spec=spec)
+        assert_same_bits(got.cpu().numpy(), sref.cpu().numpy())
+        if scheme is not None:
+            got = div_rowbcast(_misaligned(x), b, scheme, spec=spec)
+            assert_same_bits(got.cpu().numpy(), bref.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_cuda_row_slabs_refuse_an_uncompiled_geometry(cuda):
+    """K8 launches the grid ``row_geometry`` plans and refuses, before a
+    launch, a warp count it did not compile for the op (rms / softmax 1
+    or 4 a row, the row broadcast's flat walk 0), an empty slab, an
+    empty grid, a grid past the slabs, and a grid past one wave the card
+    holds at once (33 blocks an SM are past any instance's occupancy);
+    a stage count outside 1-8 is refused before that, by the spec."""
+    from repro_torch.kernels.fused_div import ops
+    from repro_torch.kernels.spec import (KernelSpec, PipelineSpec,
+                                          RowGeometry, row_geometry)
+    x = torch.ones(64, 2560, device=cuda)
+    b = torch.ones(64, device=cuda)
+    good = row_geometry("fused_rms", 64, 2560, 2)
+    at = KernelSpec(bm=good.bm, pipeline=PipelineSpec(depth=2))
+    # the good geometry launches, through the same private launchers
+    ops._launch_rows(x, "rapid9", "rms_div", at, good, 0.0, 1.0)
+    ops._launch_rowbcast(x, b, "rapid9", at,
+                         row_geometry("fused_div_rowbcast", 64, 2560, 2))
+    for warps, grid, bm in ((2, 1, 1), (0, 1, 1), (8, 1, 1), (4, 0, 1),
+                            (4, 65, 1), (1, 33, 2), (4, 1, 0)):
+        geom = RowGeometry(bm, warps, 1, grid, 0)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ops._launch_rows(x, "rapid9", "rms_div", at, geom, 0.0, 1.0)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ops._launch_rows(x, "rapid9", "softmax_div", at, geom, 1e-20)
+    for warps, grid in ((1, 1), (4, 1), (0, 0), (0, 65)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ops._launch_rowbcast(x, b, "rapid9", at,
+                                 RowGeometry(1, warps, 1, grid, 0))
+    many = torch.ones(132 * 33 + 1, 128, device=cuda)
+    for warps in (1, 4):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ops._launch_rows(many, "rapid9", "softmax_div", at,
+                             RowGeometry(1, warps, 1, 132 * 33, 0), 1e-20)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops._launch_rowbcast(many, many[:, 0].contiguous(), "rapid9", at,
+                             RowGeometry(1, 0, 1, 132 * 33, 0))
+    with pytest.raises(ValueError, match="outside"):  # before any launch
+        PipelineSpec(depth=9)
+
+
+@pytest.mark.gpu
+def test_cuda_row_smem_is_the_kernels(cuda):
+    """``row_smem`` counts what each K8 instance allocates: its static
+    shared memory as compiled plus the dynamic bytes it launches with."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.spec import row_geometry, row_smem
+    fn = _build.function("fused_div", "rapid_row_slab_smem",
+                         [ctypes.c_int] * 5
+                         + [ctypes.POINTER(ctypes.c_longlong)])
+    got = ctypes.c_longlong()
+    for op, family in enumerate(("fused_rms", "fused_softmax",
+                                 "fused_div_rowbcast")):
+        for depth in range(2, 9):
+            for rows, n in ((4, 2560), (16384, 128), (2048, 80), (33, 130)):
+                g = row_geometry(family, rows, n, depth)
+                assert fn(op, depth, g.warps, g.bm, n,
+                          ctypes.byref(got)) == 0
+                assert got.value == row_smem(g.bm, n, depth, g.warps) \
+                    == g.smem
+    assert fn(2, 2, 4, 1, 80, ctypes.byref(got)) != 0  # not compiled
+
+
+@pytest.mark.gpu
+def test_cuda_row_dividers_launch_once_a_call(cuda):
+    """One K8 launch a call at the paths' shapes, counted by depth."""
+    from repro_torch.kernels import (launch_counts_by_depth,
+                                     reset_launch_counts)
+    from repro_torch.kernels.spec import KernelSpec, PipelineSpec
+    reset_launch_counts()
+    for depth in (2, 3):
+        spec = KernelSpec(pipeline=PipelineSpec(depth=depth))
+        for rows in (1, 4, 64, 512):
+            fused_rms_div(torch.ones(rows, 2560, device=cuda), 1e-6,
+                          "rapid9", spec=spec)
+        fused_softmax_div(torch.ones(16384, 128, device=cuda), "rapid9",
+                          spec=spec)
+        div_rowbcast(torch.ones(2048, 80, device=cuda),
+                     torch.ones(2048, device=cuda), "rapid9", spec=spec)
+    counts = launch_counts_by_depth()
+    assert counts["rms_div"] == {2: 4, 3: 4}
+    assert counts["softmax_div"] == {2: 1, 3: 1}
+    assert counts["div_rowbcast"] == {2: 1, 3: 1}
 
 
 @pytest.mark.gpu

@@ -39,7 +39,7 @@ from repro_torch.kernels.log_matmul.ops import log_matmul  # noqa: E402
 from repro_torch.kernels.spec import (KernelSpec, PipelineSpec,  # noqa: E402
                                       as_kernel_spec, matmul_geometry,
                                       matmul_regime, matmul_smem,
-                                      resolve_spec, row_smem)
+                                      resolve_spec, row_geometry, row_smem)
 
 T = torch.from_numpy
 _JDEPTH1 = JKernelSpec(pipeline=JPipelineSpec(depth=1))
@@ -124,15 +124,152 @@ def test_resolve_rejects_what_the_card_does_not_compile():
         resolve_spec("fused_rms", (4, 80), KernelSpec(bm=0))
 
 
+def _wave_rows(family, rows, n, depth, bm):
+    """Rows one wave of K8 blocks holds at ``bm`` rows a slab."""
+    g = row_geometry(family, rows, n, depth, bm)
+    return budget.SMS * g.blocks_per_sm * bm
+
+
 @pytest.mark.parametrize("n", [12, 128, 1000, 2560, 8192])
 @pytest.mark.parametrize("depth", [2, 3, 4, 8])
 def test_row_slabs_fit_the_ring(n, depth):
-    ks = resolve_spec("fused_rms", (4096, n), _d(depth))
-    assert 1 <= ks.bm <= budget.MAX_ROW_BM
+    """K8's rows per slab at 4096 rows: at most MAX_ROW_BM and, past one
+    row, within ROW_RING_BYTES for ``depth`` slabs; every warp of a block
+    has a row (a warp a row below ROW_WIDE_N, the four warps on one row
+    from it); and the fewest that let one wave cover the rows, or, where
+    none does, the fewest that put the most rows in one wave."""
+    rows = 4096
+    ks = resolve_spec("fused_rms", (rows, n), _d(depth))
+    geom = row_geometry("fused_rms", rows, n, depth)
+    assert ks.bm == geom.bm and 1 <= ks.bm <= budget.MAX_ROW_BM
     ring = depth * ks.bm * n * 4
     assert ks.bm == 1 or ring <= budget.ROW_RING_BYTES
-    if ks.bm >= budget.ROW_WARPS:
-        assert ks.bm % budget.ROW_WARPS == 0
+    cap = max(1, min(budget.MAX_ROW_BM,
+                     budget.ROW_RING_BYTES // (depth * n * 4)))
+    if n >= budget.ROW_WIDE_N:
+        assert geom.warps == budget.ROW_WARPS
+    else:
+        assert geom.warps == 1 and ks.bm >= min(cap, budget.ROW_WARPS)
+    held = {b: _wave_rows("fused_rms", rows, n, depth, b)
+            for b in range(1, cap + 1)}
+    if held[ks.bm] >= rows:  # one wave: the fewest rows a slab that do it
+        assert all(held[b] < rows for b in held
+                   if b < ks.bm and (b >= budget.ROW_WARPS or n >= 512))
+    else:  # blocks walk slabs: no slab size holds the rows in one wave
+        assert max(held.values()) == held[ks.bm] < rows
+        assert geom.grid < -(-rows // ks.bm)
+
+
+# K8's geometry where the paths launch it: (family, rows, n) -> (rows a
+# slab, warps a row, blocks) at depths 2 and 3
+_PATH_GEOMETRY = [
+    ("fused_rms", 1, 2560, (1, 4, 1)),        # one row
+    ("fused_rms", 4, 2560, (1, 4, 4)),        # a decode step's norms
+    ("fused_rms", 64, 2560, (1, 4, 64)),      # a continuous prefill tick
+    ("fused_rms", 512, 2560, (1, 4, 512)),    # lockstep prefill, train
+    ("fused_softmax", 16384, 128, (16, 1, 1024)),  # prefill attention
+    ("fused_softmax", 33, 130, (1, 4, 33)),   # a ragged edge: few rows
+    ("fused_div_rowbcast", 2048, 80, (7, 0, 293)),     # a 64-token chunk
+    ("fused_div_rowbcast", 266240, 80, None),  # long prefill: blocks walk
+]
+
+
+@pytest.mark.parametrize("family,rows,n,want", _PATH_GEOMETRY)
+@pytest.mark.parametrize("depth", [2, 3])
+def test_row_geometry_at_the_path_shapes(family, rows, n, want, depth):
+    """The grid covers the card where the rows allow: 4 wide rows are 4
+    blocks, 64 are 64, 512 fill more than one block an SM; a slab is one
+    wide row, a row a warp of the narrow ones, 16 B a thread of the flat
+    walk; only the long prefill's slabs outnumber a wave."""
+    geom = row_geometry(family, rows, n, depth)
+    if want is None:
+        assert geom.warps == 0 and geom.bm >= 16
+        assert geom.grid == budget.SMS * geom.blocks_per_sm
+        assert -(-rows // geom.bm) > depth * geom.grid
+    else:
+        assert (geom.bm, geom.warps, geom.grid) == want
+    assert resolve_spec(family, (rows, n), _d(depth)).bm == geom.bm
+
+
+@pytest.mark.parametrize("rows", [1, 4, 64, 512, 16384])
+@pytest.mark.parametrize("n", [80, 128, 130, 2560, 6912])
+def test_row_geometry_rule(rows, n):
+    """For each op at depths 2 and 3: the warps a row, the grid (the
+    slabs, at most one wave of the blocks an SM holds at that shared
+    memory), the block's shared memory within the card's, and a block
+    walking several slabs only where no slab size holds the rows in one
+    wave."""
+    for family in ("fused_rms", "fused_softmax", "fused_div_rowbcast"):
+        for depth in (2, 3):
+            g = row_geometry(family, rows, n, depth)
+            if family == "fused_div_rowbcast":
+                assert g.warps == 0
+            else:  # four warps a row where wide, or where a wave holds
+                # the rows at one block each
+                one = row_smem(1, n, depth, budget.ROW_WARPS)
+                wave = budget.SMS * min(
+                    budget.ROW_BLOCKS_PER_SM, budget.SMEM_PER_SM
+                    // (budget.round_up(one, 128) + 1024))
+                wide = n >= budget.ROW_WIDE_N or rows <= wave
+                assert g.warps == (budget.ROW_WARPS if wide else 1)
+            assert 1 <= g.bm <= min(rows, budget.MAX_ROW_BM)
+            assert g.smem == row_smem(g.bm, n, depth, g.warps)
+            assert g.smem <= budget.SMEM_PER_BLOCK
+            unit = budget.round_up(g.smem, 128) + 1024
+            assert 1 <= g.blocks_per_sm <= budget.ROW_BLOCKS_PER_SM
+            assert g.blocks_per_sm * unit <= budget.SMEM_PER_SM
+            assert (g.blocks_per_sm == budget.ROW_BLOCKS_PER_SM
+                    or (g.blocks_per_sm + 1) * unit > budget.SMEM_PER_SM)
+            slabs = -(-rows // g.bm)
+            assert g.grid == min(slabs, budget.SMS * g.blocks_per_sm)
+            if g.warps == budget.ROW_WARPS and rows <= budget.SMS:
+                assert g.grid == rows  # a block a wide row
+            if slabs > g.grid:
+                cap = max(1, min(budget.MAX_ROW_BM, rows,
+                                 budget.ROW_RING_BYTES // (depth * n * 4)))
+                assert all(_wave_rows(family, rows, n, depth, b) < rows
+                           for b in range(1, cap + 1))
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("warps", [0, 1, 4])
+def test_row_smem_counts_what_the_kernel_allocates(depth, warps):
+    """``row_smem`` is csrc/fused_div.cu's allocation: the 1 KB LUT
+    (static); at depth 1 K2/K3's fold of 128 partials (a block of four
+    warps a row; K5 has none); at depth >= 2 (K8, dynamic) two fold
+    buffers where the four warps share a row, then the ring of ``depth``
+    slabs, and the row broadcast's ring of ``depth`` x ``bm``
+    denominators.  The card test ``test_cuda_row_smem_is_the_kernels``
+    holds the kernel's own figure to it."""
+    for bm, n in ((1, 2560), (16, 128), (7, 80), (3, 130)):
+        if depth == 1:
+            want = 1024 + (512 if warps == 4 else 0)
+        else:
+            want = (1024 + (1024 if warps == 4 else 0) + depth * bm * n * 4
+                    + (depth * bm * 4 if warps == 0 else 0))
+        assert row_smem(bm, n, depth, warps) == want
+    for rows, n in ((4, 2560), (512, 2560), (16384, 128), (266240, 80),
+                    (64, 6912)):
+        for family in ("fused_rms", "fused_softmax", "fused_div_rowbcast"):
+            g = row_geometry(family, rows, n, depth)
+            if depth > 1 and (g.warps == 0) != (warps == 0):
+                continue
+            budget.check_smem(g.smem, family)
+
+
+def test_row_geometry_keeps_an_explicit_bm():
+    for family in ("fused_rms", "fused_softmax", "fused_div_rowbcast"):
+        g = row_geometry(family, 1000, 2560, 3, 5)
+        assert g.bm == 5
+        assert g.smem == row_smem(5, 2560, 3, g.warps)
+        assert g.grid == min(200, budget.SMS * g.blocks_per_sm)
+        ks = resolve_spec(family, (1000, 2560), _d(3, bm=5))
+        assert ks.bm == 5 and resolve_spec(family, (1000, 2560), ks) == ks
+        one = row_geometry(family, 12000, 20, 8, 1)
+        assert one.bm == 1 and one.grid == budget.SMS * one.blocks_per_sm
+        assert 12000 > 8 * one.grid  # each block walks more than 8 slabs
+    with pytest.raises(KeyError):
+        row_geometry("log_matmul", 4, 2560, 2)
 
 
 def test_deferred_row_depth_falls_back_where_two_slabs_do_not_fit():
@@ -244,6 +381,40 @@ def test_row_dividers_same_bits_at_every_depth(rows, n):
             first = got
         for a, r in zip(got, first):
             np.testing.assert_array_equal(bits(a), bits(r))
+
+
+@pytest.mark.parametrize("rows,n", [(4, 2560), (33, 130), (64, 80)])
+def test_row_dividers_plain_bits_at_every_depth_and_slab(rows, n):
+    """On the CPU neither the stage count nor the slab moves a bit: at
+    every depth 1-8, with the spec's slabs and with explicit ones, the
+    plain route gives the depth-1 quotients and denominators, and the
+    row broadcast the reference's depth-1 Pallas arm."""
+    rng = np.random.default_rng(rows + n)
+    x = randn(rng, rows, n, scale=3.0)
+    e = np.exp(randn(rng, rows, n))
+    b = np.abs(randn(rng, rows)) + 0.5
+    rb_ref = np.asarray(jdiv(jnp.asarray(x), jnp.asarray(b[:, None]),
+                             "rapid9", spec=_JDEPTH1, interpret=True))
+    first = None
+    for d in (1, 2, 3, 4, 5, 6, 7, 8):
+        for bm in (None, 1, 3):
+            spec = _d(d, bm=bm)
+            if (row_geometry("fused_rms", rows, n, d, bm).smem
+                    > budget.SMEM_PER_BLOCK):  # refused on either route
+                with pytest.raises(ValueError, match="exceeds"):
+                    fused_rms_div(T(x), 1e-6, "rapid9", spec=spec)
+                continue
+            got = (*fused_rms_div(T(x), 1e-6, "rapid9", spec=spec,
+                                  return_denom=True),
+                   *fused_softmax_div(T(e), "rapid9", spec=spec,
+                                      return_denom=True),
+                   div_rowbcast(T(x), T(b), "rapid9", spec=spec))
+            got = [t.numpy() for t in got]
+            assert_same_bits(got[4], rb_ref)
+            if first is None:
+                first = got
+            for a, r in zip(got, first):
+                np.testing.assert_array_equal(bits(a), bits(r))
 
 
 @pytest.mark.parametrize("rows,c,bn", [
