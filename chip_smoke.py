@@ -84,8 +84,11 @@ path and blocks that take the full one (a zero, a subnormal, an inf,
 on the proof's own bounds and one step outside them.  Beside the row
 dividers it times library yardsticks the port never calls (torch's f32
 ``rms_norm`` at the rms rows, ``a / b[:, None]`` at the row-broadcast
-rows; exact divides, no RAPID one) and the card's launch floor, one
-graph-replayed one-element torch op (information).
+rows, ``a / b`` beside K6, int32 ``a * b`` and ``a // b`` beside K9 /
+K10; exact arithmetic, no RAPID) and the card's launch floor, one
+graph-replayed one-element torch op (information).  K2 / K3 also run at
+4 x 40 000, where the deferred depth falls back to 1 and the kernel
+streams the rounds past those a thread holds.
 
 It exits non-zero, printing no result, when no CUDA card is present or
 when it is run outside a checkout of the repository.  Its last line is
@@ -579,6 +582,35 @@ def kernel_phase(torch, dev, timer):
                    FP32_FLOPS_PER_S / 2,
                    {"call_ms": timer(k3, 20), "depth": depth})
 
+    # K2 / K3 where two slabs do not fit one block, so the deferred depth
+    # falls back to 1: 4 rows of 40 000, whose rounds past the 32 a thread
+    # holds are streamed; depth 1 only, bit-equal, denominators included
+    x = randn(4, 40_000, std=3.0)
+    wide = (("rms", x,
+             lambda t, **kw: fused_rms_div(t, 1e-6, "rapid9", **kw),
+             lambda t, **kw: rms_div_plain(t, 1e-6, "rapid9", **kw)),
+            ("softmax", x.abs(),
+             lambda t, **kw: fused_softmax_div(t, "rapid9", **kw),
+             lambda t, **kw: softmax_div_plain(t, "rapid9", **kw)))
+    for op, t, fn, plain in wide:
+        ref, rden = plain(t, return_denom=True)
+        got, den = fn(t, return_denom=True, spec=at(1))
+        torch.cuda.synchronize()
+        ulps = max(ulp_max(got, ref), ulp_max(den, rden))
+        k = lambda: fn(t, spec=at(1))  # noqa: E731
+        lib = {}
+        if op == "rms":
+            lib = {"library_ms": timer.graph(
+                       lambda: rms_norm(t, (t.shape[1],), eps=1e-6), 100),
+                   "library": "torch.nn.functional.rms_norm, f32 (exact "
+                              "divide, no RAPID; never called by the port)"}
+        record(f"{op}_div", f"{op} rows=4 n=40000 depth=1 (streamed)",
+               abs_max(got, ref), ulps, ulps == 0, timer.graph(k, 100),
+               timer(lambda: plain(t), 3), 4 * 2 * t.numel(),
+               t.numel() * (2 if op == "rms" else 1), FP32_FLOPS_PER_S / 2,
+               {"call_ms": timer(k, 20), "depth": 1, **lib})
+    del x, t, got, ref
+
     # K4 at the paths' shapes (and the full window), with the geometry of
     # kernels/spec.py; tolerance: bit-equal (the plain version takes the
     # kernel's steps in its order).  Positions are an int32 device vector,
@@ -714,7 +746,10 @@ def kernel_phase(torch, dev, timer):
            0 if ok else -1, ok, timer.graph(k6, 50),
            timer(lambda: div_plain(a, b, "rapid9"), 3),
            4 * 3 * a.numel(), 3 * a.numel(), INT32_OPS_PER_S,
-           {"call_ms": timer(k6, 20)})
+           {"call_ms": timer(k6, 20),
+            "library_ms": timer.graph(lambda: a / b, 50),
+            "library": "a / b, f32 (exact divide, no RAPID; never called "
+                       "by the port)"})
     del a, b, got, ref
     integer_and_batched_cases(torch, dev, timer, g, record, at)
     return cases
@@ -762,6 +797,15 @@ def integer_and_batched_cases(torch, dev, timer, g, record, at):
         err = float((got - ref).abs().max())
         k = lambda: fn(a, b, scheme, n_bits)  # noqa: E731
         m = a.numel()
+        lib = {}
+        if n is not None:  # int32 a * b / a // b, b = 0 lifted to 1
+            bnz = b.clamp(min=1)
+            exact = ((lambda: a * b) if name == "rapid_mul"
+                     else (lambda: a // bnz))
+            lib = {"library_ms": timer.graph(exact, 10),
+                   "library": ("int32 a * b" if name == "rapid_mul" else
+                               "int32 a // b (b = 0 lifted to 1)")
+                   + ", exact (no RAPID; never called by the port)"}
         record(name, f"pairs={m} {scheme} n_bits={n_bits}"
                + (" a<2^16" if name == "rapid_div" and n else "")
                + (" exhaustive 8-bit" if n is None else ""),
@@ -769,7 +813,7 @@ def integer_and_batched_cases(torch, dev, timer, g, record, at):
                timer.graph(k, 50 if n is None else 10),
                timer(lambda: plain(a, b, scheme, n_bits), 2),
                m * (4 + 4 + 8), m * INT32_OPS_PER_UNIT, INT32_OPS_PER_S,
-               {"call_ms": timer(k, 10)})
+               {"call_ms": timer(k, 10), **lib})
         del a, b, got, ref
 
     c = torch.randn((8, 8), generator=g, device=dev)

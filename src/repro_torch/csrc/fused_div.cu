@@ -6,24 +6,20 @@
 // rms_div_pallas (K2), softmax_div_pallas (K3), div_rowbcast_pallas (K5)
 // and div_pallas (K6), with their _rowwise_call plumbing, and, as the
 // stage count of K2 / K3 / K5, _rowwise_pipelined_call /
-// _rowwise_pipelined_kernel (K8; at the end of this file).
+// _rowwise_pipelined_kernel (K8).  K8 comes first below, K2 / K3 (depth
+// 1) after it: they share its device helpers.
 //
-// What bounds it on an H100: device memory.  Each row is read twice (once
-// for the denominator, once for the divide; the second read mostly hits
-// L1/L2) and written once, with a few int32 ops per element.
-//
-// Design: one CTA of LANE (128) threads per row.  Thread t sums elements
-// t, t + 128, ... in order, then the 128 partial sums fold by halving in
-// shared memory: exactly the grouping of the plain version
-// (repro_torch/kernels/fused_div/ref.py::lane_sum), so the denominator,
-// and with it every quotient, is bit-equal to the plain version.  The
-// rms denominator keeps the reference's canonical form
-// sqrt((ss + n*eps) * (1/n)) with both constants folded to f32 by the
-// caller; every op is an explicit round-to-nearest intrinsic.  The divide
-// is rapid::log_div_f32 (or an IEEE divide when no LUT is given).  An
-// optional output receives each row's denominator, so a check can hold
-// the quotients against the plain divide fed the kernel's own
-// denominator.
+// Every row sum takes the grouping of the plain version
+// (repro_torch/kernels/fused_div/ref.py::lane_sum): grouping lane t sums
+// elements t, t + 128, ... in order, then the 128 partial sums fold by
+// halving.  So each denominator, and with it every quotient, is
+// bit-equal to the plain version.  The rms denominator keeps the
+// reference's canonical form sqrt((ss + n*eps) * (1/n)) with both
+// constants folded to f32 by the caller; every op is an explicit
+// round-to-nearest intrinsic.  The divide is rapid::log_div_f32 (or an
+// IEEE divide when no LUT is given).  An optional output receives each
+// row's denominator, so a check can hold the quotients against the plain
+// divide fed the kernel's own denominator.
 #include <atomic>
 
 #include "rapid.cuh"
@@ -32,50 +28,15 @@ namespace {
 
 constexpr int LANE = rapid::LANE;
 
-template <bool RMS>
-__global__ void __launch_bounds__(LANE)
-row_div_kernel(const float* __restrict__ x, float* __restrict__ out,
-               float* __restrict__ denom_out, const int32_t* __restrict__ lut,
-               int n, float c_add, float c_mul, float floor) {
-  __shared__ int32_t s_lut[256];
-  __shared__ float red[LANE];
-  const int t = threadIdx.x;
-  const size_t row = blockIdx.x;
-  if (lut)
-    for (int i = t; i < 256; i += LANE) s_lut[i] = lut[i];
-  const float* xr = x + row * n;
-
-  float acc = 0.0f;
-  for (int j = t; j < n; j += LANE) {
-    const float v = xr[j];
-    acc = __fadd_rn(acc, RMS ? __fmul_rn(v, v) : v);
-  }
-  red[t] = acc;
-  __syncthreads();
-#pragma unroll
-  for (int h = LANE / 2; h > 0; h >>= 1) {
-    if (t < h) red[t] = __fadd_rn(red[t], red[t + h]);
-    __syncthreads();
-  }
-  const float s = red[0];
-  // softmax: max(sum, floor) with NaN propagating, as torch.maximum
-  const float d = RMS ? __fsqrt_rn(__fmul_rn(__fadd_rn(s, c_add), c_mul))
-                      : (s < floor ? floor : s);
-  if (denom_out && t == 0) denom_out[row] = d;
-
-  float* orow = out + row * n;
-  for (int j = t; j < n; j += LANE)
-    orow[j] = lut ? rapid::log_div_f32(xr[j], d, s_lut) : __fdiv_rn(xr[j], d);
-}
-
-}  // namespace
-
-namespace {
 cudaError_t launch_slabs(int op, int depth, int warps, int grid,
                          const float* x, const float* b, float* out,
                          float* denom_out, const int32_t* lut, int rows,
                          int n, int bm, float c_add, float c_mul, float floor,
                          cudaStream_t stream);
+cudaError_t launch_rows(int op, int warps, int grid, const float* x,
+                        float* out, float* denom_out, const int32_t* lut,
+                        int rows, int n, int bm, float c_add, float c_mul,
+                        float floor, cudaStream_t stream);
 
 // the card's SMs into *sms, read once per process (a failed read is
 // returned, and read again at the next call)
@@ -96,44 +57,37 @@ cudaError_t sm_count(int* sms) {
 }
 }  // namespace
 
-// depth 1: one block per row; depth >= 2: K8, slabs of bm rows, warps a
-// row and the grid from kernels/spec.py::row_geometry
+// depth 1: K2 / K3, rows held in registers; depth >= 2: K8, slabs of bm
+// rows.  Either way rows a slab, warps a row and the grid come from
+// kernels/spec.py::row_geometry.
 extern "C" int rapid_rms_div(const void* x, void* out, void* denom_out,
                              const void* lut, int rows, int n, int depth,
                              int bm, int warps, int grid,
                              float c_add, float c_mul, void* stream) {
+  const auto* xp = static_cast<const float*>(x);
+  auto* op = static_cast<float*>(out);
+  auto* dp = static_cast<float*>(denom_out);
+  const auto* lp = static_cast<const int32_t*>(lut);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (depth > 1)
-    return launch_slabs(0, depth, warps, grid,
-                        static_cast<const float*>(x), nullptr,
-                        static_cast<float*>(out),
-                        static_cast<float*>(denom_out),
-                        static_cast<const int32_t*>(lut), rows, n, bm, c_add,
-                        c_mul, 0.0f, st);
-  row_div_kernel<true><<<rows, LANE, 0, st>>>(
-      static_cast<const float*>(x), static_cast<float*>(out),
-      static_cast<float*>(denom_out), static_cast<const int32_t*>(lut), n,
-      c_add, c_mul, 0.0f);
-  return cudaGetLastError();
+  return depth > 1 ? launch_slabs(0, depth, warps, grid, xp, nullptr, op, dp,
+                                  lp, rows, n, bm, c_add, c_mul, 0.0f, st)
+                   : launch_rows(0, warps, grid, xp, op, dp, lp, rows, n, bm,
+                                 c_add, c_mul, 0.0f, st);
 }
 
 extern "C" int rapid_softmax_div(const void* e, void* out, void* denom_out,
                                  const void* lut, int rows, int n, int depth,
                                  int bm, int warps, int grid,
                                  float floor, void* stream) {
+  const auto* ep = static_cast<const float*>(e);
+  auto* op = static_cast<float*>(out);
+  auto* dp = static_cast<float*>(denom_out);
+  const auto* lp = static_cast<const int32_t*>(lut);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (depth > 1)
-    return launch_slabs(1, depth, warps, grid,
-                        static_cast<const float*>(e), nullptr,
-                        static_cast<float*>(out),
-                        static_cast<float*>(denom_out),
-                        static_cast<const int32_t*>(lut), rows, n, bm, 0.0f,
-                        0.0f, floor, st);
-  row_div_kernel<false><<<rows, LANE, 0, st>>>(
-      static_cast<const float*>(e), static_cast<float*>(out),
-      static_cast<float*>(denom_out), static_cast<const int32_t*>(lut), n,
-      0.0f, 0.0f, floor);
-  return cudaGetLastError();
+  return depth > 1 ? launch_slabs(1, depth, warps, grid, ep, nullptr, op, dp,
+                                  lp, rows, n, bm, 0.0f, 0.0f, floor, st)
+                   : launch_rows(1, warps, grid, ep, op, dp, lp, rows, n, bm,
+                                 0.0f, 0.0f, floor, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -145,11 +99,11 @@ extern "C" int rapid_softmax_div(const void* e, void* out, void* denom_out,
 //
 // Design: one thread per output element over the flat operand, in a
 // grid-stride loop sized to fill the card (8 CTAs of 256 threads per SM),
-// the 256-entry LUT staged in shared memory as in row_div_kernel.  K5
-// finds its row as i / n and reads the [rows] denominator vector, which
-// neighbouring threads share, so it is served from L1; the lane
-// broadcast that the TPU kernel did in VMEM costs nothing here.  K6 reads
-// a second full-size operand instead.  The divide is rapid::log_div_f32,
+// the 256-entry LUT staged in shared memory.  K5 finds its row as i / n
+// and reads the [rows] denominator vector, which neighbouring threads
+// share, so it is served from L1; the lane broadcast that the TPU kernel
+// did in VMEM costs nothing here.  K6 reads a second full-size operand
+// instead.  The divide is rapid::log_div_f32,
 // the function K2-K4 share, so every quotient is bit-equal to
 // float_approx.log_div_f32 on the same operands.
 namespace {
@@ -256,11 +210,10 @@ extern "C" int rapid_div(const void* a, const void* b, void* out,
 // * Wide rows (WARPS = ROW_WARPS: rms / softmax rows from ROW_WIDE_N
 //   elements, and narrower ones where the rows, a block each, fit one
 //   wave): the block's 128 threads share a row, thread t as grouping
-//   lane t, summing elements t, t+128, ... in order (row_div_kernel's
-//   sums); the steps h = 64 and h = 32 cross warps through one of two
-//   fold buffers in shared memory (the rows alternate, so one barrier a
-//   row), h = 16 .. 1 are shuffles, every warp folding the same
-//   partials.  The divides then take the row 16 B a thread.
+//   lane t, summing elements t, t+128, ... in order; the steps h = 64
+//   and h = 32 cross warps through one of two fold buffers in shared
+//   memory (the rows alternate, so one barrier a row), h = 16 .. 1 are
+//   shuffles, every warp folding the same partials.  The divides then take the row 16 B a thread.
 // * Narrow rows (WARPS = 1, where they outnumber a wave of blocks; fewer
 //   take the wide form): a warp a row; lane l holds grouping lanes
 //   l, l+32, l+64 and l+96, their four chains advanced side by side one
@@ -320,6 +273,18 @@ __device__ __forceinline__ float row_term(float v) {
   return OP == 0 ? __fmul_rn(v, v) : v;
 }
 
+// the 256-entry LUT into shared memory by cp.async, 16 B a copy where
+// it is 16 B aligned; the caller commits the group
+__device__ __forceinline__ void stage_lut(int32_t* s_lut, const int32_t* lut,
+                                          int tid) {
+  if ((reinterpret_cast<uintptr_t>(lut) & 15u) == 0) {
+    if (tid < 64) rapid::cp_async16(s_lut + 4 * tid, lut + 4 * tid, true);
+  } else {
+    for (int i = tid; i < 256; i += ROW_THREADS)
+      rapid::cp_async4(s_lut + i, lut + i, true);
+  }
+}
+
 // OP 0: rms, 1: softmax, 2: row broadcast; RAPID: the LUT divide (else
 // an IEEE one)
 template <int OP, int DEPTH, int WARPS, bool RAPID>
@@ -370,14 +335,8 @@ row_slab_kernel(const float* __restrict__ x, const float* __restrict__ b,
     }
   };
 
-  if constexpr (RAPID) {  // the LUT lands with slab 0, in its group
-    if ((reinterpret_cast<uintptr_t>(lut) & 15u) == 0) {
-      if (tid < 64) rapid::cp_async16(s_lut + 4 * tid, lut + 4 * tid, true);
-    } else {
-      for (int i = tid; i < 256; i += ROW_THREADS)
-        rapid::cp_async4(s_lut + i, lut + i, true);
-    }
-  }
+  // the LUT lands with slab 0, in its group
+  if constexpr (RAPID) stage_lut(s_lut, lut, tid);
   for (int i = 0; i < DEPTH - 1; ++i) {
     if (i < mine) issue(i);
     rapid::cp_async_commit();
@@ -569,17 +528,371 @@ cudaError_t launch_slabs(int op, int depth, int warps, int grid,
 
 }  // namespace
 
-// The shared memory one K8 block of (op, depth, warps) allocates over
-// slabs of bm rows of n -- static (as compiled) plus dynamic -- into
-// *bytes, for the check that kernels/spec.py::row_smem counts it.
+// ---------------------------------------------------------------------------
+// K2 / K3 at depth 1: the rms normalize and the softmax combine, each row
+// read once onto the chip.
+//
+// Replaces rms_div_pallas (K2) and softmax_div_pallas (K3) of
+// src/repro/kernels/fused_div/fused_div.py at their own default, depth 1
+// (_rowwise_call: whole rows in VMEM, each read once).
+//
+// What bounds it on an H100: device memory where the rows are many (each
+// row read once and written once); at the few rows of a decode step,
+// latency: a row's loads, its chain of adds, the fold and the divides.
+//
+// Design: blocks of ROW_WARPS warps; the geometry, grid included, comes
+// from kernels/spec.py::row_geometry (depth 1), and a warp count this
+// file did not compile, an empty slab, or a grid past the slabs or past
+// one wave the card holds at once, is refused before the launch.  Block
+// g walks slabs of bm rows g, g + gridDim.x, ... with none in flight
+// ahead (that is depth 1), so the LUT is staged once a block, by
+// cp.async issued before the first row's loads and waited for with
+// them: it costs no round trip of its own.  Each row is read once onto
+// the chip, every load of it in flight before its first add, and both
+// the sum and the divides read that copy.  The fold and the divide are
+// K8's (row_term, warp_fold, row_denom, row_quotient), the divide (LUT
+// or IEEE) a template parameter.
+// * Four warps a row (rows from ROW_WIDE_N elements, and narrower ones
+//   where the rows, a block each, fit one wave): the row's first
+//   ROUNDS x LANE elements are copied into shared memory by cp.async,
+//   16 B a copy where rows are 16 B aligned and n % 4 == 0, the padding
+//   to the next LANE zero-filled; thread t, as grouping lane t, sums
+//   elements t, t+128, ... there; the steps h = 64 and h = 32 cross
+//   warps through one of two fold buffers (the rows alternate, and so
+//   do two row buffers: two barriers a row), h = 16 .. 1 are shuffles;
+//   the divides take the row 16 B a thread where it was copied so.
+// * One warp a row (narrow rows past that wave): the row goes straight
+//   into registers; lane l holds grouping lanes l, l+32, l+64 and l+96
+//   of each of ROUNDS rounds, and a warp holds WARP_HOLD / (4 x ROUNDS)
+//   rows at once (four rows of 128), so a block keeps a slab of up to
+//   16 rows in flight; h = 64 and h = 32 are adds in registers,
+//   h = 16 .. 1 shuffles.  Its one barrier is the LUT's.
+// * Rounds past the held ones (rows wider than kernels/spec.py's
+//   ROW_HOLD_N, under four warps): streamed, read for the sum and again,
+//   mostly from L2, for the divides.
+// The 16 B path and the streamed one are template parameters too, so a
+// launch fetches only the instructions its rows run: with a block an SM
+// running one row, every instruction fetched is on the critical path.
+// Each chain starts at -0 (-0 + v is v for every v) and adds the row's
+// zero padding, as lane_sum does on the padded row, so every
+// denominator, -0 and NaN included, is lane_sum's.
+namespace {
+
+// rounds of LANE the four-warp form holds in shared memory
+// (kernels/budget.py ROW_HOLD_ROUNDS), and the blocks an SM must hold at
+// once (ROW_HOLD_BLOCKS_PER_SM: its two row buffers take 32 KB)
+constexpr int ROW_HOLD_ROUNDS = 32;
+constexpr int ROW_HOLD_BLOCKS_PER_SM = 4;
+// values a lane of the one-warp form holds: its rows x rounds x 4
+// (kernels/budget.py WARP_HOLD)
+constexpr int WARP_HOLD = 16;
+
+// *p = v where pred, as one predicated store: v is computed whether pred
+// holds or not, so a group's divides stay side by side and do not wait
+// behind one branch each
+__device__ __forceinline__ void store_if(float* p, float v, bool pred) {
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.b32 q, %2, 0;\n @q st.global.f32 [%0], "
+      "%1;\n}\n" ::"l"(p), "f"(v), "r"(static_cast<int>(pred))
+      : "memory");
+}
+
+// ROUNDS: the rounds of LANE held a row (four warps: in shared memory;
+// one warp: four values a lane a round, in registers, the whole row).
+// VEC and STREAM (four warps): the row is copied and divided 16 B a
+// thread; the row has rounds past the held ones.
+template <int OP, int WARPS, int ROUNDS, bool VEC, bool STREAM, bool RAPID>
+__global__ void __launch_bounds__(ROW_THREADS, WARPS == ROW_WARPS
+                                                   ? ROW_HOLD_BLOCKS_PER_SM
+                                                   : ROW_BLOCKS_PER_SM)
+row_hold_kernel(const float* __restrict__ x, float* __restrict__ out,
+                float* __restrict__ denom_out,
+                const int32_t* __restrict__ lut, int rows, int n, int bm,
+                float c_add, float c_mul, float floor) {
+  static_assert(OP == 0 || OP == 1, "rms or softmax");
+  static_assert(WARPS == 1 || WARPS == ROW_WARPS, "1 or ROW_WARPS warps");
+  constexpr bool WIDE = WARPS == ROW_WARPS;
+  static_assert(WIDE || !(VEC || STREAM), "one warp: 4 B loads, all held");
+  // the LUT, then (four warps a row) two fold buffers of LANE partials
+  // and two buffers of a row's first HELD elements (the rows alternate)
+  constexpr int HELD = ROUNDS * LANE;
+  __shared__ __align__(16)
+      int32_t smem[256 + (WIDE ? 2 * LANE + 2 * HELD : 0)];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int rounds = (n + LANE - 1) / LANE;  // of the lane-padded row
+  const int nslabs = (rows + bm - 1) / bm;
+  const int mine = (nslabs - 1 - static_cast<int>(blockIdx.x)) /
+                       static_cast<int>(gridDim.x) + 1;
+  if constexpr (RAPID) {
+    stage_lut(smem, lut, tid);
+    rapid::cp_async_commit();
+  }
+  int turn = 0;  // rows this block has folded (four warps: the buffer)
+  for (int i = 0; i < mine; ++i) {
+    const long long r0 = (static_cast<long long>(blockIdx.x) +
+                          static_cast<long long>(i) * gridDim.x) * bm;
+    const int nr = static_cast<int>(rows - r0 < bm ? rows - r0 : bm);
+    if constexpr (WIDE) {
+      // the row's first held rounds are copied once into shared memory,
+      // the padding past n zero-filled (all copies in flight, then one
+      // wait), and both the sum and the divides read them there; the
+      // rounds past them are streamed
+      const int hr = rounds < ROUNDS ? rounds : ROUNDS;  // held rounds
+      const int hn = n < hr * LANE ? n : hr * LANE;      // held elements
+      for (int r = 0; r < nr; ++r, ++turn) {
+        const long long row = r0 + r;
+        const float* xr = x + row * n;
+        float* held = reinterpret_cast<float*>(smem + 256 + 2 * LANE) +
+                      (turn & 1) * HELD;
+        if constexpr (VEC) {  // n % 4 == 0, so hn is whole 16 B copies
+          for (int c = tid; c < hr * LANE / 4; c += ROW_THREADS)
+            rapid::cp_async16(held + 4 * c, xr + (4 * c < hn ? 4 * c : 0),
+                              4 * c < hn);
+        } else {
+          for (int e = tid; e < hr * LANE; e += ROW_THREADS)
+            rapid::cp_async4(held + e, xr + (e < hn ? e : 0), e < hn);
+        }
+        rapid::cp_async_commit();
+        rapid::cp_async_wait<0>();  // this row (and, first, the LUT)
+        __syncthreads();
+        float p = -0.0f;
+#pragma unroll 4
+        for (int k = 0; k < hr; ++k)  // the padding adds +0, as lane_sum's
+          p = __fadd_rn(p, row_term<OP>(held[tid + k * LANE]));
+        if constexpr (STREAM) {
+          for (int k = hr; k < rounds; k += 16) {  // 16 loads in flight
+            float w[16];
+#pragma unroll
+            for (int c = 0; c < 16; ++c) {
+              const int j = tid + (k + c) * LANE;
+              w[c] = j < n ? xr[j] : 0.0f;
+            }
+#pragma unroll
+            for (int c = 0; c < 16; ++c)
+              if (k + c < rounds) p = __fadd_rn(p, row_term<OP>(w[c]));
+          }
+        }
+        float* fold = reinterpret_cast<float*>(smem + 256) + (turn & 1) * LANE;
+        fold[tid] = p;
+        // h = 64, then h = 32: every warp folds the same partials, and
+        // the next row writes the other buffers, so no third barrier
+        __syncthreads();
+        const float s = warp_fold(
+            __fadd_rn(__fadd_rn(fold[lane], fold[lane + 64]),
+                      __fadd_rn(fold[lane + 32], fold[lane + 96])));
+        const float d = row_denom<OP>(s, c_add, c_mul, floor);
+        if (denom_out && tid == 0) denom_out[row] = d;
+        float* orow = out + row * n;
+        if constexpr (VEC) {  // held chunks from shared memory, the
+                              // streamed ones from L2
+          auto* o4 = reinterpret_cast<float4*>(orow);
+          for (int c = tid; c < hn / 4; c += ROW_THREADS)
+            o4[c] = row_quotient4<RAPID>(
+                reinterpret_cast<const float4*>(held)[c], d, smem);
+          if constexpr (STREAM) {
+#pragma unroll 4
+            for (int c = hn / 4 + tid; c < n / 4; c += ROW_THREADS)
+              o4[c] = row_quotient4<RAPID>(
+                  reinterpret_cast<const float4*>(xr)[c], d, smem);
+          }
+        } else {
+          for (int j = tid; j < hn; j += ROW_THREADS)
+            orow[j] = row_quotient<RAPID>(held[j], d, smem);
+          if constexpr (STREAM) {
+#pragma unroll 4
+            for (int j = hn + tid; j < n; j += ROW_THREADS)
+              orow[j] = row_quotient<RAPID>(xr[j], d, smem);
+          }
+        }
+      }
+    } else {
+      constexpr int RW = WARP_HOLD / (4 * ROUNDS);  // rows a warp holds
+      static_assert(RW >= 1, "a warp holds at least one row");
+      // the slab in groups of RW rows, group w + ROW_WARPS * g to warp
+      // w; every warp takes the same turns, so all reach the LUT's
+      // barrier
+      const int turns = ((bm + RW - 1) / RW + ROW_WARPS - 1) / ROW_WARPS;
+      for (int g = 0; g < turns; ++g, ++turn) {
+        const int first = ((tid >> 5) + g * ROW_WARPS) * RW;
+        bool live[RW];
+        const float* xr[RW];
+        float v[RW][ROUNDS][4];
+#pragma unroll
+        for (int q = 0; q < RW; ++q) {  // all in flight, then the adds
+          live[q] = first + q < nr;
+          xr[q] = x + (r0 + (live[q] ? first + q : 0)) * n;
+#pragma unroll
+          for (int k = 0; k < ROUNDS; ++k)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int j = k * LANE + c * 32 + lane;
+              v[q][k][c] = live[q] && j < n ? xr[q][j] : 0.0f;
+            }
+        }
+        float d[RW];
+#pragma unroll
+        for (int q = 0; q < RW; ++q) {
+          float p[4] = {-0.0f, -0.0f, -0.0f, -0.0f};
+#pragma unroll
+          for (int k = 0; k < ROUNDS; ++k)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              if (k < rounds) p[c] = __fadd_rn(p[c], row_term<OP>(v[q][k][c]));
+          // h = 64 (l += l + 64, l + 32 += l + 96), then h = 32
+          d[q] = row_denom<OP>(warp_fold(__fadd_rn(__fadd_rn(p[0], p[2]),
+                                                   __fadd_rn(p[1], p[3]))),
+                               c_add, c_mul, floor);
+        }
+        if constexpr (RAPID)
+          if (turn == 0) {  // the LUT, for every warp
+            rapid::cp_async_wait<0>();
+            __syncthreads();
+          }
+        float qv[RW][ROUNDS][4];
+#pragma unroll
+        for (int q = 0; q < RW; ++q)
+#pragma unroll
+          for (int k = 0; k < ROUNDS; ++k)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              qv[q][k][c] = row_quotient<RAPID>(v[q][k][c], d[q], smem);
+#pragma unroll
+        for (int q = 0; q < RW; ++q) {
+          const long long row = r0 + first + q;
+          if (live[q] && denom_out && lane == 0) denom_out[row] = d[q];
+          float* orow = out + (live[q] ? row : r0) * n;
+#pragma unroll
+          for (int k = 0; k < ROUNDS; ++k)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int j = k * LANE + c * 32 + lane;
+              store_if(orow + j, qv[q][k][c], live[q] && j < n);
+            }
+        }
+      }
+    }
+  }
+}
+
+using HoldKernel = void (*)(const float*, float*, float*, const int32_t*,
+                            int, int, int, float, float, float);
+
+// an instance and the blocks of it one SM holds at once (0 until its
+// first launch reads the figure)
+struct HoldInstance {
+  HoldKernel kernel;
+  int* blocks;
+};
+
+template <int OP, int WARPS, int ROUNDS, bool VEC, bool STREAM, bool RAPID>
+HoldInstance hold_at() {
+  static int blocks = 0;
+  return {row_hold_kernel<OP, WARPS, ROUNDS, VEC, STREAM, RAPID>, &blocks};
+}
+
+template <int OP, int WARPS, int ROUNDS, bool VEC, bool STREAM>
+HoldInstance hold_at(bool rapid) {
+  return rapid ? hold_at<OP, WARPS, ROUNDS, VEC, STREAM, true>()
+               : hold_at<OP, WARPS, ROUNDS, VEC, STREAM, false>();
+}
+
+// rounds of LANE the one-warp form holds for rows of n: 1, 2 or 4
+// (kernels/spec.py::warp_rounds)
+int warp_rounds(int n) {
+  const int r = (n + LANE - 1) / LANE;
+  return r <= 1 ? 1 : r <= 2 ? 2 : 4;
+}
+
+template <int OP>
+HoldInstance hold_of(int warps, int n, bool vec, bool rapid) {
+  if (warps == ROW_WARPS) {
+    constexpr int H = ROW_HOLD_ROUNDS;
+    const bool stream = n > H * LANE;
+    if (vec)
+      return stream ? hold_at<OP, ROW_WARPS, H, true, true>(rapid)
+                    : hold_at<OP, ROW_WARPS, H, true, false>(rapid);
+    return stream ? hold_at<OP, ROW_WARPS, H, false, true>(rapid)
+                  : hold_at<OP, ROW_WARPS, H, false, false>(rapid);
+  }
+  if (warps != 1 || n > 4 * LANE) return {nullptr, nullptr};
+  switch (warp_rounds(n)) {
+    case 1: return hold_at<OP, 1, 1, false, false>(rapid);
+    case 2: return hold_at<OP, 1, 2, false, false>(rapid);
+    default: return hold_at<OP, 1, 4, false, false>(rapid);
+  }
+}
+
+// the instance for rows of n (vec: 16 B aligned rows, n % 4 == 0), or
+// none where this file compiles none: rms (0) and softmax (1), ROW_WARPS
+// warps a row, or one warp a row of at most 4 x LANE (row_geometry
+// gives one warp only to rows under ROW_WIDE_N)
+HoldInstance hold_instance(int op, int warps, int n, bool vec, bool rapid) {
+  if (op == 0) return hold_of<0>(warps, n, vec, rapid);
+  if (op == 1) return hold_of<1>(warps, n, vec, rapid);
+  return {nullptr, nullptr};
+}
+
+cudaError_t launch_rows(int op, int warps, int grid, const float* x,
+                        float* out, float* denom_out, const int32_t* lut,
+                        int rows, int n, int bm, float c_add, float c_mul,
+                        float floor, cudaStream_t stream) {
+  const bool vec = (reinterpret_cast<uintptr_t>(x) & 15u) == 0 &&
+                   (reinterpret_cast<uintptr_t>(out) & 15u) == 0 &&
+                   n % 4 == 0;
+  const HoldInstance inst = hold_instance(op, warps, n, vec, lut != nullptr);
+  if (!inst.kernel || rows < 1 || n < 1 || bm < 1)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  if (*inst.blocks == 0) {  // first use: the largest shared carveout
+    int blocks = 0;
+    err = cudaFuncSetAttribute(inst.kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, inst.kernel, ROW_THREADS, 0);
+    if (err != cudaSuccess) return err;
+    *inst.blocks = blocks;
+  }
+  // the grid kernels/spec.py planned: at most a block a slab, and one
+  // wave that the card holds at once
+  int sms = 0;
+  err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const long long nslabs = (static_cast<long long>(rows) + bm - 1) / bm;
+  if (grid < 1 || grid > nslabs ||
+      grid > static_cast<long long>(sms) * *inst.blocks)
+    return cudaErrorInvalidConfiguration;
+  inst.kernel<<<grid, ROW_THREADS, 0, stream>>>(x, out, denom_out, lut, rows,
+                                                n, bm, c_add, c_mul, floor);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The shared memory one row-divider block allocates -- static (as
+// compiled) plus dynamic -- into *bytes, for the check that
+// kernels/spec.py::row_smem counts it: at depth >= 2 K8's block of (op,
+// depth, warps) over slabs of bm rows of n; at depth 1 K2 / K3's of (op,
+// warps) for rows of n, and K5's (op 2, warps 0).
 extern "C" int rapid_row_slab_smem(int op, int depth, int warps, int bm,
                                    int n, long long* bytes) {
-  const SlabKernel kernel = slab_kernel(op, depth, warps, true);
-  if (!kernel || bm < 1 || n < 1) return cudaErrorInvalidValue;
+  if (bm < 1 || n < 1) return cudaErrorInvalidValue;
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  cudaError_t err = cudaErrorInvalidValue;
+  long long dynamic = 0;
+  if (depth == 1 && op == 2) {
+    const auto k5 = elementwise_div_kernel<true>;
+    if (warps == 0) err = cudaFuncGetAttributes(&attr, k5);
+  } else if (depth == 1) {
+    const HoldInstance inst = hold_instance(op, warps, n, true, true);
+    if (inst.kernel) err = cudaFuncGetAttributes(&attr, inst.kernel);
+  } else {
+    const SlabKernel kernel = slab_kernel(op, depth, warps, true);
+    if (kernel) err = cudaFuncGetAttributes(&attr, kernel);
+    dynamic = slab_dynamic_bytes(depth, warps, bm, n);
+  }
   if (err != cudaSuccess) return err;
-  *bytes = static_cast<long long>(attr.sharedSizeBytes) +
-           slab_dynamic_bytes(depth, warps, bm, n);
+  *bytes = static_cast<long long>(attr.sharedSizeBytes) + dynamic;
   return cudaSuccess;
 }

@@ -25,6 +25,10 @@ __all__ = [
     "ROW_WIDE_N",
     "ROW_BLOCKS_PER_SM",
     "MAX_ROW_BM",
+    "ROW_HOLD_ROUNDS",
+    "ROW_HOLD_N",
+    "ROW_HOLD_BLOCKS_PER_SM",
+    "WARP_HOLD",
     "SMS",
     "SMEM_PER_SM",
     "SMEM_RESERVED_PER_BLOCK",
@@ -70,6 +74,19 @@ ROW_THREADS = ROW_WARPS * 32
 ROW_WIDE_N = 512
 ROW_BLOCKS_PER_SM = 8
 MAX_ROW_BM = 32
+
+# K2 / K3 (the row dividers at depth 1) read each row once onto the
+# chip.  The four-warp form copies a row's first ROW_HOLD_ROUNDS rounds
+# of LANE (ROW_HOLD_N elements) into shared memory, two row buffers a
+# block, so rows up to ROW_HOLD_N elements are read once; past it the
+# rest of each lane's chain is streamed, read again (from L2) for the
+# divides.  Its launch bounds promise ROW_HOLD_BLOCKS_PER_SM resident
+# blocks.  A lane of the one-warp form holds WARP_HOLD values in
+# registers (its rows x rounds x 4), under K8's ROW_BLOCKS_PER_SM
+ROW_HOLD_ROUNDS = 32
+ROW_HOLD_N = LANE * ROW_HOLD_ROUNDS
+ROW_HOLD_BLOCKS_PER_SM = 4
+WARP_HOLD = 16
 
 
 def round_up(v: int, mult: int) -> int:

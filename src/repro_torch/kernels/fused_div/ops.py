@@ -15,13 +15,14 @@ trailing dim 1) goes to :func:`div_rowbcast` (K5), any other broadcast to
 * CUDA tensors launch ``csrc/fused_div.cu`` (replacing the Pallas
   ``rms_div_pallas`` / ``softmax_div_pallas`` / ``div_rowbcast_pallas``
   / ``div_pallas`` of ``src/repro/kernels/fused_div/fused_div.py``): at
-  depth 1 one CTA per row for K2/K3, one thread per element for K5/K6;
-  K2/K3/K5 at depth >= 2 walk row slabs with ``depth`` slabs in flight
-  (K8, replacing ``_rowwise_pipelined_call``).
+  depth 1 K2/K3 read each row once onto the chip (four warps on a wide
+  row, staged in shared memory; a warp a narrow one, in registers; a
+  block walking its slabs of rows), K5/K6 one thread per element; K2/K3/K5 at depth >= 2 walk row slabs with
+  ``depth`` slabs in flight (K8, replacing ``_rowwise_pipelined_call``).
 
 ``spec`` (:class:`repro_torch.kernels.spec.KernelSpec`) of K2/K3/K5 sets
 the stage count and the rows per slab, resolved by ``resolve_spec``
-(default: 2 slabs in flight); it moves no bits.  The rest of K8's
+(default: 2 slabs in flight); it moves no bits.  The rest of the
 geometry (warps on a row, the grid) comes from ``row_geometry`` and
 goes to the kernel with it.  The plan is checked against the card's
 shared memory on either route.  K6 has no stage

@@ -10,9 +10,10 @@ reference's ``TUNE_baseline.json`` holds TPU winners.
 
 Stage counts on Hopper:
 
-  * ``depth == 1`` -- the first formulation of each kernel: K1 stages
-    each K block synchronously, K2/K3/K5 run one block per row (K5 one
-    thread per element).
+  * ``depth == 1`` -- the unpipelined form: K1 stages each K block
+    synchronously; K2/K3 read each row once onto the chip (shared
+    memory under four warps, registers under one), a block walking its
+    rows with none in flight ahead; K5 runs one thread per element.
   * ``depth >= 2`` -- ``depth`` tiles in flight through ``cp.async``
     into a ring in shared memory: K1's K loop keeps ``depth`` raw x/w
     tiles in flight (the reference's ``log_matmul_pipelined``, K7), and
@@ -33,13 +34,14 @@ the shared-memory check (:func:`matmul_smem`) always checks the
 instance the card runs.  An explicit ``bm`` / ``bn`` / ``bk`` must name
 that geometry.
 
-K8's geometry is decided here and only here (:func:`row_geometry`): the
-rows per slab, the warps on one row and the grid, from the blocks an SM
-is assumed to hold.  The wrapper passes the three to
-``csrc/fused_div.cu``, which launches that grid and refuses a warp count
-it did not compile for the op and a grid past the slabs or past what the
-card holds at once, so :func:`row_smem` and the shared-memory check
-count the block the card runs.
+The row dividers' geometry (K2/K3 at depth 1, K8 at depth >= 2) is
+decided here and only here (:func:`row_geometry`): the rows per slab,
+the warps on one row and the grid, from the blocks an SM is assumed to
+hold.  The wrapper passes the three to ``csrc/fused_div.cu``, which
+launches that grid and refuses a warp count it did not compile for the
+op and a grid past the slabs or past what the card holds at once, so
+:func:`row_smem` and the shared-memory check count the block the card
+runs.
 
 K4's geometry is decided here too (:func:`flash_geometry`): ``bk`` is
 the cache chunk of its online softmax and ``bn`` the segment, the cache
@@ -70,6 +72,7 @@ __all__ = [
     "row_smem",
     "RowGeometry",
     "row_geometry",
+    "warp_rounds",
     "MATMUL_DEPTHS",
     "deferred_depth",
     "FLASH_CHUNK",
@@ -265,16 +268,19 @@ def matmul_smem(regime: str, bm: int, bn: int, bk: int, depth: int) -> int:
 
 def row_smem(bm: int, n: int, depth: int, warps: int = 1) -> int:
     """Shared memory of one row-divider block, as the kernel allocates
-    it: the LUT (static), and at depth 1 K2/K3's fold of LANE partial
-    sums (``warps`` = ROW_WARPS; K5 has none); at depth >= 2 (K8),
-    dynamic: two fold buffers of LANE partial sums where ROW_WARPS warps
-    share a row, then the ring of ``depth`` slabs of ``bm`` rows of
+    it: the LUT (static), and two fold buffers of LANE partial sums
+    where ROW_WARPS warps share a row.  At depth 1 all of it is static:
+    where four warps share a row, K2/K3 also keep two copies of a row's
+    held rounds (ROW_HOLD_N elements), from which they divide 16 B a
+    thread; the one-warp form and K5 have neither.  At depth >= 2 (K8)
+    the folds, then the ring of ``depth`` slabs of ``bm`` rows of
     ``n``, and for the row broadcast (``warps`` 0) the ring of each
-    slab's ``bm`` denominators."""
+    slab's ``bm`` denominators, all dynamic."""
     lut = 4 * 256
     fold = budget.LANE * budget.ELEM_BYTES if warps == budget.ROW_WARPS else 0
     if depth == 1:
-        return lut + fold
+        held = budget.ROW_HOLD_N * budget.ELEM_BYTES if fold else 0
+        return lut + 2 * fold + 2 * held
     denoms = depth * bm * budget.ELEM_BYTES if warps == 0 else 0
     return lut + 2 * fold + depth * bm * n * budget.ELEM_BYTES + denoms
 
@@ -298,14 +304,18 @@ class RowGeometry(NamedTuple):
     #: warp per row), or 0 (the row broadcast's flat walk, where no warp
     #: owns a row)
     warps: int
-    #: blocks one SM is assumed to hold at once (K8; 0 at depth 1)
+    #: blocks one SM is assumed to hold at once (0 for K5 at depth 1)
     blocks_per_sm: int
     #: blocks the kernel launches: the slabs, at most budget.SMS x
     #: blocks_per_sm (the kernel refuses a grid its card cannot hold at
-    #: once; 0 at depth 1, where the kernels size their own grids)
+    #: once; 0 for K5 at depth 1, which sizes its own grid)
     grid: int
     #: shared memory of one block (:func:`row_smem`)
     smem: int
+    #: K2/K3 at depth 1 only: the row is wider than a thread holds, so
+    #: the rounds past the held ones are streamed (read again from L2
+    #: for the divides)
+    streams: bool = False
 
 
 _ROW_FAMILIES = ("fused_rms", "fused_softmax", "fused_div_rowbcast")
@@ -319,14 +329,51 @@ def _blocks_per_sm(smem: int) -> int:
     return min(budget.ROW_BLOCKS_PER_SM, budget.SMEM_PER_SM // unit)
 
 
+def warp_rounds(n: int) -> int:
+    """Rounds of LANE that the one-warp form of K2/K3 (depth 1) holds
+    for a row of ``n``: 1, 2 or 4, so a warp holds WARP_HOLD / (4 x
+    rounds) such rows at once (``csrc/fused_div.cu`` warp_rounds)."""
+    rounds = -(-max(1, n) // budget.LANE)
+    return 1 if rounds <= 1 else 2 if rounds <= 2 else 4
+
+
+def _hold_geometry(family: str, rows: int, n: int,
+                   bm: Optional[int]) -> RowGeometry:
+    """Depth 1.  K5: one thread an element on a grid of its own.  K2/K3:
+    four warps a row (one thread a grouping lane, the row held in shared
+    memory) from ROW_WIDE_N elements, or where the rows, a block each,
+    fit one wave of the four-warp form (ROW_HOLD_BLOCKS_PER_SM an SM);
+    otherwise a warp a row, each warp holding WARP_HOLD / (4 x
+    :func:`warp_rounds`) rows at once in registers and a block
+    ROW_WARPS such groups (the whole row: one warp only below
+    ROW_WIDE_N).  The grid: a block a slab up to one wave; past it a
+    block walks slabs g, g + grid, ...  Four-warp rows past ROW_HOLD_N
+    are streamed (``streams``)."""
+    if family == "fused_div_rowbcast":
+        bm = 1 if bm is None else bm
+        return RowGeometry(bm, 0, 0, 0, row_smem(bm, n, 1, 0))
+    wide = (n >= budget.ROW_WIDE_N
+            or rows <= budget.SMS * budget.ROW_HOLD_BLOCKS_PER_SM)
+    if wide:
+        warps, per_sm = budget.ROW_WARPS, budget.ROW_HOLD_BLOCKS_PER_SM
+    else:
+        warps, per_sm = 1, budget.ROW_BLOCKS_PER_SM
+    if bm is None:
+        bm = 1 if wide else (budget.ROW_WARPS * budget.WARP_HOLD
+                             // (4 * warp_rounds(n)))
+    grid = min(-(-rows // bm), budget.SMS * per_sm)
+    return RowGeometry(bm, warps, per_sm, grid, row_smem(bm, n, 1, warps),
+                       wide and n > budget.ROW_HOLD_N)
+
+
 @lru_cache(maxsize=1024)
 def row_geometry(family: str, rows: int, n: int, depth: int,
                  bm: Optional[int] = None) -> RowGeometry:
     """The geometry of a row divider over ``rows`` rows of ``n`` at
     stage count ``depth``; ``bm``, where given, is kept.
 
-    At depth 1 K2/K3 run one block of ROW_WARPS warps a row and K5 one
-    thread an element (``bm`` 1).  At depth >= 2 (K8):
+    At depth 1, K2/K3 read each row once onto the chip and K5 runs one
+    thread an element (:func:`_hold_geometry`).  At depth >= 2 (K8):
 
     * warps on a row: rms / softmax rows from ROW_WIDE_N elements are
       shared by ROW_WARPS warps, one thread per grouping lane, and so
@@ -348,16 +395,15 @@ def row_geometry(family: str, rows: int, n: int, depth: int,
         raise KeyError(f"unknown row-divider family {family!r}; have "
                        f"{_ROW_FAMILIES}")
     rows = max(1, rows)
+    if depth == 1:
+        return _hold_geometry(family, rows, n, bm)
     if family == "fused_div_rowbcast":
         warps = 0
-    elif depth == 1 or n >= budget.ROW_WIDE_N or rows <= budget.SMS * \
+    elif n >= budget.ROW_WIDE_N or rows <= budget.SMS * \
             _blocks_per_sm(row_smem(1, n, depth, budget.ROW_WARPS)):
         warps = budget.ROW_WARPS
     else:
         warps = 1
-    if depth == 1:
-        bm = 1 if bm is None else bm
-        return RowGeometry(bm, warps, 0, 0, row_smem(bm, n, 1, warps))
     if bm is None:
         width = max(1, n)
         cap = budget.ROW_RING_BYTES // (depth * width * budget.ELEM_BYTES)

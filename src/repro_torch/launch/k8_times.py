@@ -1,4 +1,4 @@
-"""Time kernel K8 (the pipelined row dividers) at the paths' shapes.
+"""Time the row dividers (K2/K3/K5 at depth 1, K8) at the paths' shapes.
 
     python src/repro_torch/launch/k8_times.py [--src DIR] [--reps N]
         [--depths 1 2 3]
@@ -10,16 +10,19 @@ paths launch them:
 
 * rms over 1, 4, 64 and 512 rows of 2560 (the final norm of one row,
   a decode step's ln1 / ln2 / final norm, a continuous prefill tick's,
-  the lockstep prefill's and a train step's);
+  the lockstep prefill's and a train step's), and over 4 rows of 40 000
+  (too wide for two slabs: the deferred depth falls back to 1, where
+  K2 streams the row past what a thread holds);
 * softmax over 16384 rows of 128 (prefill attention's probabilities)
   and over 33 rows of 130 (a ragged edge: 4 B copies);
 * the row broadcast ``a [M, 80] / b [M]`` at 2048 rows (the
   online-softmax combine of a 64-token chunk) and 266240 rows (of an
   8320-token blockwise prefill).
 
-Each shape is timed at every stage count of ``--depths``: depth 1 is
-the first formulation (K2 / K3 / K5), depth >= 2 is K8, through the
-public wrappers with an explicit depth and the checkout's own geometry.
+Each shape is timed at every stage count of ``--depths`` that its
+block fits (the checkout's own ``row_geometry`` and shared-memory
+limit): depth 1 is K2 / K3 / K5, depth >= 2 is K8, through the public
+wrappers with an explicit depth and the checkout's own geometry.
 Device time per call by CUDA-graph replay of CALLS launches (the
 wrapper's host path costs more than the small kernels, so it is kept
 out; a fifth of them past 10**7 elements), the mean of ``--reps``
@@ -40,6 +43,7 @@ CALLS = 100
 # (name, op, rows, n); the long prefill's combine: 8320 tokens x 32 heads
 SHAPES = [("rms 1x2560", "rms", 1, D), ("rms 4x2560", "rms", 4, D),
           ("rms 64x2560", "rms", 64, D), ("rms 512x2560", "rms", 512, D),
+          ("rms 4x40000", "rms", 4, 40_000),
           ("softmax 16384x128", "softmax", 16384, 128),
           ("softmax 33x130", "softmax", 33, 130),
           ("rowbcast 2048x80", "rowbcast", 2048, HD),
@@ -52,10 +56,12 @@ def main(argv=None) -> int:
     import torch
 
     from repro_torch.device import resolve_device
+    from repro_torch.kernels import budget
     from repro_torch.kernels.fused_div.ops import (div_rowbcast,
                                                    fused_rms_div,
                                                    fused_softmax_div)
-    from repro_torch.kernels.spec import KernelSpec, PipelineSpec
+    from repro_torch.kernels.spec import (KernelSpec, PipelineSpec,
+                                          row_geometry)
 
     dev = resolve_device("cuda")
     card = card_line()
@@ -66,7 +72,12 @@ def main(argv=None) -> int:
             x = torch.exp(x - x.amax(dim=-1, keepdim=True))
         b = torch.rand((rows,), generator=g, device=dev) * 40 + 1
         calls = CALLS if rows * n < 10**7 else CALLS // 5
+        family = {"rms": "fused_rms", "softmax": "fused_softmax",
+                  "rowbcast": "fused_div_rowbcast"}[op]
         for depth in args.depths:
+            if (row_geometry(family, rows, n, depth).smem
+                    > budget.SMEM_PER_BLOCK):  # refused on either route
+                continue
             spec = KernelSpec(pipeline=PipelineSpec(depth=depth))
             if op == "rms":
                 def fn(x=x, spec=spec):

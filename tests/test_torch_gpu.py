@@ -900,10 +900,100 @@ def test_cuda_row_slabs_refuse_an_uncompiled_geometry(cuda):
         PipelineSpec(depth=9)
 
 
+# K2 / K3 at depth 1 (each row read once onto the chip), at
+# row_geometry's plan
+_HOLD_CASES = [
+    (1, 2560),      # one row, four warps
+    (3, 31),        # n < 32: most threads hold only the padding
+    (33, 130),      # n % 4 != 0, a ragged second round
+    (512, 2560),    # the train path's norms: a block a row
+    (9, 4100),      # four warps, one round past the 32 held: streamed
+    (4, 40_000),    # the deferred depth's fallback: streamed
+    (1000, 601),    # four warps past one wave: blocks walk, ragged pass
+    (16384, 128),   # prefill attention: a warp a row, four rows a warp
+    (20000, 30),    # a warp a row past one wave, n < 32, ragged pass
+    (9001, 200),    # a warp holding two rows of two rounds; blocks walk
+    (700, 300),     # a warp holding one row of four rounds (one padding)
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["rapid9", None])
+@pytest.mark.parametrize("rows,n", _HOLD_CASES)
+def test_cuda_row_dividers_depth_one_bit_exact(cuda, rows, n, scheme):
+    """K2 / K3 at depth 1 against their plain versions on the card,
+    denominators included, on the LUT and the IEEE divide: special
+    operands scattered over the first and the last row, a softmax row of
+    -0, from an aligned start and from one 4 B past a 16 B boundary;
+    both warp forms and the streamed one (``row_geometry``); one launch
+    a call, filed under depth 1."""
+    from repro_torch.kernels import launch_counts_by_depth, reset_launch_counts
+    from repro_torch.kernels.spec import row_geometry
+    rng = np.random.default_rng(7 * rows + n)
+    x = randn(rng, rows, n, scale=2.0)
+    for r in {0, rows - 1}:
+        mask = rng.random(n) < 0.05
+        mask[0] = True
+        x[r, mask] = special_sample(rng, max(int(mask.sum()), 18))[
+            :int(mask.sum())]
+    xt = T(x).to(cuda)
+    e = torch.exp(xt.clamp(-30, 30))
+    e[0] = xt[0]
+    if rows > 2:
+        e[1] = -0.0
+    spec = _depth(1)
+    ref, rden = rms_div_plain(xt, 1e-6, scheme, return_denom=True)
+    sref, sden = softmax_div_plain(e, scheme, return_denom=True)
+    reset_launch_counts()
+    for t, u in ((xt, e), (_misaligned(xt), _misaligned(e))):
+        got, den = fused_rms_div(t, 1e-6, scheme, return_denom=True,
+                                 spec=spec)
+        assert_same_bits(den.cpu().numpy(), rden.cpu().numpy())
+        assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
+        got, den = fused_softmax_div(u, scheme, return_denom=True, spec=spec)
+        assert_same_bits(den.cpu().numpy(), sden.cpu().numpy())
+        assert_same_bits(got.cpu().numpy(), sref.cpu().numpy())
+    counts = launch_counts_by_depth()
+    assert counts["rms_div"] == {1: 2} and counts["softmax_div"] == {1: 2}
+    assert row_geometry("fused_rms", rows, n, 1).streams == (n > 4096)
+
+
+@pytest.mark.gpu
+def test_cuda_row_dividers_depth_one_refuse_an_uncompiled_geometry(cuda):
+    """At depth 1 K2 / K3 launch the grid ``row_geometry`` plans and
+    refuse, before a launch, a warp count they did not compile (1 or 4
+    a row), one warp on a row wider than it holds (512), an empty slab,
+    an empty grid, a grid past the slabs, and one past the wave the
+    card holds at once (33 blocks an SM)."""
+    from repro_torch.kernels.fused_div import ops
+    from repro_torch.kernels.spec import (KernelSpec, PipelineSpec,
+                                          RowGeometry, row_geometry)
+    at = KernelSpec(pipeline=PipelineSpec(depth=1))
+    x = torch.ones(64, 2560, device=cuda)
+    many = torch.ones(132 * 33 + 1, 128, device=cuda)
+    for name, family, consts in (("rms_div", "fused_rms", (0.0, 1.0)),
+                                 ("softmax_div", "fused_softmax", (1e-20,))):
+        ops._launch_rows(x, "rapid9", name, at,
+                         row_geometry(family, 64, 2560, 1), *consts)
+        for warps, grid, bm in ((2, 1, 1), (0, 1, 1), (8, 1, 1), (1, 1, 1),
+                                (4, 0, 1), (4, 65, 1), (1, 65, 1),
+                                (1, 17, 4), (4, 1, 0)):
+            with pytest.raises(RuntimeError, match="launch failed"):
+                ops._launch_rows(x, "rapid9", name, at,
+                                 RowGeometry(bm, warps, 1, grid, 0), *consts)
+        for warps in (1, 4):
+            with pytest.raises(RuntimeError, match="launch failed"):
+                ops._launch_rows(many, "rapid9", name, at,
+                                 RowGeometry(1, warps, 1, 132 * 33, 0),
+                                 *consts)
+
+
 @pytest.mark.gpu
 def test_cuda_row_smem_is_the_kernels(cuda):
-    """``row_smem`` counts what each K8 instance allocates: its static
-    shared memory as compiled plus the dynamic bytes it launches with."""
+    """``row_smem`` counts what each row-divider instance allocates: its
+    static shared memory as compiled plus the dynamic bytes it launches
+    with (K8 at depths 2-8; at depth 1 K2 / K3's static fold buffers and
+    LUT, and K5's LUT)."""
     import ctypes
 
     from repro_torch.kernels import _build
@@ -914,8 +1004,11 @@ def test_cuda_row_smem_is_the_kernels(cuda):
     got = ctypes.c_longlong()
     for op, family in enumerate(("fused_rms", "fused_softmax",
                                  "fused_div_rowbcast")):
-        for depth in range(2, 9):
-            for rows, n in ((4, 2560), (16384, 128), (2048, 80), (33, 130)):
+        for depth in range(1, 9):
+            for rows, n in ((4, 2560), (16384, 128), (2048, 80), (33, 130),
+                            (9001, 200), (4, 40_000)):
+                if depth > 1 and n == 40_000:  # two slabs do not fit
+                    continue
                 g = row_geometry(family, rows, n, depth)
                 assert fn(op, depth, g.warps, g.bm, n,
                           ctypes.byref(got)) == 0
@@ -926,12 +1019,13 @@ def test_cuda_row_smem_is_the_kernels(cuda):
 
 @pytest.mark.gpu
 def test_cuda_row_dividers_launch_once_a_call(cuda):
-    """One K8 launch a call at the paths' shapes, counted by depth."""
+    """One launch a call at the paths' shapes, counted by depth: K2 / K3
+    at depth 1, K8 at depths 2 and 3."""
     from repro_torch.kernels import (launch_counts_by_depth,
                                      reset_launch_counts)
     from repro_torch.kernels.spec import KernelSpec, PipelineSpec
     reset_launch_counts()
-    for depth in (2, 3):
+    for depth in (1, 2, 3):
         spec = KernelSpec(pipeline=PipelineSpec(depth=depth))
         for rows in (1, 4, 64, 512):
             fused_rms_div(torch.ones(rows, 2560, device=cuda), 1e-6,
@@ -941,9 +1035,9 @@ def test_cuda_row_dividers_launch_once_a_call(cuda):
         div_rowbcast(torch.ones(2048, 80, device=cuda),
                      torch.ones(2048, device=cuda), "rapid9", spec=spec)
     counts = launch_counts_by_depth()
-    assert counts["rms_div"] == {2: 4, 3: 4}
-    assert counts["softmax_div"] == {2: 1, 3: 1}
-    assert counts["div_rowbcast"] == {2: 1, 3: 1}
+    assert counts["rms_div"] == {1: 4, 2: 4, 3: 4}
+    assert counts["softmax_div"] == {1: 1, 2: 1, 3: 1}
+    assert counts["div_rowbcast"] == {1: 1, 2: 1, 3: 1}
 
 
 @pytest.mark.gpu

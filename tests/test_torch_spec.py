@@ -22,7 +22,8 @@ import pytest
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_helpers import assert_same_bits, bits, randn, ulp_diff  # noqa: E402
+from _torch_helpers import (assert_same_bits, bits, randn,  # noqa: E402
+                            special_sample, ulp_diff)
 from repro.core import backend as jbe  # noqa: E402
 from repro.core import float_approx as jfa  # noqa: E402
 from repro.kernels.fused_div import ref as jfd  # noqa: E402
@@ -33,13 +34,15 @@ from repro.kernels.spec import PipelineSpec as JPipelineSpec  # noqa: E402
 from repro_torch.core import float_approx as tfa  # noqa: E402
 from repro_torch.kernels import budget  # noqa: E402
 from repro_torch.kernels import launch_counts_by_depth  # noqa: E402
+from repro_torch.kernels.fused_div import ref as tref  # noqa: E402
 from repro_torch.kernels.fused_div.ops import (  # noqa: E402
     div_rowbcast, fused_rms_div, fused_softmax_div)
 from repro_torch.kernels.log_matmul.ops import log_matmul  # noqa: E402
 from repro_torch.kernels.spec import (KernelSpec, PipelineSpec,  # noqa: E402
                                       as_kernel_spec, matmul_geometry,
                                       matmul_regime, matmul_smem,
-                                      resolve_spec, row_geometry, row_smem)
+                                      resolve_spec, row_geometry, row_smem,
+                                      warp_rounds)
 
 T = torch.from_numpy
 _JDEPTH1 = JKernelSpec(pipeline=JPipelineSpec(depth=1))
@@ -235,15 +238,16 @@ def test_row_geometry_rule(rows, n):
 @pytest.mark.parametrize("warps", [0, 1, 4])
 def test_row_smem_counts_what_the_kernel_allocates(depth, warps):
     """``row_smem`` is csrc/fused_div.cu's allocation: the 1 KB LUT
-    (static); at depth 1 K2/K3's fold of 128 partials (a block of four
-    warps a row; K5 has none); at depth >= 2 (K8, dynamic) two fold
-    buffers where the four warps share a row, then the ring of ``depth``
-    slabs, and the row broadcast's ring of ``depth`` x ``bm``
-    denominators.  The card test ``test_cuda_row_smem_is_the_kernels``
-    holds the kernel's own figure to it."""
+    (static); at depth 1, where four warps share a row, K2/K3's two fold
+    buffers of 128 partials and two copies of the 4096 held elements
+    (static; the one-warp form and K5 have neither); at depth >= 2 (K8,
+    dynamic) the two fold buffers, then the ring of ``depth`` slabs, and
+    the row broadcast's ring of ``depth`` x ``bm`` denominators.  The
+    card test ``test_cuda_row_smem_is_the_kernels`` holds the kernel's
+    own figure to it."""
     for bm, n in ((1, 2560), (16, 128), (7, 80), (3, 130)):
         if depth == 1:
-            want = 1024 + (512 if warps == 4 else 0)
+            want = 1024 + (1024 + 2 * 4096 * 4 if warps == 4 else 0)
         else:
             want = (1024 + (1024 if warps == 4 else 0) + depth * bm * n * 4
                     + (depth * bm * 4 if warps == 0 else 0))
@@ -276,6 +280,173 @@ def test_deferred_row_depth_falls_back_where_two_slabs_do_not_fit():
     # a 40 000-wide f32 row is 160 KB: two of them exceed the 227 KB
     assert resolve_spec("fused_rms", (4, 40_000)).depth == 1
     assert resolve_spec("fused_rms", (4, 20_000)).depth == 2
+
+
+# K2/K3's geometry at depth 1 where the paths and the deferred-depth
+# fallback meet it: (family, rows, n) -> (rows a block, warps a row,
+# grid, blocks an SM, streams)
+_HOLD_GEOMETRY = [
+    ("fused_rms", 1, 2560, (1, 4, 1, 4, False)),         # one row
+    ("fused_rms", 4, 2560, (1, 4, 4, 4, False)),         # a decode step
+    ("fused_rms", 64, 2560, (1, 4, 64, 4, False)),       # a prefill tick
+    ("fused_rms", 512, 2560, (1, 4, 512, 4, False)),     # prefill, train
+    ("fused_softmax", 16384, 128, (16, 1, 1024, 8, False)),  # prefill attn
+    ("fused_softmax", 33, 130, (1, 4, 33, 4, False)),    # a ragged edge
+    ("fused_rms", 4, 40_000, (1, 4, 4, 4, True)),        # past two slabs
+    ("fused_softmax", 9001, 200, (8, 1, 1056, 8, False)),   # blocks walk
+    ("fused_rms", 1000, 601, (1, 4, 528, 4, False)),     # blocks walk
+    ("fused_div_rowbcast", 2048, 80, (1, 0, 0, 0, False)),  # K5's own grid
+]
+
+
+@pytest.mark.parametrize("family,rows,n,want", _HOLD_GEOMETRY)
+def test_row_geometry_at_depth_one(family, rows, n, want):
+    """Depth 1 is planned as K8 is: four warps a wide row, or where the
+    rows fit one wave of the four-warp form; a warp a row of narrow rows
+    past it, 16 rows of 128 a block (a warp holds four); a grid of one
+    block a slab up to one wave; the 40 000-wide rows of the deferred
+    depth's fallback streamed.  K5 keeps its own grid."""
+    g = row_geometry(family, rows, n, 1)
+    assert (g.bm, g.warps, g.grid, g.blocks_per_sm, g.streams) == want
+    assert g.smem == row_smem(g.bm, n, 1, g.warps)
+    assert resolve_spec(family, (rows, n), _d(1)).bm == g.bm
+    if n == 40_000:  # the depth the spec defers to at this width
+        assert resolve_spec(family, (rows, n)).depth == 1
+
+
+@pytest.mark.parametrize("rows", [1, 4, 33, 528, 529, 16384, 20000])
+def test_row_geometry_rule_at_depth_one(rows):
+    """For rms and softmax at depth 1, over widths around every edge:
+    four warps from ROW_WIDE_N or where the rows fit the four-warp
+    wave (ROW_HOLD_BLOCKS_PER_SM an SM), one row a slab, streamed past
+    ROW_HOLD_N; else a warp a row under ROW_BLOCKS_PER_SM, holding
+    WARP_HOLD / (4 x rounds) rows of 1, 2 or 4 rounds; the grid the
+    slabs, at most one wave; and an explicit slab kept."""
+    for n in (1, 30, 128, 129, 200, 256, 300, 511, 512, 2560, 4096, 4097,
+              40_000):
+        for family in ("fused_rms", "fused_softmax"):
+            g = row_geometry(family, rows, n, 1)
+            wide = (n >= budget.ROW_WIDE_N
+                    or rows <= budget.SMS * budget.ROW_HOLD_BLOCKS_PER_SM)
+            rounds = -(-n // budget.LANE)
+            if wide:
+                assert (g.warps, g.bm, g.blocks_per_sm) == (
+                    budget.ROW_WARPS, 1, budget.ROW_HOLD_BLOCKS_PER_SM)
+                assert g.streams == (n > budget.ROW_HOLD_N)
+                assert g.streams == (rounds > budget.ROW_HOLD_ROUNDS)
+            else:
+                held = warp_rounds(n)
+                assert held in (1, 2, 4) and held >= rounds > held // 2
+                assert (g.warps, g.blocks_per_sm) == (
+                    1, budget.ROW_BLOCKS_PER_SM)
+                assert g.bm == budget.ROW_WARPS * budget.WARP_HOLD // (
+                    4 * held)
+                assert not g.streams
+            assert 1 <= g.grid == min(-(-rows // g.bm),
+                                      budget.SMS * g.blocks_per_sm)
+            assert g.smem == 1024 + (
+                1024 + 2 * budget.ROW_HOLD_N * 4 if wide else 0)
+            one = row_geometry(family, rows, n, 1, 3)
+            assert one.bm == 3 and one.warps == g.warps
+            assert one.grid == min(-(-rows // 3), budget.SMS * g.blocks_per_sm)
+
+
+# --------------------------------------------------------------------------
+# K2/K3 at depth 1: the kernel's orders of summation, emulated
+# --------------------------------------------------------------------------
+
+def _warp_fold(s):
+    """The steps h = 16 .. 1 as ``__shfl_down_sync``: lane l adds lane
+    l + h (its own value where l + h > 31); lane 0's sum."""
+    lanes = torch.arange(32)
+    for h in (16, 8, 4, 2, 1):
+        src = torch.where(lanes + h < 32, lanes + h, lanes)
+        s = s + s[:, src]
+    return s[:, 0]
+
+
+def _chain(terms, idx, held):
+    """One chain a column of ``idx`` [rounds, lanes] (element indices of
+    each round), as the kernel runs it: from -0, the first ``held``
+    rounds read onto the chip (shared memory under four warps,
+    registers under one) before the first add, the rest streamed; an
+    index past the row adds the padding's +0 (zero-filled, or not
+    loaded)."""
+    n = terms.shape[1]
+
+    def load(k):
+        j = idx[k]
+        return torch.where(j < n, terms[:, j.clamp(max=n - 1)],
+                           torch.zeros(()))
+
+    regs = [load(k) for k in range(min(held, len(idx)))]
+    p = torch.full((terms.shape[0], idx.shape[1]), -0.0)
+    for v in regs:
+        p = p + v
+    for k in range(len(regs), len(idx)):
+        p = p + load(k)
+    return p
+
+
+def _four_warp_sum(terms, held):
+    """Four warps a row: thread t sums grouping lane t's elements t +
+    128 k; the fold buffer's h = 64 and h = 32, then the shuffles."""
+    rounds = -(-terms.shape[1] // 128)
+    idx = torch.arange(128)[None] + 128 * torch.arange(rounds)[:, None]
+    f = _chain(terms, idx, held)
+    return _warp_fold((f[:, :32] + f[:, 64:96]) + (f[:, 32:64] + f[:, 96:]))
+
+
+def _one_warp_sum(terms, held):
+    """A warp a row: lane l holds grouping lanes l + 32 c (c = 0..3),
+    element 128 k + 32 c + l; h = 64 and h = 32 in registers, then the
+    shuffles."""
+    rounds = -(-terms.shape[1] // 128)
+    p = [_chain(terms, 32 * c + torch.arange(32)[None]
+                + 128 * torch.arange(rounds)[:, None], held)
+         for c in range(4)]
+    return _warp_fold((p[0] + p[2]) + (p[1] + p[3]))
+
+
+def _special_rows(n):
+    """Rows of n: normals with special operands scattered (0, -0,
+    +-inf, NaN, subnormals, the overflow edge), all -0, subnormals and
+    -0 only, an inf of each sign, a NaN, and plain normals."""
+    rng = np.random.default_rng(n)
+    x = randn(rng, 6, n, scale=3.0)
+    mask = rng.random(n) < 0.05
+    mask[0] = True
+    x[0, mask] = special_sample(rng, max(int(mask.sum()), 18))[:mask.sum()]
+    x[1] = -0.0
+    x[2] = rng.choice(np.array([1e-40, -1e-42, 1e-45, -0.0], np.float32), n)
+    x[3, n // 2] = np.inf
+    x[3, n // 3] = -np.inf
+    x[4, n // 4] = np.nan
+    return T(x)
+
+
+@pytest.mark.parametrize("n", [1, 31, 80, 127, 128, 130, 2560, 40_000])
+@pytest.mark.parametrize("form", ["four_warp", "one_warp", "streaming"])
+def test_depth_one_sum_orders_are_lane_sums(form, n):
+    """Each order of csrc/fused_div.cu's depth-1 kernel gives
+    ``ref.lane_sum``'s bits, for the softmax sum and the rms sum of
+    squares: four warps holding ROW_HOLD_ROUNDS rounds (past them,
+    streamed: the 40 000-wide rows), one warp's lane mapping at
+    ``warp_rounds(n)`` held rounds (the kernel runs it below ROW_WIDE_N;
+    wider, the same order), and the streaming form with every round
+    past the first streamed."""
+    x = _special_rows(n)
+    for terms in (x, x * x):
+        want = tref.lane_sum(tref.pad_lanes(terms))[:, 0]
+        if form == "four_warp":
+            got = _four_warp_sum(terms, budget.ROW_HOLD_ROUNDS)
+        elif form == "one_warp":
+            got = _one_warp_sum(terms, warp_rounds(n))
+        else:
+            got = _four_warp_sum(terms, 1)
+        assert_same_bits(got.numpy(), want.numpy())
+    assert bits(tref.lane_sum(tref.pad_lanes(x[1:2])).numpy())[0, 0] == (
+        bits(np.float32(-0.0)) if n % 128 == 0 else 0)
 
 
 def test_check_smem_refuses_the_card_limit():
