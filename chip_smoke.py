@@ -39,7 +39,10 @@ one NVIDIA H100.  It
    ``rapid_div``) through their wrappers as Table III does, at 8 bits
    exhaustively and 2^24 random pairs at 16 (16/8) bits, all four
    schemes, and prints their error beside the paper's (information);
-   K9 and K10 must launch;
+   K9 and K10 must launch, and return the reference's uint32; where
+   the parent A/B of step 9 (run before this step) unpacked the parent
+   commit, every row of the table must equal the parent's digit for
+   digit;
 8. runs the three applications (JPEG, Pan-Tompkins, Harris) under all
    five variants at the reference's QoR sizes, each device stage through
    the kernels and through the plain versions (equal bits required), and
@@ -52,10 +55,12 @@ one NVIDIA H100.  It
    and depth 2 everywhere, in turns on this card (the lockstep decode
    step and prefill, the continuous prefill tick), and
    ``launch/k1_times.py`` at depths 1, 2 and 3 (the depth A/B); then K1,
-   K4 and K8 before and after: ``k1_times.py``, ``k4_times.py`` and
-   ``k8_times.py`` on the parent commit's kernels and on this tree's in
+   K4, K8 and K9/K10 before and after: ``k1_times.py``, ``k4_times.py``,
+   ``k8_times.py`` and ``int_times.py`` on the parent commit's kernels
+   and on this tree's in
    turns (parent, this, this, parent), where the parent's sources can be
-   unpacked; the record names the parent's revision (information);
+   unpacked, and the parent's Table III (``int_times.py --table3``);
+   the record names the parent's revision (information);
 10. trains full-width h2o_danube_1_8b (RAPID, f32 params from a seed,
     bf16 compute, block remat) for 3 AdamW steps of 4 x 128 tokens
     through ``make_train_step`` / ``train_loop`` into a checkpoint
@@ -73,7 +78,8 @@ lockstep step (512 slots, 136 live), the full 4096-slot window and the
 continuous tick's paged views, and times beside each the library's
 ``scaled_dot_product_attention`` on the exact arm as a yardstick (the
 port never calls it).  It also holds K9/K10 bit-equal to their plain
-versions (special operands included) and K1 batched at JPEG's 2048^2
+versions (special operands included; 2^24 pairs also from offsets of
+one and two elements) and K1 batched at JPEG's 2048^2
 shape, with the broadcast DCT basis on each side; and it holds K1 (K7
 at depth >= 2) and K2/K3/K5 (K8) at depths 1, 2, 3, 4 and 8 bit-equal
 to their plain versions, including K not a multiple of the K block, K
@@ -83,9 +89,11 @@ path and blocks that take the full one (a zero, a subnormal, an inf,
 -0, products at the lean proof's edges) in one call, and with K blocks
 on the proof's own bounds and one step outside them.  Beside the row
 dividers it times library yardsticks the port never calls (torch's f32
-``rms_norm`` at the rms rows, ``a / b[:, None]`` at the row-broadcast
-rows, ``a / b`` beside K6, int32 ``a * b`` and ``a // b`` beside K9 /
-K10; exact arithmetic, no RAPID) and the card's launch floor, one
+``rms_norm`` at the rms rows, ``F.normalize(e, p=1)`` at the softmax
+rows, ``a / b[:, None]`` at the row-broadcast rows, ``a / b`` beside K6,
+f32 ``torch.matmul`` beside K1's rows without an epilogue, int32 ``a *
+b`` and ``a // b`` beside K9 / K10; exact arithmetic, no RAPID) and the
+card's launch floor, one
 graph-replayed one-element torch op (information).  K2 / K3 also run at
 4 x 40 000, where the deferred depth falls back to 1 and the kernel
 streams the rounds past those a thread holds.
@@ -261,6 +269,19 @@ def same_bits(a, b) -> bool:
                 and ((ga.view(np.int32) == gb.view(np.int32)) | nan_a).all())
 
 
+def u32_long(t):
+    """A uint32 tensor's values as int64 (torch has few uint32 ops)."""
+    import torch
+    return t.view(torch.int32).long() & 0xFFFFFFFF
+
+
+def same_uint32(a, b) -> bool:
+    """uint32 tensors equal bit for bit (compared as int32 views)."""
+    import torch
+    return a.shape == b.shape and bool(torch.equal(
+        a.view(torch.int32), b.view(torch.int32)))
+
+
 def card_tests() -> None:
     """The repo's card tests (``tests/test_torch_gpu.py``: each kernel
     against its plain version at small ragged shapes and on special
@@ -279,60 +300,92 @@ def card_tests() -> None:
         raise AssertionError(f"card tests failed: {tail}")
 
 
-def lean_loop_sass(build) -> dict:
-    """SASS instructions per product in K1's inner loops, read from the
-    built library with ``cuobjdump -sass``: for each 2-D depth-2 instance
-    of ``lean_kernel`` (chunk, prefill) and ``decode_kernel``, every loop
-    (a backward branch) that adds products -- FADDs, or in the decode
-    kernel's product phase STSs -- with its instructions per product.
-    The lean loop is the one with the fewest; the full product() loop
-    and the decode kernel's sum loop are the others."""
+def _sass(build, lib: str, wanted: dict) -> dict:
+    """{label: [(address, instruction)]} of each function of the built
+    ``lib`` whose name matches a pattern of ``wanted`` {regex: label
+    or callable(match) -> label}, read with ``cuobjdump -sass``."""
     import re
 
-    so = next(build.BUILD_DIR.glob("log_matmul-*.so"))
+    so = next(build.BUILD_DIR.glob(f"{lib}-*.so"))
     dump = subprocess.run(
         [str(Path(build._nvcc()).parent / "cuobjdump"), "-sass", str(so)],
         capture_output=True, text=True, check=True).stdout
-    wanted = {"lean_kernelILi4ELi4ELi1ELi64ELi2ELb0E": "chunk",
-              "lean_kernelILi4ELi8ELi4ELi16ELi2ELb0E": "prefill",
-              "decode_kernelILi4ELi128ELi2ELb0E": "decode (4 rows)"}
-    out, name, body = {}, None, []
-    for line in dump.splitlines() + ["Function : end"]:
+    out, name = {}, None
+    for line in dump.splitlines():
         if "Function :" in line:
-            if name:
-                out[name] = _loops(body)
-            name = next((v for k, v in wanted.items() if k in line), None)
-            body = []
+            name = None
+            for pattern, label in wanted.items():
+                m = re.search(pattern, line)
+                if m:
+                    name = label(m) if callable(label) else label
+                    out[name] = []
         elif name:
             m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(.*?);", line)
             if m:
-                body.append((int(m.group(1), 16), m.group(2)))
-    for regime, loops in out.items():
-        log(f"sass {regime}: " + "; ".join(
-            f"loop of {n} instructions, {p} products, {n / p:.2f} a product"
-            for n, p in loops))
+                out[name].append((int(m.group(1), 16), m.group(2)))
     return out
 
 
-def _loops(body):
-    """(instructions, products) of each loop in ``body`` [(address,
-    instruction)] closed by a backward branch, reading shared memory and
-    holding >= 4 FADDs (or STSs, where the loop has no FADD)."""
+def _backward_loops(body):
+    """The instructions of each loop in ``body`` [(address, instruction)]
+    closed by a backward branch, predicates stripped."""
     import re
 
     at = {a: i for i, (a, _) in enumerate(body)}
-    loops = []
     for i, (addr, ins) in enumerate(body):
         m = re.search(r"BRA (0x[0-9a-f]+)", ins)
-        if not m or int(m.group(1), 16) >= addr:
-            continue
-        seg = [op.split()[0] for _, op in
-               body[at.get(int(m.group(1), 16), i):i + 1]
-               for op in [re.sub(r"^@!?U?P\w+\s+", "", op)]]
-        products = seg.count("FADD") or seg.count("STS")
-        if products >= 4 and "LDS" in seg:  # not the LUT's upload
-            loops.append((len(seg), products))
-    return loops
+        if m and int(m.group(1), 16) < addr:
+            yield [re.sub(r"^@!?U?P\w+\s+", "", op)
+                   for _, op in body[at.get(int(m.group(1), 16), i):i + 1]]
+
+
+def lean_loop_sass(build) -> dict:
+    """SASS instructions per product in K1's inner loops, read from the
+    built library: for each 2-D depth-2 instance of ``lean_kernel``
+    (chunk, prefill) and ``decode_kernel``, every loop (a backward
+    branch) that reads shared memory and adds >= 4 products -- FADDs, or
+    in the decode kernel's product phase STSs -- with its instructions
+    per product.  The lean loop is the one with the fewest; the full
+    product() loop and the decode kernel's sum loop are the others."""
+    funcs = _sass(build, "log_matmul", {
+        "lean_kernelILi4ELi4ELi1ELi64ELi2ELb0E": "chunk",
+        "lean_kernelILi4ELi8ELi4ELi16ELi2ELb0E": "prefill",
+        "decode_kernelILi4ELi128ELi2ELb0E": "decode (4 rows)"})
+    out = {}
+    for regime, body in funcs.items():
+        out[regime] = []
+        for seg in _backward_loops(body):
+            ops = [op.split()[0] for op in seg]
+            products = ops.count("FADD") or ops.count("STS")
+            if products >= 4 and "LDS" in ops:  # not the LUT's upload
+                out[regime].append((len(seg), products))
+        log(f"sass {regime}: " + "; ".join(
+            f"loop of {n} instructions, {p} products, {n / p:.2f} a product"
+            for n, p in out[regime]))
+    return out
+
+
+def int_unit_sass(build) -> list:
+    """SASS instructions per pair in the vector loop of each instance of
+    ``int_unit_kernel`` (``csrc/rapid_int.cu``): the loop closed by a
+    backward branch that stores 16 B result vectors (STG.E.128), its
+    instructions over 4 pairs a store."""
+    funcs = _sass(build, "rapid_int", {
+        r"int_unit_kernelILb([01])E([jy])E": lambda m: (
+            "rapid_mul" if m.group(1) == "1" else "rapid_div",
+            "32-bit" if m.group(2) == "j" else "64-bit")})
+    rows = []
+    for (unit, index), body in funcs.items():
+        for seg in _backward_loops(body):
+            stores = sum(op.startswith("STG.E.128") for op in seg)
+            if stores:
+                rows.append({"unit": unit, "index": index,
+                             "instructions": len(seg), "pairs": 4 * stores,
+                             "per_pair": len(seg) / (4 * stores)})
+                log(f"sass {unit} {index}: loop of {len(seg)} "
+                    f"instructions, {4 * stores} pairs, "
+                    f"{len(seg) / (4 * stores):.2f} a pair")
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -417,6 +470,11 @@ def kernel_phase(torch, dev, timer):
                 ok = ulps <= (2 if act == "silu" else 0)
                 ms = timer(lambda: log_matmul(x, w, "rapid10", spec=at(depth),
                                               **kw), 5)
+                lib = {} if act or res or ep else {
+                    "library_ms": exact_ms,
+                    "library": "torch.matmul, f32 with TF32 off (exact, "
+                               "no epilogue, no RAPID; never called by "
+                               "the port)"}
                 record("log_matmul" if depth == 1 else "log_matmul_pipelined",
                        f"{site} M={m} K={k} N={n}"
                        + (f" {act}" if act else "") + (" +res" if res else "")
@@ -425,7 +483,7 @@ def kernel_phase(torch, dev, timer):
                        err, ulps, ok, ms, plain_ms, nbytes,
                        m * n * k * INT32_OPS_PER_PRODUCT, INT32_OPS_PER_S,
                        {"exact_matmul_ms": exact_ms, "products": m * n * k,
-                        "depth": depth})
+                        "depth": depth, **lib})
                 del got
             del x, w, r, ref
 
@@ -562,12 +620,22 @@ def kernel_phase(torch, dev, timer):
                    {"call_ms": timer(k2, 20), "depth": depth, **lib})
 
     # K3: prefill attention probabilities, B*H*S rows of T = 128, and a
-    # ragged 33 x 130 (n % 4 != 0: 4 B copies); every stage count
+    # ragged 33 x 130 (n % 4 != 0: 4 B copies); every stage count.
+    # Library: F.normalize(e, p=1, eps=floor), e / max(sum e, floor) for
+    # e >= 0 with an exact divide
+    from repro_torch.kernels.fused_div.ref import SOFTMAX_FLOOR
+    normalize = torch.nn.functional.normalize
     s = randn(4 * 32 * 128, 128, std=2.0)
     for e in (torch.exp(s - s.amax(dim=-1, keepdim=True)),
               torch.exp(randn(33, 130))):
         ref, rden = softmax_div_plain(e, "rapid9", return_denom=True)
         plain_ms = timer(lambda: softmax_div_plain(e, "rapid9"), 3)
+        lib = {"library_ms": timer.graph(
+                   lambda: normalize(e, p=1.0, dim=-1, eps=SOFTMAX_FLOOR),
+                   100),
+               "library": "torch.nn.functional.normalize(e, p=1, dim=-1, "
+                          "eps=floor), f32 (exact divide, no RAPID; never "
+                          "called by the port)"}
         for depth in DEPTHS:
             got, den = fused_softmax_div(e, "rapid9", return_denom=True,
                                          spec=at(depth))
@@ -580,7 +648,7 @@ def kernel_phase(torch, dev, timer):
                    abs_max(got, ref), ulps, ulps == 0, timer.graph(k3, 100),
                    plain_ms, 4 * 2 * e.numel(), e.numel(),
                    FP32_FLOPS_PER_S / 2,
-                   {"call_ms": timer(k3, 20), "depth": depth})
+                   {"call_ms": timer(k3, 20), "depth": depth, **lib})
 
     # K2 / K3 where two slabs do not fit one block, so the deferred depth
     # falls back to 1: 4 rows of 40 000, whose rounds past the 32 a thread
@@ -759,10 +827,13 @@ def integer_and_batched_cases(torch, dev, timer, g, record, at):
     """K9 / K10 against their plain versions, bit for bit: every pair of
     8-bit operands, then 2^24 random pairs (K9 at 16 bits; K10 with a 16-
     and b 8-bit), each headed by the special operands (0 on either side
-    and both, 1, the largest values, a < b, the divider's b = 0).  Then K1
-    batched at JPEG's 2048^2 frame, [65536, 8, 8] @ [65536, 8, 8], with
-    the DCT basis broadcast (stride 0) on each side in turn.  Bound:
-    bytes (two int32 operands in, one int64 result out per pair)."""
+    and both, 1, the largest values, a < b, the divider's b = 0), and
+    the same 2^24 pairs from an offset of one element (``a[1:]``, a head
+    of three single elements before the 16 B body) and of different
+    offsets (every element single).  Then K1 batched at JPEG's 2048^2
+    frame, [65536, 8, 8] @ [65536, 8, 8], with the DCT basis broadcast
+    (stride 0) on each side in turn.  Bound: bytes (two int32 operands
+    in, one uint32 result out per pair, 12 B, as the reference)."""
     from repro_torch.kernels.log_matmul.ops import (log_matmul,
                                                     log_matmul_plain)
     from repro_torch.kernels.rapid_div.ops import rapid_div, rapid_div_plain
@@ -789,32 +860,38 @@ def integer_and_batched_cases(torch, dev, timer, g, record, at):
             ("rapid_div", rapid_div, rapid_div_plain, "rapid9", 8, None),
             ("rapid_div", rapid_div, rapid_div_plain, "rapid9", 8, 16)):
         n = None if a_bits in (8, None) else INT_PAIRS
-        a, b = pairs(a_bits or 8, n_bits, n)
-        got = fn(a, b, scheme, n_bits)
-        ref = plain(a, b, scheme, n_bits)
-        torch.cuda.synchronize()
-        ok = bool(torch.equal(got, ref))
-        err = float((got - ref).abs().max())
-        k = lambda: fn(a, b, scheme, n_bits)  # noqa: E731
-        m = a.numel()
-        lib = {}
-        if n is not None:  # int32 a * b / a // b, b = 0 lifted to 1
-            bnz = b.clamp(min=1)
-            exact = ((lambda: a * b) if name == "rapid_mul"
-                     else (lambda: a // bnz))
-            lib = {"library_ms": timer.graph(exact, 10),
-                   "library": ("int32 a * b" if name == "rapid_mul" else
-                               "int32 a // b (b = 0 lifted to 1)")
-                   + ", exact (no RAPID; never called by the port)"}
-        record(name, f"pairs={m} {scheme} n_bits={n_bits}"
-               + (" a<2^16" if name == "rapid_div" and n else "")
-               + (" exhaustive 8-bit" if n is None else ""),
-               err, 0 if ok else -1, ok,
-               timer.graph(k, 50 if n is None else 10),
-               timer(lambda: plain(a, b, scheme, n_bits), 2),
-               m * (4 + 4 + 8), m * INT32_OPS_PER_UNIT, INT32_OPS_PER_S,
-               {"call_ms": timer(k, 10), **lib})
-        del a, b, got, ref
+        a0, b0 = pairs(a_bits or 8, n_bits, n)
+        starts = [("", 0, 0)] + ([] if n is None else [
+            (" from a[1:], b[1:]", 1, 1), (" from a[1:], b[2:]", 1, 2)])
+        for where, i, j in starts:
+            cut = a0.numel() - (2 if i else 0)
+            a, b = a0[i:i + cut], b0[j:j + cut]
+            got = fn(a, b, scheme, n_bits)
+            ref = plain(a, b, scheme, n_bits)
+            torch.cuda.synchronize()
+            ok = got.dtype == torch.uint32 and same_uint32(got, ref)
+            err = float((u32_long(got) - u32_long(ref)).abs().max())
+            k = lambda: fn(a, b, scheme, n_bits)  # noqa: E731
+            m = a.numel()
+            lib = {}
+            if n is not None and not i:  # int32 a * b / a // b, b = 0 -> 1
+                bnz = b.clamp(min=1)
+                exact = ((lambda: a * b) if name == "rapid_mul"
+                         else (lambda: a // bnz))
+                lib = {"library_ms": timer.graph(exact, 10),
+                       "library": ("int32 a * b" if name == "rapid_mul" else
+                                   "int32 a // b (b = 0 lifted to 1)")
+                       + ", exact (no RAPID; never called by the port)"}
+            record(name, f"pairs={m} {scheme} n_bits={n_bits}"
+                   + (" a<2^16" if name == "rapid_div" and n else "")
+                   + (" exhaustive 8-bit" if n is None else "") + where,
+                   err, 0 if ok else -1, ok,
+                   timer.graph(k, 50 if n is None else 10),
+                   timer(lambda: plain(a, b, scheme, n_bits), 2),
+                   m * (4 + 4 + 4), m * INT32_OPS_PER_UNIT, INT32_OPS_PER_S,
+                   {"call_ms": timer(k, 10), **lib})
+            del a, b, got, ref
+        del a0, b0
 
     c = torch.randn((8, 8), generator=g, device=dev)
     blocks = torch.randn((JPEG_BLOCKS, 8, 8), generator=g, device=dev) * 40
@@ -1313,67 +1390,56 @@ def long_prefill_phase(torch, dev, cfg, params):
 # phases 7 and 8: the paper's integer units and its three applications
 # --------------------------------------------------------------------------
 
-def integer_units_phase(torch, dev):
+def integer_units_phase(torch, dev, parent_rows=None):
     """The integer units' own path, as the paper's Table III uses them:
     K9 at 8 bits (every pair of nonzero operands) and 16 bits (2^24
     random nonzero pairs), K10 at 8/4 (every a < 256, 0 < b < 16) and
     16/8 (2^24 random pairs), all four schemes each, through the
-    wrappers; the launch counts are set to 0 just before and read just
-    after.  Information, not a gate: the mean (ARE) and peak (PRE)
-    relative error of the integer outputs against the exact product, and
-    against the exact quotient where it is at least 1, beside the
-    paper's fixed-point figures."""
+    wrappers (``launch/int_times.py`` ``table3``); the launch counts are
+    set to 0 just before and read just after.  The mean (ARE) and peak
+    (PRE) relative error of the integer outputs against the exact
+    product, and against the exact quotient where it is at least 1,
+    beside the paper's fixed-point figures (information).  Where the
+    parent A/B computed the parent commit's table (``parent_rows``, the
+    same operands), every row must equal it digit for digit: the units'
+    values did not change with their dtype."""
     from repro_torch.core import schemes
     from repro_torch.kernels import reset_launch_counts
     from repro_torch.kernels.rapid_div.ops import rapid_div
     from repro_torch.kernels.rapid_mul.ops import rapid_mul
+    from repro_torch.launch.int_times import table3
 
-    g = torch.Generator(device=dev).manual_seed(99)
-
-    def operands(a_bits, b_bits, n):
-        if n is None:
-            a = torch.arange(1, 1 << a_bits, device=dev)
-            b = torch.arange(1, 1 << b_bits, device=dev)
-            return (a.repeat_interleave(b.numel()).int(),
-                    b.repeat(a.numel()).int())
-        return (torch.randint(1, 1 << a_bits, (n,), generator=g, device=dev,
-                              dtype=torch.int32),
-                torch.randint(1, 1 << b_bits, (n,), generator=g, device=dev,
-                              dtype=torch.int32))
-
-    rows = []
     reset_launch_counts()
     t0 = time.perf_counter()
-    for kind, n_bits, n in (("mul", 8, None), ("mul", 16, INT_PAIRS),
-                            ("div", 4, None), ("div", 8, INT_PAIRS)):
-        a, b = operands(2 * n_bits if kind == "div" else n_bits, n_bits, n)
-        exact = (a.double() * b.double() if kind == "mul"
-                 else a.double() / b.double())
-        keep = exact >= 1.0
-        table = schemes.MUL_SCHEMES if kind == "mul" else schemes.DIV_SCHEMES
-        paper = PAPER_MUL if kind == "mul" else PAPER_DIV
-        for name in table:
-            out = (rapid_mul if kind == "mul" else rapid_div)(a, b, name,
-                                                              n_bits)
-            re = (out.double()[keep] / exact[keep] - 1.0).abs() * 100.0
-            row = {"op": kind, "n_bits": n_bits, "scheme": name,
-                   "pairs": int(keep.sum()), "are_pct": float(re.mean()),
-                   "pre_pct": float(re.max()),
-                   "paper_are_pct": paper[(name, n_bits)][0],
-                   "paper_pre_pct": paper[(name, n_bits)][1]}
-            rows.append(row)
-            log(f"int accuracy {kind} n_bits={n_bits:2d} {name:8s} "
-                f"ARE {row['are_pct']:.3f}% PRE {row['pre_pct']:.2f}% over "
-                f"{row['pairs']} pairs (paper Table III {row['paper_are_pct']}"
-                f"% / {row['paper_pre_pct']}%: fixed-point outputs; these are "
-                "the units' truncated integer outputs, so they differ)")
-        del a, b, exact, keep
+    rows = table3(torch, dev, rapid_mul, rapid_div, schemes)
     torch.cuda.synchronize()
     counts = counts_now()
     require_launches("integer units", counts, ("rapid_mul", "rapid_div"))
+    for row in rows:
+        paper = PAPER_MUL if row["op"] == "mul" else PAPER_DIV
+        row["paper_are_pct"], row["paper_pre_pct"] = paper[(row["scheme"],
+                                                            row["n_bits"])]
+        log(f"int accuracy {row['op']} n_bits={row['n_bits']:2d} "
+            f"{row['scheme']:8s} ARE {row['are_pct']:.3f}% PRE "
+            f"{row['pre_pct']:.2f}% over {row['pairs']} pairs (paper Table "
+            f"III {row['paper_are_pct']}% / {row['paper_pre_pct']}%: "
+            "fixed-point outputs; these are the units' truncated integer "
+            "outputs, so they differ)")
+    keys = ("op", "n_bits", "scheme", "pairs", "are_pct", "pre_pct")
+    parent_equal = None
+    if parent_rows:
+        mine = [tuple(r[k] for k in keys) for r in rows]
+        theirs = [tuple(r[k] for k in keys) for r in parent_rows]
+        if mine != theirs:
+            raise AssertionError(f"Table III differs from the parent's: "
+                                 f"{mine} against {theirs}")
+        parent_equal = True
+        log(f"int accuracy: all {len(rows)} rows equal the parent's "
+            "digit for digit (ARE, PRE and pairs)")
     log(f"integer units: {time.perf_counter() - t0:.1f}s, kernels "
         f"{json.dumps(counts)}")
-    return {"accuracy": rows, "launches": counts}
+    return {"accuracy": rows, "parent_equal": parent_equal,
+            "launches": counts}
 
 
 def _device_timed(torch, fn):
@@ -1696,14 +1762,17 @@ def parent_src():
 
 
 def parent_ab():
-    """K1, K4 and K8 before and after on this card: ``k1_times.py`` at
-    each tree's default stage counts, ``k4_times.py`` at each tree's
-    geometry and ``k8_times.py`` (the row dividers at depths 1, 2 and 3,
-    each tree's geometry), on the parent commit's kernels and on this
-    tree's, in
+    """K1, K4, K8 and K9/K10 before and after on this card:
+    ``k1_times.py`` at each tree's default stage counts, ``k4_times.py``
+    at each tree's geometry, ``k8_times.py`` (the row dividers at depths
+    1, 2 and 3, each tree's geometry) and ``int_times.py`` (the integer
+    units at 2^24 pairs and 8 bits exhaustive, beside int32 ``a * b`` /
+    ``a // b``), on the parent commit's kernels and on this tree's, in
     turns (parent, this, this, parent), one process each; every shape
-    with both means, and the parent's revision.  Information: nothing
-    here fails on a time."""
+    with both means, and the parent's revision; then the parent's Table
+    III accuracy (``int_times.py --table3``), which the integer units'
+    phase holds this tree's to.  Information: nothing here fails on a
+    time."""
     src, parent = parent_src()
     if src is None:
         log(f"parent A/B: not run -- {parent}")
@@ -1712,7 +1781,9 @@ def parent_ab():
     runs = []
     for kernel, script, key in (("K1", "k1_times.py", ("site", "M")),
                                 ("K4", "k4_times.py", ("shape", "C")),
-                                ("K8", "k8_times.py", ("shape", "depth"))):
+                                ("K8", "k8_times.py", ("shape", "depth")),
+                                ("K9/K10", "int_times.py",
+                                 ("shape", "pairs"))):
         mine = []
         for who in ("parent", "this", "this", "parent"):
             rows = k1_times([], src if who == "parent" else None, script)
@@ -1725,7 +1796,9 @@ def parent_ab():
                 f"{by['parent']} ms, this tree {by['this']} ms "
                 f"({np.mean(by['parent']) / np.mean(by['this']):.2f}x faster)")
         runs += mine
-    return {"parent": parent, "runs": runs}
+    table3 = k1_times(["--table3"], src, "int_times.py")
+    log(f"parent A/B: the parent's Table III, {len(table3)} rows")
+    return {"parent": parent, "runs": runs, "table3": table3}
 
 
 # --------------------------------------------------------------------------
@@ -1945,6 +2018,7 @@ def main() -> int:
                 ptxas.append(f"{f.stem}: {line.strip()}")
                 log(f"  {ptxas[-1]}")
     sass = lean_loop_sass(_build)
+    sass["int_units"] = int_unit_sass(_build)
 
     card_tests()
     timer = Timer(torch, dev)
@@ -1955,7 +2029,7 @@ def main() -> int:
     ab = depth_ab_phase(torch, cfg, params)
     del params
     torch.cuda.empty_cache()
-    ints = integer_units_phase(torch, dev)
+    ints = integer_units_phase(torch, dev, ab["parent_ab"].get("table3"))
     apps = apps_phase(torch, dev)
     tcfg, tparams, train = train_phase(torch, dev)
     train_check = train_check_phase(torch, tcfg, tparams)

@@ -12,8 +12,8 @@ reduction: the port of ``repro.core.mitchell``.
   :func:`mitchell_div` (2 * n_bits <= 31): the plain versions of the
   integer kernels K9 / K10 (``kernels/rapid_mul``, ``kernels/rapid_div``).
   The reference computes in int32 with uint32 results; these compute in
-  int64 and mask to 32 bits where the reference relies on the uint32
-  wrap, and return int64 holding the reference's uint32 value.
+  int64, mask to 32 bits where the reference relies on the uint32 wrap,
+  and return the reference's uint32 (converted once, at the end).
 
 Algorithm (paper Eq. 1-7).  For N-bit unsigned A with leading one at k:
 ``A = 2^k (1 + x)``; Mitchell approximates ``log2(A) ~= k + x``.  The
@@ -243,14 +243,20 @@ def div_terms(a: torch.Tensor, b: torch.Tensor, scheme: ErrorScheme,
     return mant, k1 - k2 - borrow - F
 
 
+def _as_uint32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) as ``torch.uint32``: through int32 (the
+    top half wrapped to negative first), whose casts every device has."""
+    return (v - ((v >> 31) << 32)).to(torch.int32).view(torch.uint32)
+
+
 def mitchell_mul(a: torch.Tensor, b: torch.Tensor,
                  scheme: ErrorScheme = MITCHELL_MUL,
                  n_bits: int = 16) -> torch.Tensor:
     """Mitchell/RAPID multiply of unsigned ints < 2**n_bits (n_bits <= 16).
 
-    Returns int64 holding the reference's uint32 result: saturated at
-    2**32 - 1 where the approximate product of near-maximal operands
-    overshoots it, 0 where an operand is 0.
+    Returns the reference's uint32 result: saturated at 2**32 - 1 where
+    the approximate product of near-maximal operands overshoots it, 0
+    where an operand is 0.
     """
     if scheme.kind != "mul" or not 1 <= n_bits <= 16:
         raise ValueError(f"mitchell_mul takes a mul scheme and 1 <= n_bits "
@@ -262,7 +268,7 @@ def mitchell_mul(a: torch.Tensor, b: torch.Tensor,
     res = ((mant << pos) & UINT32_MAX) >> neg  # the uint32 shift wraps
     hi = ilog2(torch.clamp_min(mant, 1)) + shift
     res = torch.where(hi >= 32, UINT32_MAX, res)
-    return torch.where((a == 0) | (b == 0), 0, res)
+    return _as_uint32(torch.where((a == 0) | (b == 0), 0, res))
 
 
 def mitchell_div(a: torch.Tensor, b: torch.Tensor,
@@ -270,7 +276,7 @@ def mitchell_div(a: torch.Tensor, b: torch.Tensor,
                  n_bits: int = 8) -> torch.Tensor:
     """Mitchell/RAPID 2N-by-N divide: a < 2**(2*n_bits), b < 2**n_bits
     (2 * n_bits <= 31).  ``b == 0`` gives 2**(2*n_bits) - 1 (also when
-    ``a == 0``), ``a == 0`` otherwise 0.  Returns int64."""
+    ``a == 0``), ``a == 0`` otherwise 0.  Returns uint32."""
     if scheme.kind != "div" or not 1 <= n_bits or 2 * n_bits > 31:
         raise ValueError(f"mitchell_div takes a div scheme and 1 <= n_bits, "
                          f"2 * n_bits <= 31, got {scheme.kind!r}, {n_bits}")
@@ -280,4 +286,4 @@ def mitchell_div(a: torch.Tensor, b: torch.Tensor,
     neg = torch.clamp(-shift, 0, 31)
     res = ((mant << pos) & UINT32_MAX) >> neg
     res = torch.where(a == 0, 0, res)
-    return torch.where(b == 0, (1 << (2 * n_bits)) - 1, res)
+    return _as_uint32(torch.where(b == 0, (1 << (2 * n_bits)) - 1, res))

@@ -20,8 +20,6 @@
 // IEEE divide when no LUT is given).  An optional output receives each
 // row's denominator, so a check can hold the quotients against the plain
 // divide fed the kernel's own denominator.
-#include <atomic>
-
 #include "rapid.cuh"
 
 namespace {
@@ -38,23 +36,6 @@ cudaError_t launch_rows(int op, int warps, int grid, const float* x,
                         int rows, int n, int bm, float c_add, float c_mul,
                         float floor, cudaStream_t stream);
 
-// the card's SMs into *sms, read once per process (a failed read is
-// returned, and read again at the next call)
-cudaError_t sm_count(int* sms) {
-  static std::atomic<int> cached{0};
-  int count = cached.load(std::memory_order_relaxed);
-  if (count == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
-                                   dev);
-    if (err != cudaSuccess) return err;
-    cached.store(count, std::memory_order_relaxed);
-  }
-  *sms = count;
-  return cudaSuccess;
-}
 }  // namespace
 
 // depth 1: K2 / K3, rows held in registers; depth >= 2: K8, slabs of bm
@@ -128,7 +109,7 @@ elementwise_div_kernel(const float* __restrict__ a,
 
 cudaError_t div_grid(unsigned total, int* grid) {
   int sms = 0;
-  const cudaError_t err = sm_count(&sms);
+  const cudaError_t err = rapid::sm_count(&sms);
   if (err != cudaSuccess) return err;
   const unsigned want = (total + DIV_THREADS - 1) / DIV_THREADS;
   const unsigned cap = 8u * static_cast<unsigned>(sms);
@@ -512,7 +493,7 @@ cudaError_t launch_slabs(int op, int depth, int warps, int grid,
   // the grid kernels/spec.py planned: at most a block a slab, and one
   // wave that the card holds at once
   int sms = 0;
-  err = sm_count(&sms);
+  err = rapid::sm_count(&sms);
   if (err != cudaSuccess) return err;
   const long long nslabs = (static_cast<long long>(rows) + bm - 1) / bm;
   if (grid < 1 || grid > nslabs ||
@@ -857,7 +838,7 @@ cudaError_t launch_rows(int op, int warps, int grid, const float* x,
   // the grid kernels/spec.py planned: at most a block a slab, and one
   // wave that the card holds at once
   int sms = 0;
-  err = sm_count(&sms);
+  err = rapid::sm_count(&sms);
   if (err != cudaSuccess) return err;
   const long long nslabs = (static_cast<long long>(rows) + bm - 1) / bm;
   if (grid < 1 || grid > nslabs ||

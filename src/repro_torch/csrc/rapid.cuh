@@ -12,6 +12,7 @@
 // the plain PyTorch versions do.
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -109,6 +110,24 @@ __device__ __forceinline__ float log_mul_f32(float a, float b,
   const bool wrapped = half >= 0 && s < 0;
   s = (wrapped || m1 >= INF_BITS || m2 >= INF_BITS) ? INF_BITS : s;
   return finish(s, sign, m1 < MIN_NORMAL || m2 < MIN_NORMAL);
+}
+
+// the current device's SMs into *sms, read once per device (a failed read
+// is returned, and read again at the next call)
+inline cudaError_t sm_count(int* sms) {
+  constexpr int kDevices = 64;
+  static std::atomic<int> cached[kDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int count = dev < kDevices ? cached[dev].load(std::memory_order_relaxed) : 0;
+  if (count == 0) {
+    err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (dev < kDevices) cached[dev].store(count, std::memory_order_relaxed);
+  }
+  *sms = count;
+  return cudaSuccess;
 }
 
 }  // namespace rapid

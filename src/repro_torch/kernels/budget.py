@@ -29,6 +29,9 @@ __all__ = [
     "ROW_HOLD_N",
     "ROW_HOLD_BLOCKS_PER_SM",
     "WARP_HOLD",
+    "INT_THREADS",
+    "INT_BLOCKS_PER_SM",
+    "INT_WIDE_PAIRS",
     "SMS",
     "SMEM_PER_SM",
     "SMEM_RESERVED_PER_BLOCK",
@@ -87,6 +90,14 @@ ROW_HOLD_ROUNDS = 32
 ROW_HOLD_N = LANE * ROW_HOLD_ROUNDS
 ROW_HOLD_BLOCKS_PER_SM = 4
 WARP_HOLD = 16
+
+# K9 / K10 (csrc/rapid_int.cu): threads a block, and the blocks an SM
+# holds, which the launched instance's launch bounds promise (4 leave 64
+# registers a thread).  From INT_WIDE_PAIRS pairs the kernel indexes in
+# 64 bits
+INT_THREADS = 256
+INT_BLOCKS_PER_SM = 4
+INT_WIDE_PAIRS = 1 << 31
 
 
 def round_up(v: int, mult: int) -> int:

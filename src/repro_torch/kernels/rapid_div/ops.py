@@ -2,14 +2,15 @@
 
 ``rapid_div(a, b, scheme, n_bits)`` is the elementwise approximate
 quotient of unsigned ``a < 2**(2*n_bits)`` by ``b < 2**n_bits``
-(2 * n_bits <= 31), with broadcasting, returned as int64 holding the
-reference's uint32 value: ``b == 0`` gives ``2**(2*n_bits) - 1`` (also
-when ``a == 0``), ``a == 0`` otherwise 0.
+(2 * n_bits <= 31), with broadcasting, returned as ``torch.uint32``, the
+reference's dtype and value: ``b == 0`` gives ``2**(2*n_bits) - 1``
+(also when ``a == 0``), ``a == 0`` otherwise 0.
 
 * CPU tensors run the plain version, :func:`rapid_div_plain`
   (``core.mitchell.mitchell_div``).
 * CUDA tensors launch ``csrc/rapid_int.cu`` (replacing the Pallas
-  ``rapid_div_pallas``, ``src/repro/kernels/rapid_div/rapid_div.py``).
+  ``rapid_div_pallas``, ``src/repro/kernels/rapid_div/rapid_div.py``),
+  the same 12 B a pair stream as K9 (``kernels/rapid_mul/ops.py``).
 
 ``rapid_div.launches`` counts kernel launches (not plain calls).
 """
@@ -37,15 +38,15 @@ def rapid_div_plain(a: torch.Tensor, b: torch.Tensor,
 
 def rapid_div(a: torch.Tensor, b: torch.Tensor, scheme: Optional[str] = None,
               n_bits: int = 8) -> torch.Tensor:
-    """Elementwise RAPID a / b: a < 2**(2*n_bits), b < 2**n_bits."""
+    """Elementwise RAPID a / b: a < 2**(2*n_bits), b < 2**n_bits
+    (uint32)."""
     if not on_cuda(a, b):
         return rapid_div_plain(a, b, scheme, n_bits)
     if not 1 <= n_bits or 2 * n_bits > 31:
         raise ValueError(f"rapid_div: 1 <= n_bits, 2 * n_bits <= 31, got "
                          f"{n_bits}")
     sch = schemes.DIV_SCHEMES[scheme or DEFAULT_SCHEME]
-    out = _rapid_int.launch("rapid_div_int", a, b,
-                            mitchell.lut_device(sch, 2 * n_bits - 1, a.device),
+    out = _rapid_int.launch("rapid_div_int", a, b, sch, 2 * n_bits - 1,
                             n_bits)
     if out.numel():
         rapid_div.launches += 1

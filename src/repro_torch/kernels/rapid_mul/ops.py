@@ -2,13 +2,21 @@
 
 ``rapid_mul(a, b, scheme, n_bits)`` is the elementwise approximate
 product of unsigned ints below ``2**n_bits`` (n_bits <= 16), with
-broadcasting, returned as int64 holding the reference's uint32 value
-(saturated at 2**32 - 1; 0 where an operand is 0).
+broadcasting, returned as ``torch.uint32``, the reference's dtype and
+value (saturated at 2**32 - 1; 0 where an operand is 0).  A caller that
+needs arithmetic on it casts first (``.long()``, ``.double()``): torch
+has no uint32 add or max.
 
 * CPU tensors run the plain version, :func:`rapid_mul_plain`
   (``core.mitchell.mitchell_mul``).
 * CUDA tensors launch ``csrc/rapid_int.cu`` (replacing the Pallas
-  ``rapid_mul_pallas``, ``src/repro/kernels/rapid_mul/rapid_mul.py``).
+  ``rapid_mul_pallas``, ``src/repro/kernels/rapid_mul/rapid_mul.py``):
+  an elementwise stream of 12 B a pair (two int32 operands in, one
+  uint32 result out) in 16 B vectors, the next vector of each operand
+  loaded before a thread computes this one, 256 threads a block, one
+  wave of blocks at most (``kernels/spec.py::int_geometry``); the
+  unit's arithmetic is the reference's sequence with the rewrites
+  proved in the kernel's header.
 
 ``rapid_mul.launches`` counts kernel launches (not plain calls).
 """
@@ -36,15 +44,14 @@ def rapid_mul_plain(a: torch.Tensor, b: torch.Tensor,
 
 def rapid_mul(a: torch.Tensor, b: torch.Tensor, scheme: Optional[str] = None,
               n_bits: int = 16) -> torch.Tensor:
-    """Elementwise RAPID approximate product of unsigned ints < 2**n_bits."""
+    """Elementwise RAPID approximate product of unsigned ints < 2**n_bits
+    (uint32)."""
     if not on_cuda(a, b):
         return rapid_mul_plain(a, b, scheme, n_bits)
     if not 1 <= n_bits <= 16:
         raise ValueError(f"rapid_mul: 1 <= n_bits <= 16, got {n_bits}")
     sch = schemes.MUL_SCHEMES[scheme or DEFAULT_SCHEME]
-    out = _rapid_int.launch("rapid_mul_int", a, b,
-                            mitchell.lut_device(sch, n_bits - 1, a.device),
-                            n_bits)
+    out = _rapid_int.launch("rapid_mul_int", a, b, sch, n_bits - 1, n_bits)
     if out.numel():
         rapid_mul.launches += 1
     return out

@@ -49,6 +49,13 @@ slots one block folds before the segments are combined.  Both the
 wrapper and the plain version take them from :func:`resolve_spec`, so
 the plain version always runs the kernel's order.  K4 has one stage
 count: it double-buffers its chunks (:data:`FLASH_DEPTH`).
+
+K9 / K10's geometry is decided here too (:func:`int_split`,
+:func:`int_geometry`): the head, the 16 B vector body and the tail of a
+call, the blocks an SM, the threads a block and the grid, which the
+wrapper passes to ``csrc/rapid_int.cu``; the kernel refuses a block or
+thread count it did not compile, a grid past one wave and a head that
+leaves its vector body misaligned.
 """
 from __future__ import annotations
 
@@ -79,6 +86,9 @@ __all__ = [
     "FLASH_MAX_SEGMENT_CHUNKS",
     "FLASH_DEPTH",
     "flash_geometry",
+    "IntGeometry",
+    "int_split",
+    "int_geometry",
 ]
 
 #: families :func:`resolve_spec` resolves, with their ``shapes`` tuple:
@@ -225,6 +235,51 @@ def flash_geometry(rows: int, c: int) -> Tuple[int, int]:
     seg_chunks = min(FLASH_MAX_SEGMENT_CHUNKS,
                      max(1, -(-max(1, rows) * n_chunks // wave)))
     return FLASH_CHUNK, seg_chunks * FLASH_CHUNK
+
+
+class IntGeometry(NamedTuple):
+    """One K9 / K10 call's geometry (:func:`int_geometry`)."""
+
+    #: blocks an SM holds (the launched instance's launch bounds)
+    blocks_per_sm: int
+    #: threads a block
+    threads: int
+    #: blocks the kernel launches, at most one wave
+    grid: int
+    #: index in 64 bits (from budget.INT_WIDE_PAIRS pairs)
+    wide: bool
+
+
+def int_split(total: int, *addresses: int) -> Tuple[int, int, int]:
+    """(head, vectors, tail) of ``total`` elementwise pairs whose
+    operands and result start at the byte ``addresses`` (each 4 B
+    aligned): ``head`` elements before the first index at which every
+    address is 16 B aligned, then ``vectors`` vectors of 4 elements, then
+    a ``tail`` of fewer than 4.  Where the addresses are not congruent
+    mod 16 no index aligns them all, and the head is the whole call."""
+    if any(p % 4 for p in addresses):
+        raise ValueError(f"addresses must be 4 B aligned, got {addresses}")
+    if len({p % 16 for p in addresses}) > 1:
+        return total, 0, 0
+    head = min(total, (-addresses[0] % 16) // 4)
+    vectors = (total - head) // 4
+    return head, vectors, total - head - 4 * vectors
+
+
+def int_geometry(total: int, sms: int, head: int = 0) -> IntGeometry:
+    """K9 / K10's geometry for ``total`` pairs with a head of ``head``
+    elements (:func:`int_split`) on a card of ``sms`` SMs:
+    budget.INT_THREADS threads a block, budget.INT_BLOCKS_PER_SM blocks an
+    SM, and a grid of one wave of them, or fewer where a thread would
+    otherwise get no vector (or, past the vectors, no head or tail
+    element); 64-bit indices from budget.INT_WIDE_PAIRS pairs."""
+    threads = budget.INT_THREADS
+    vectors = (total - head) // 4
+    scalars = total - 4 * vectors
+    want = max(1, -(-vectors // threads), -(-scalars // threads))
+    grid = min(want, sms * budget.INT_BLOCKS_PER_SM)
+    return IntGeometry(budget.INT_BLOCKS_PER_SM, threads, grid,
+                       total >= budget.INT_WIDE_PAIRS)
 
 
 def _resolve_flash(rows: int, c: int, ks: KernelSpec) -> KernelSpec:

@@ -12,7 +12,8 @@ fixed lane grouping); K4 bit-equal to its plain version on the card
 rtol 1e-5, atol 1e-6 of it on the CPU (the CPU's exp and the card's
 differ in the last bit), at every segment geometry, run to run, and
 equal to the order that folds the chunks its skips; K5/K6 bit-equal
-(one log-domain divide per element, no reduction).
+(one log-domain divide per element, no reduction); K9/K10 bit-equal,
+uint32 as the reference (integer units).
 
 The special-operand cases feed each kernel 0, -0, +-inf, NaNs,
 subnormals and the operands next to the overflow edge
@@ -466,11 +467,26 @@ def _int_operands(rng, n, a_bits, b_bits):
     return (T(v.astype(np.int64)) for v in int_pairs(rng, n, a_bits, b_bits))
 
 
+def _assert_same_uint32(got, ref):
+    """uint32 results equal bit for bit (compared as int32 views: torch
+    has few uint32 ops)."""
+    assert got.dtype == ref.dtype == torch.uint32
+    assert got.shape == ref.shape
+    assert torch.equal(got.view(torch.int32).cpu(), ref.view(torch.int32).cpu())
+
+
+def _unit(kind):
+    from repro_torch.kernels.rapid_div.ops import rapid_div, rapid_div_plain
+    from repro_torch.kernels.rapid_mul.ops import rapid_mul, rapid_mul_plain
+    return (rapid_mul, rapid_mul_plain) if kind == "mul" else (
+        rapid_div, rapid_div_plain)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_bits", [8, 12, 16])
 @pytest.mark.parametrize("scheme", ["mitchell", "rapid3", "rapid5", "rapid10"])
 def test_cuda_rapid_mul_matches_plain(cuda, n_bits, scheme):
-    from repro_torch.kernels.rapid_mul.ops import rapid_mul, rapid_mul_plain
+    rapid_mul, rapid_mul_plain = _unit("mul")
     if n_bits == 8:  # exhaustive, the Table III method
         g = np.arange(256, dtype=np.int64)
         a, b = (T(v.ravel().copy()) for v in np.meshgrid(g, g))
@@ -478,18 +494,16 @@ def test_cuda_rapid_mul_matches_plain(cuda, n_bits, scheme):
         a, b = _int_operands(np.random.default_rng(n_bits), 1 << 20,
                              n_bits, n_bits)
     got = rapid_mul(a.to(cuda).to(torch.int32), b.to(cuda), scheme, n_bits)
-    ref = rapid_mul_plain(a.to(cuda), b.to(cuda), scheme, n_bits)
-    assert got.dtype == torch.int64
-    torch.testing.assert_close(got, ref, rtol=0, atol=0)
-    torch.testing.assert_close(got.cpu(), rapid_mul_plain(a, b, scheme, n_bits),
-                               rtol=0, atol=0)
+    _assert_same_uint32(got, rapid_mul_plain(a.to(cuda), b.to(cuda), scheme,
+                                             n_bits))
+    _assert_same_uint32(got, rapid_mul_plain(a, b, scheme, n_bits))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_bits", [4, 8, 15])
 @pytest.mark.parametrize("scheme", ["mitchell", "rapid3", "rapid5", "rapid9"])
 def test_cuda_rapid_div_matches_plain(cuda, n_bits, scheme):
-    from repro_torch.kernels.rapid_div.ops import rapid_div, rapid_div_plain
+    rapid_div, rapid_div_plain = _unit("div")
     a, b = _int_operands(np.random.default_rng(n_bits), 1 << 20,
                          2 * n_bits, n_bits)
     if n_bits == 8:  # every divisor against a sweep of dividends
@@ -497,25 +511,154 @@ def test_cuda_rapid_div_matches_plain(cuda, n_bits, scheme):
         a = torch.cat([a, T(np.tile(g, 4))])
         b = torch.cat([b, T(np.repeat(np.arange(256, dtype=np.int64), 1024))])
     got = rapid_div(a.to(cuda), b.to(cuda).to(torch.int16), scheme, n_bits)
-    ref = rapid_div_plain(a.to(cuda), b.to(cuda), scheme, n_bits)
-    torch.testing.assert_close(got, ref, rtol=0, atol=0)
-    torch.testing.assert_close(got.cpu(), rapid_div_plain(a, b, scheme, n_bits),
-                               rtol=0, atol=0)
+    _assert_same_uint32(got, rapid_div_plain(a.to(cuda), b.to(cuda), scheme,
+                                             n_bits))
+    _assert_same_uint32(got, rapid_div_plain(a, b, scheme, n_bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,n_bits", [("mul", n) for n in range(1, 17)]
+                         + [("div", n) for n in range(1, 16)])
+def test_cuda_rapid_int_every_width(cuda, kind, n_bits):
+    """Every width each unit takes, every registered scheme, random pairs
+    headed by the special operands (0 on either side and both, 1, the
+    largest values, a < b, K10's b = 0), and the largest 64 x 64
+    operands; bit-equal to the plain version on the card."""
+    from repro_torch.core import schemes
+    fn, plain = _unit(kind)
+    a_bits = n_bits if kind == "mul" else 2 * n_bits
+    a, b = (v.to(cuda) for v in _int_operands(
+        np.random.default_rng(n_bits), 40_000, a_bits, n_bits))
+    top = torch.arange(max(0, (1 << n_bits) - 64), 1 << n_bits, device=cuda)
+    a = torch.cat([a, top.repeat_interleave(top.numel()) << (a_bits - n_bits)])
+    b = torch.cat([b, top.repeat(top.numel())])
+    for scheme in (schemes.MUL_SCHEMES if kind == "mul"
+                   else schemes.DIV_SCHEMES):
+        _assert_same_uint32(fn(a, b, scheme, n_bits),
+                            plain(a, b, scheme, n_bits))
+
+
+@pytest.mark.gpu
+def test_cuda_rapid_mul_saturates_as_plain(cuda):
+    """K9 at 16 bits saturates at 0xFFFFFFFF where the approximate product
+    of near-maximal operands passes 2^32, as the plain version does."""
+    rapid_mul, rapid_mul_plain = _unit("mul")
+    top = torch.arange(65536 - 256, 65536, device=cuda)
+    a, b = top.repeat_interleave(256), top.repeat(256)
+    for scheme in ("mitchell", "rapid3", "rapid5", "rapid10"):
+        got = rapid_mul(a, b, scheme, 16)
+        _assert_same_uint32(got, rapid_mul_plain(a, b, scheme, 16))
+        if scheme != "mitchell":
+            assert int((got.view(torch.int32) == -1).sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["mul", "div"])
+@pytest.mark.parametrize("total", [1, 3, 4, 5, 4097, (1 << 20) + 3])
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 1), (2, 2), (3, 3), (1, 0),
+                                     (2, 3)])
+def test_cuda_rapid_int_ragged_and_offset(cuda, kind, total, offsets):
+    """Ragged totals and operands that start 0-3 elements past a 16 B
+    boundary (``a[k:]`` of a contiguous buffer): a shared offset takes a
+    head of single elements before the 16 B vector body, different
+    offsets the single-element path for the whole call; bit-equal to the
+    plain version, every element written (the result's memory is filled
+    with a sentinel first)."""
+    fn, plain = _unit(kind)
+    n_bits = 16 if kind == "mul" else 8
+    a_bits = n_bits if kind == "mul" else 2 * n_bits
+    a, b = (v.to(cuda).to(torch.int32) for v in _int_operands(
+        np.random.default_rng(total), total + 3, a_bits, n_bits))
+    a, b = a[offsets[0]:offsets[0] + total], b[offsets[1]:offsets[1] + total]
+    # the result starts where a does mod 16 B when a and b share an offset
+    lag = offsets[0] if offsets[0] == offsets[1] else 0
+    ref = plain(a, b, None, n_bits)
+    for sentinel in (0x5A5A5A5A, 0x7FFFFFFF):
+        fill = torch.full((total + lag,), sentinel, dtype=torch.int32,
+                          device=cuda)
+        at = fill.data_ptr()
+        del fill  # the result's allocation takes this block back
+        got = fn(a, b, None, n_bits)
+        assert got.data_ptr() == at + 4 * lag
+        _assert_same_uint32(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["mul", "div"])
+def test_cuda_rapid_int_wide_indices(cuda, kind):
+    """The 64-bit index form (taken from 2^31 pairs) on a small call,
+    with a head of single elements, through the C entry point."""
+    from repro_torch.core import mitchell, schemes
+    from repro_torch.kernels import _build, _rapid_int
+    from repro_torch.kernels._launch import ptr, stream
+    from repro_torch.kernels.spec import int_geometry, int_split
+    _, plain = _unit(kind)
+    n_bits = 16 if kind == "mul" else 8
+    a_bits = n_bits if kind == "mul" else 2 * n_bits
+    a, b = (v.to(cuda).to(torch.int32)[1:] for v in _int_operands(
+        np.random.default_rng(5), 100_003, a_bits, n_bits))
+    scheme, frac = ((schemes.MUL_SCHEMES["rapid10"], n_bits - 1)
+                    if kind == "mul"
+                    else (schemes.DIV_SCHEMES["rapid9"], 2 * n_bits - 1))
+    out = torch.empty(a.numel() + 1, dtype=torch.uint32, device=cuda)[1:]
+    head, _, _ = int_split(a.numel(), a.data_ptr(), b.data_ptr(),
+                           out.data_ptr())
+    assert 0 < head < 4
+    geom = int_geometry(a.numel(), _rapid_int.sm_count(cuda.index or 0),
+                        head)
+    assert not geom.wide
+    fn = _build.function("rapid_int", f"rapid_{kind}_int",
+                         _rapid_int.ARGTYPES)
+    err = fn(ptr(a), ptr(b), ptr(mitchell.lut_device(scheme, frac, cuda)),
+             ptr(out), a.numel(), head, n_bits, geom.blocks_per_sm,
+             geom.threads, geom.grid, 1, stream(cuda))
+    assert err == 0
+    _assert_same_uint32(out, plain(a, b, None, n_bits))
+
+
+@pytest.mark.gpu
+def test_cuda_rapid_int_refuses_what_it_did_not_compile(cuda):
+    """The kernel refuses a block or thread count it did not compile, a
+    grid past one wave or empty, a head that leaves its body misaligned,
+    and 32-bit indices from 2^31 pairs."""
+    from repro_torch.core import mitchell, schemes
+    from repro_torch.kernels import _build, _rapid_int, budget
+    from repro_torch.kernels._launch import ptr, stream
+    a = torch.ones(64, dtype=torch.int32, device=cuda)
+    out = torch.empty(64, dtype=torch.uint32, device=cuda)
+    lut = mitchell.lut_device(schemes.MUL_SCHEMES["rapid10"], 15, cuda)
+    fn = _build.function("rapid_int", "rapid_mul_int", _rapid_int.ARGTYPES)
+    blocks = budget.INT_BLOCKS_PER_SM
+    wave = _rapid_int.sm_count(cuda.index or 0) * blocks
+
+    def call(total=64, head=0, blocks_per_sm=blocks,
+             threads=budget.INT_THREADS, grid=1, wide=0, x=a):
+        return fn(ptr(x), ptr(a), ptr(lut), ptr(out), total, head, 16,
+                  blocks_per_sm, threads, grid, wide, stream(cuda))
+
+    assert call() == 0
+    torch.cuda.synchronize()
+    assert call(grid=wave) == 0
+    for bad in (dict(blocks_per_sm=3), dict(threads=128), dict(grid=0),
+                dict(grid=wave + 1), dict(head=1), dict(x=a[1:], total=63),
+                dict(total=1 << 31)):
+        assert call(**bad) != 0, bad
+    assert call(x=a[1:], total=63, head=63) == 0  # single elements only
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
 def test_cuda_rapid_int_broadcast_empty_and_counts(cuda):
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.kernels.rapid_div.ops import rapid_div, rapid_div_plain
-    from repro_torch.kernels.rapid_mul.ops import rapid_mul, rapid_mul_plain
+    rapid_mul, rapid_mul_plain = _unit("mul")
+    rapid_div, rapid_div_plain = _unit("div")
     reset_launch_counts()
     a = torch.arange(60, device=cuda).reshape(3, 20)
     b = torch.arange(20, device=cuda)
-    torch.testing.assert_close(rapid_mul(a, b), rapid_mul_plain(a, b),
-                               rtol=0, atol=0)
-    torch.testing.assert_close(rapid_div(a, b[:1] + 3), rapid_div_plain(a, b[:1] + 3),
-                               rtol=0, atol=0)
-    assert rapid_mul(a[:0], b).shape == (0, 20)
+    _assert_same_uint32(rapid_mul(a, b), rapid_mul_plain(a, b))
+    _assert_same_uint32(rapid_div(a, b[:1] + 3), rapid_div_plain(a, b[:1] + 3))
+    empty = rapid_mul(a[:0], b)
+    assert empty.shape == (0, 20) and empty.dtype == torch.uint32
     with pytest.raises(TypeError):
         rapid_mul(a.float(), b)
     counts = launch_counts()

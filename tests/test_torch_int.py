@@ -3,7 +3,9 @@ AAXD baselines, ``approx_mul`` / ``approx_div`` and ``qmatmul_batched``
 against the JAX reference (CPU, plain torch).
 
 Contract: the integer units bit-equal to the reference's Pallas kernels
-in interpret mode, to its jnp units and to its numpy oracle; the numpy
+in interpret mode, to its jnp units and to its numpy oracle, returning
+its dtype (uint32); a numpy model of the CUDA kernel's rewritten
+arithmetic (``csrc/rapid_int.cu``) bit-equal to the plain units; the numpy
 oracles equal; the truncated baselines and the elementwise float ops
 bit-equal, specials included; ``qmatmul_batched`` within rtol 1e-5 of
 the reference's (which sums in chunks of 64 k's, the port one k at a
@@ -98,13 +100,20 @@ def test_numpy_oracles_equal_reference(kind, scheme, n_bits, quantize):
     np.testing.assert_array_equal(got, ref)
 
 
+def _same_uint32(got, *refs):
+    """``got`` and every ``ref`` are uint32 arrays of the same values."""
+    for ref in refs:
+        assert got.dtype == ref.dtype == np.uint32
+        np.testing.assert_array_equal(got, ref)
+
+
 def _check_mul(a, b, scheme, n_bits):
     """Port plain K9 (through the wrapper's CPU route and the core unit)
     against the reference's Pallas kernel (interpret), jnp unit and
     numpy oracle."""
     got = rapid_mul(T(a.astype(np.int64)), T(b.astype(np.int64)), scheme,
                     n_bits)
-    assert got.dtype == torch.int64
+    assert got.dtype == torch.uint32
     core = tmit.mitchell_mul(T(a.astype(np.int64)), T(b.astype(np.int64)),
                              tsch.MUL_SCHEMES[scheme], n_bits)
     pallas = np.asarray(jrapid_mul(jnp.asarray(a), jnp.asarray(b), scheme,
@@ -113,14 +122,14 @@ def _check_mul(a, b, scheme, n_bits):
                                         jsch.MUL_SCHEMES[scheme], n_bits))
     oracle = np.minimum(jmit.mitchell_mul_np(a, b, jsch.MUL_SCHEMES[scheme],
                                              n_bits), np.uint64(0xFFFFFFFF))
-    for ref in (pallas, unit, oracle):
-        np.testing.assert_array_equal(got.numpy(), ref.astype(np.int64))
-    np.testing.assert_array_equal(core.numpy(), got.numpy())
+    _same_uint32(got.numpy(), pallas, unit, oracle.astype(np.uint32))
+    _same_uint32(core.numpy(), got.numpy())
 
 
 def _check_div(a, b, scheme, n_bits):
     got = rapid_div(T(a.astype(np.int64)), T(b.astype(np.int64)), scheme,
                     n_bits)
+    assert got.dtype == torch.uint32
     core = tmit.mitchell_div(T(a.astype(np.int64)), T(b.astype(np.int64)),
                              tsch.DIV_SCHEMES[scheme], n_bits)
     pallas = np.asarray(jrapid_div(jnp.asarray(a), jnp.asarray(b), scheme,
@@ -128,9 +137,9 @@ def _check_div(a, b, scheme, n_bits):
     unit = np.asarray(jmit.mitchell_div(jnp.asarray(a), jnp.asarray(b),
                                         jsch.DIV_SCHEMES[scheme], n_bits))
     oracle = jmit.mitchell_div_np(a, b, jsch.DIV_SCHEMES[scheme], n_bits)
-    for ref in (pallas, unit, oracle):
-        np.testing.assert_array_equal(got.numpy(), ref.astype(np.int64))
-    np.testing.assert_array_equal(core.numpy(), got.numpy())
+    assert int(oracle.max()) <= 0xFFFFFFFF
+    _same_uint32(got.numpy(), pallas, unit, oracle.astype(np.uint32))
+    _same_uint32(core.numpy(), got.numpy())
 
 
 @pytest.mark.parametrize("n_bits", [8, 16])
@@ -197,14 +206,124 @@ def test_shift_amounts_stay_in_range(kind, n_bits, scheme_i):
     assert int(mant.min()) >= 0
 
 
+# --------------------------------------------------------------------------
+# a numpy model of csrc/rapid_int.cu's arithmetic: its rewrites of the
+# reference's sequence (see the kernel's header), uint32 lanes in uint64
+# --------------------------------------------------------------------------
+
+_M32 = np.uint64(0xFFFFFFFF)
+
+
+def _clamp(s):
+    """A shift amount as shf.*.clamp reads it: unsigned, at most 32."""
+    s = np.asarray(s, dtype=np.int64)
+    return np.where(s < 0, 32, np.minimum(s, 32)).astype(np.uint64)
+
+
+def _funnel_l(lo, hi, s):
+    """__funnelshift_lc: the high word of (hi:lo) << min(s, 32)."""
+    s = _clamp(s)
+    return ((hi << s) | (lo >> (np.uint64(32) - s))) & _M32
+
+
+def _funnel_r(lo, hi, s):
+    """__funnelshift_rc: the low word of (hi:lo) >> min(s, 32)."""
+    return (((hi << np.uint64(32)) | lo) >> _clamp(s)) & _M32
+
+
+def _kernel_operand(v, rs):
+    c = np.where(v == 0, 32, 31 - tbit.ilog2_np(np.maximum(v, 1)))
+    nv = _funnel_l(np.zeros_like(v), v, c)
+    return c.astype(np.int64), nv, (nv >> np.uint64(rs)).astype(np.int64)
+
+
+def _kernel_unit(kind, a, b, lut, n_bits):
+    """K9 / K10 as the kernel computes them (uint32 out)."""
+    a, b = a.astype(np.uint64), b.astype(np.uint64)
+    F = n_bits - 1 if kind == "mul" else 2 * n_bits - 1
+    one = 1 << F
+    s_lut = lut.astype(np.int64) if F >= 4 else np.full(256, int(lut[0]))
+    c1, n1, x1 = _kernel_operand(a, 31 - F)
+    c2, n2, x2 = _kernel_operand(b, 31 - F)
+    cell = s_lut[(((n1 >> np.uint64(23)) & np.uint64(0xF0))
+                  | ((n2 >> np.uint64(27)) & np.uint64(0xF))).astype(np.int64)]
+    zero = np.zeros_like(a)
+    if kind == "mul":
+        total = x1 + x2 + cell
+        carry = (total >= 3 * one).astype(np.int64)
+        mant = (total - np.where(carry == 1, 2 * one, one)).astype(np.uint64)
+        e = 62 - c1 - c2 + carry
+        lo = _funnel_l(zero, mant, e)
+        hi = _funnel_l(mant, zero, e)
+        res = np.where(hi >= one, _M32, _funnel_r(lo, hi, F))
+        res = np.where((a == 0) | (b == 0), 0, res)
+    else:
+        s = x1 - x2 + cell
+        borrow = (s < 0).astype(np.int64)
+        mant = (s + np.where(borrow == 1, 2 * one, one)).astype(np.uint64)
+        res = np.where(a == 0, 0, _funnel_r(mant, zero, F + c1 - c2 + borrow))
+        res = np.where(b == 0, (1 << (2 * n_bits)) - 1, res)
+    return res.astype(np.uint32)
+
+
+@pytest.mark.parametrize("kind,n_bits", [("mul", n) for n in range(1, 17)]
+                         + [("div", n) for n in range(1, 16)])
+def test_kernel_arithmetic_model_bit_exact(kind, n_bits):
+    """The kernel's rewrites (f + 2^F from the clz-normalised operand, the
+    cell index from its bits 30..27, no clamp of the mantissa, K9's
+    result and saturation from a 64-bit shift, K10's shift clamped at 32)
+    give the plain unit's bits at every width and registered scheme, on
+    every pair at 8 bits and under, on random pairs headed by the special
+    operands above, and on the largest operands (K9's saturation)."""
+    a_bits = n_bits if kind == "mul" else 2 * n_bits
+    table = tsch.MUL_SCHEMES if kind == "mul" else tsch.DIV_SCHEMES
+    if a_bits <= 8 and n_bits <= 8:
+        g = np.arange(1 << a_bits, dtype=np.uint32)
+        a = np.repeat(g, 1 << n_bits)
+        b = np.tile(np.arange(1 << n_bits, dtype=np.uint32), g.size)
+    else:
+        a, b = int_pairs(np.random.default_rng(n_bits), 20000, a_bits, n_bits)
+        top = np.arange(max(0, (1 << n_bits) - 64), 1 << n_bits,
+                        dtype=np.uint32)
+        a = np.concatenate([a, np.repeat(top, top.size)
+                            << np.uint32(a_bits - n_bits)])
+        b = np.concatenate([b, np.tile(top, top.size)])
+    F = n_bits - 1 if kind == "mul" else 2 * n_bits - 1
+    saturated = 0
+    for scheme in table.values():
+        lut = tmit.lut_host(scheme, F)
+        assert int(lut.min()) > -(1 << F)  # the wrapper's precondition
+        ref = (tmit.mitchell_mul if kind == "mul" else tmit.mitchell_div)(
+            T(a.astype(np.int64)), T(b.astype(np.int64)), scheme, n_bits)
+        got = _kernel_unit(kind, a, b, lut, n_bits)
+        _same_uint32(got, ref.numpy())
+        saturated += int((got == 0xFFFFFFFF).sum())
+    if kind == "mul" and n_bits == 16:
+        assert saturated > 0  # the saturation is reached and held
+
+
+def test_kernel_refuses_a_lut_outside_its_proof():
+    """The kernel drops the reference's clamp of the mantissa at 0, which
+    needs every LUT coefficient above -2^F: the wrapper's check passes
+    every registered scheme at every width and refuses one at -1."""
+    from repro_torch.kernels._rapid_int import _lut_in_contract
+    for table, widths in ((tsch.MUL_SCHEMES, range(0, 16)),
+                          (tsch.DIV_SCHEMES, range(1, 30, 2))):
+        for scheme in table.values():
+            assert all(_lut_in_contract(scheme, f) for f in widths)
+    bad = tmit.ErrorScheme("minus_one", "mul", tmit.MITCHELL_MUL.assign,
+                           (-1.0,))
+    assert not _lut_in_contract(bad, 8)
+
+
 def test_integer_wrappers_route_cpu_and_defaults():
     reset_launch_counts()
     a = torch.arange(300, dtype=torch.int32)
     b = torch.arange(300, dtype=torch.int16).flip(0)
-    np.testing.assert_array_equal(
+    _same_uint32(
         rapid_mul(a, b).numpy(),
         tmit.mitchell_mul(a, b, tsch.MUL_SCHEMES["rapid10"], 16).numpy())
-    np.testing.assert_array_equal(
+    _same_uint32(
         rapid_div(a, b[:1]).numpy(),  # broadcast divisor
         tmit.mitchell_div(a, b[:1], tsch.DIV_SCHEMES["rapid9"], 8).numpy())
     assert launch_counts()["rapid_mul"] == launch_counts()["rapid_div"] == 0

@@ -629,3 +629,85 @@ def test_deferred_depth_context_overrides_the_heuristic_only():
     with pytest.raises(ValueError):
         with deferred_depth(0):
             pass
+
+
+# --------------------------------------------------------------------------
+# K9 / K10: int_split / int_geometry (csrc/rapid_int.cu's partition)
+# --------------------------------------------------------------------------
+
+def _walk_int_kernel(total, head, geom):
+    """How often csrc/rapid_int.cu writes each element: thread t of the
+    grid's S threads walks vectors t, t + S, t + 2 S, ... below V, the
+    head and tail elements t, t + S, ... below their count.  Returns the
+    count of each element and of each thread's vectors."""
+    vectors = (total - head) // 4
+    stride = geom.grid * geom.threads
+    hits = np.zeros(total, dtype=np.int64)
+    v = np.arange(vectors)
+    for j in range(4):
+        np.add.at(hits, head + 4 * v + j, 1)
+    per_thread = np.bincount(v % stride, minlength=stride)
+    tail = head + 4 * vectors
+    for i in range(head + total - tail):
+        hits[i if i < head else tail + i - head] += 1
+    return hits, per_thread
+
+
+@pytest.mark.parametrize("total", [1, 3, 4, 5, 4097, (1 << 20) + 3])
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 1), (2, 2), (3, 3), (1, 0),
+                                     (0, 3)])
+@pytest.mark.parametrize("sms", [132, 7])
+def test_int_split_covers_every_element_once(total, offsets, sms):
+    """For ragged totals and operands starting 0-3 elements past a 16 B
+    boundary (the result placed as the wrapper places it: at the first
+    operand's offset where the two operands share theirs, else aligned),
+    the head, the 16 B vector body and the tail cover every element
+    exactly once, the body starts 16 B aligned for all three, the threads
+    walk the same count of vectors to within one and the grid never
+    exceeds one wave."""
+    from repro_torch.kernels.spec import int_geometry, int_split
+    a_off, b_off = offsets
+    out_off = a_off if a_off == b_off else 0
+    addresses = (4096 + 4 * a_off, 65536 + 4 * b_off, (1 << 20) + 4 * out_off)
+    head, vectors, tail = int_split(total, *addresses)
+    assert head + 4 * vectors + tail == total and 0 <= tail < 4
+    if a_off == b_off:
+        assert head == min(total, -a_off % 4)
+        assert head == total or all((p + 4 * head) % 16 == 0
+                                    for p in addresses)
+    else:
+        assert (head, vectors, tail) == (total, 0, 0)
+    geom = int_geometry(total, sms, head)
+    assert geom.threads == budget.INT_THREADS and not geom.wide
+    assert geom.blocks_per_sm == budget.INT_BLOCKS_PER_SM
+    assert 1 <= geom.grid <= sms * budget.INT_BLOCKS_PER_SM
+    hits, per_thread = _walk_int_kernel(total, head, geom)
+    assert (hits == 1).all()
+    assert per_thread.max() - per_thread.min() <= 1
+
+
+@pytest.mark.parametrize("total,head,grid", [
+    (1 << 24, 0, 132 * budget.INT_BLOCKS_PER_SM),  # 2^24 pairs: one wave
+    (1 << 17, 0, 128),           # 2^15 vectors: a vector a thread
+    (65536, 0, 64),              # the 8-bit exhaustive call
+    (65536, 3, 64),              # a head of 3, 16383 vectors, a tail of 1
+    (4097, 0, 4),                # 1024 vectors, and a tail element
+    (300, 300, 2),               # no vector body: 300 single elements
+    (3, 0, 1), (1, 1, 1),
+])
+def test_int_geometry_rule(total, head, grid):
+    """One wave of resident blocks, or fewer where a thread would get no
+    vector (or no single element); the kernel's THREADS; 64-bit indices
+    from 2^31 pairs."""
+    from repro_torch.kernels.spec import int_geometry
+    geom = int_geometry(total, budget.SMS, head)
+    assert geom == (budget.INT_BLOCKS_PER_SM, budget.INT_THREADS, grid,
+                    False)
+    assert int_geometry(1 << 31, budget.SMS).wide
+    assert not int_geometry((1 << 31) - 1, budget.SMS).wide
+
+
+def test_int_split_refuses_unaligned_addresses():
+    from repro_torch.kernels.spec import int_split
+    with pytest.raises(ValueError):
+        int_split(8, 2, 0, 0)
