@@ -55,9 +55,9 @@ one NVIDIA H100.  It
    and depth 2 everywhere, in turns on this card (the lockstep decode
    step and prefill, the continuous prefill tick), and
    ``launch/k1_times.py`` at depths 1, 2 and 3 (the depth A/B); then K1,
-   K4, K8 and K9/K10 before and after: ``k1_times.py``, ``k4_times.py``,
-   ``k8_times.py`` and ``int_times.py`` on the parent commit's kernels
-   and on this tree's in
+   K4, the dividers (K2/K3/K5 at depth 1, K8, K6) and K9/K10 before and
+   after: ``k1_times.py``, ``k4_times.py``, ``k8_times.py`` and
+   ``int_times.py`` on the parent commit's kernels and on this tree's in
    turns (parent, this, this, parent), where the parent's sources can be
    unpacked, and the parent's Table III (``int_times.py --table3``);
    the record names the parent's revision (information);
@@ -91,9 +91,9 @@ on the proof's own bounds and one step outside them.  Beside the row
 dividers it times library yardsticks the port never calls (torch's f32
 ``rms_norm`` at the rms rows, ``F.normalize(e, p=1)`` at the softmax
 rows, ``a / b[:, None]`` at the row-broadcast rows, ``a / b`` beside K6,
-f32 ``torch.matmul`` beside K1's rows without an epilogue, int32 ``a *
-b`` and ``a // b`` beside K9 / K10; exact arithmetic, no RAPID) and the
-card's launch floor, one
+f32 ``torch.matmul`` beside K1's rows without an epilogue and its
+batched JPEG products, int32 ``a * b`` and ``a // b`` beside K9 / K10;
+exact arithmetic, no RAPID) and the card's launch floor, one
 graph-replayed one-element torch op (information).  K2 / K3 also run at
 4 x 40 000, where the deferred depth falls back to 1 and the kernel
 streams the rounds past those a thread holds.
@@ -761,12 +761,18 @@ def kernel_phase(torch, dev, timer):
 
     # K5: the online-softmax combine acc / l of a 64-token prefill chunk
     # (64 x 32 heads rows of head_dim 80) and of an 8320-token blockwise
-    # prefill, at every stage count (depth >= 2: K8); K6 at 2048 x 2048.
-    # Special operands (0, -0, +-inf, NaN, subnormals, the overflow edge)
-    # head every operand; tolerance: bit-equal, NaN payloads aside.
-    # Bound: bytes (each operand read once, the output written once), ops
-    # = 3 int32 ops per divide.  Library (K5): torch's f32 a / b[:, None],
-    # a yardstick with an exact divide
+    # prefill, at every stage count (depth >= 2: K8), and at depth 1 also
+    # with a starting 4 B past a 16 B boundary (the combine hands K5 a
+    # view of the caller's tensor: a head of single elements, then the
+    # 16 B stream); K6 where the apps launch it -- 2048 x 2048 (JPEG's
+    # quantization of a 2048^2 frame, 65 536 blocks of 64), 1024 x 1024
+    # (Harris), 59 498 samples (Pan-Tompkins) -- and at 2048 x 2048 with
+    # both operands 4 B past a 16 B boundary.  Special operands (0, -0,
+    # +-inf, NaN, subnormals, the overflow edge) head every operand;
+    # tolerance: bit-equal, NaN payloads aside.  Bound: bytes (each
+    # operand read once, the output written once), ops = 3 int32 ops per
+    # divide.  Library: torch's f32 a / b[:, None] (K5, K8) and a / b
+    # (K6), yardsticks with an exact divide
     specials = torch.tensor(
         [0.0, -0.0, float("inf"), -float("inf"), float("nan"), 1e-40,
          -1e-42, 3.4e38, -3.4e38, 1e-38, 2.0**64, 2.0**-64], device=dev)
@@ -778,6 +784,12 @@ def kernel_phase(torch, dev, timer):
         t.view(-1)[:special.numel()] = special
         return t
 
+    def past16(t, off=1):  # t's values, starting 4 * off B past 16 B
+        flat = torch.empty(t.numel() + off, device=dev)
+        out = flat[off:].view(t.shape)
+        out.copy_(t)
+        return out
+
     for rows in (64 * 32, LONG_PROMPT * 32):
         a = with_specials(randn(rows, HD))
         b = with_specials(randn(rows).abs() * 40 + 1)
@@ -788,37 +800,42 @@ def kernel_phase(torch, dev, timer):
         lib = {"library_ms": timer.graph(lambda: a / b[:, None], reps),
                "library": "a / b[:, None], f32 (exact divide, no RAPID; "
                           "never called by the port)"}
-        for depth in DEPTHS:
-            got = div_rowbcast(a, b, "rapid9", spec=at(depth))
+        for depth, x in [(d, a) for d in DEPTHS] + [(1, past16(a))]:
+            got = div_rowbcast(x, b, "rapid9", spec=at(depth))
             torch.cuda.synchronize()
             ok = same_bits(got, ref)
-            k5 = lambda: div_rowbcast(a, b, "rapid9",  # noqa: E731
+            k5 = lambda: div_rowbcast(x, b, "rapid9",  # noqa: E731
                                       spec=at(depth))
             record("div_rowbcast" if depth == 1 else "rowwise_pipelined",
-                   f"a=[{rows},{HD}] b=[{rows}] depth={depth}",
+                   f"a=[{rows},{HD}] b=[{rows}] depth={depth}"
+                   + ("" if x is a else " a +4B"),
                    abs_max(got[fin], ref[fin]), 0 if ok else -1, ok,
                    timer.graph(k5, reps), plain_ms,
                    4 * (2 * rows * HD + rows), 3 * rows * HD, INT32_OPS_PER_S,
                    {"call_ms": timer(k5, 20), "depth": depth, **lib})
             del got
         del a, b, ref
-    a = with_specials(randn(2048, 2048))
-    b = with_specials(randn(2048, 2048))
-    got = div_elementwise(a, b, "rapid9")
-    ref = div_plain(a, b, "rapid9")
-    torch.cuda.synchronize()
-    ok = same_bits(got, ref)
-    fin = torch.isfinite(ref)
-    k6 = lambda: div_elementwise(a, b, "rapid9")  # noqa: E731
-    record("div", "a=b=[2048,2048]", abs_max(got[fin], ref[fin]),
-           0 if ok else -1, ok, timer.graph(k6, 50),
-           timer(lambda: div_plain(a, b, "rapid9"), 3),
-           4 * 3 * a.numel(), 3 * a.numel(), INT32_OPS_PER_S,
-           {"call_ms": timer(k6, 20),
-            "library_ms": timer.graph(lambda: a / b, 50),
-            "library": "a / b, f32 (exact divide, no RAPID; never called "
-                       "by the port)"})
-    del a, b, got, ref
+    for shape, off in (((2048, 2048), 0), ((1024, 1024), 0), ((59498,), 0),
+                       ((2048, 2048), 1)):
+        a = past16(with_specials(randn(*shape)), off)
+        b = past16(with_specials(randn(*shape)), off)
+        got = div_elementwise(a, b, "rapid9")
+        ref = div_plain(a, b, "rapid9")
+        torch.cuda.synchronize()
+        ok = same_bits(got, ref)
+        fin = torch.isfinite(ref)
+        k6 = lambda: div_elementwise(a, b, "rapid9")  # noqa: E731
+        reps = 50 if a.numel() > 10**6 else 200
+        record("div", "a=b=[" + ",".join(map(str, shape)) + "]"
+               + (" +4B" if off else ""), abs_max(got[fin], ref[fin]),
+               0 if ok else -1, ok, timer.graph(k6, reps),
+               timer(lambda: div_plain(a, b, "rapid9"), 3),
+               4 * 3 * a.numel(), 3 * a.numel(), INT32_OPS_PER_S,
+               {"call_ms": timer(k6, 20),
+                "library_ms": timer.graph(lambda: a / b, reps),
+                "library": "a / b, f32 (exact divide, no RAPID; never "
+                           "called by the port)"})
+        del a, b, got, ref
     integer_and_batched_cases(torch, dev, timer, g, record, at)
     return cases
 
@@ -901,6 +918,9 @@ def integer_and_batched_cases(torch, dev, timer, g, record, at):
             JPEG_BLOCKS, 8, 8)
         ref = log_matmul_plain(x, w, "rapid10")
         plain_ms = timer(lambda: log_matmul_plain(x, w, "rapid10"), 2)
+        lib = {"library_ms": timer.graph(lambda: torch.matmul(x, w), 20),
+               "library": "torch.matmul, batched f32 with TF32 off (exact, "
+                          "no RAPID; never called by the port)"}
         for depth in DEPTHS:  # one K block: nk < depth from depth 2 on
             got = log_matmul(x, w, "rapid10", spec=at(depth))
             torch.cuda.synchronize()
@@ -915,7 +935,7 @@ def integer_and_batched_cases(torch, dev, timer, g, record, at):
                    4 * (64 + 2 * JPEG_BLOCKS * 64),
                    JPEG_BLOCKS * 512 * INT32_OPS_PER_PRODUCT, INT32_OPS_PER_S,
                    {"call_ms": timer(k1b, 10), "products": JPEG_BLOCKS * 512,
-                    "depth": depth})
+                    "depth": depth, **lib})
             del got
 
 
@@ -1762,14 +1782,15 @@ def parent_src():
 
 
 def parent_ab():
-    """K1, K4, K8 and K9/K10 before and after on this card:
+    """K1, K4, the dividers and K9/K10 before and after on this card:
     ``k1_times.py`` at each tree's default stage counts, ``k4_times.py``
     at each tree's geometry, ``k8_times.py`` (the row dividers at depths
-    1, 2 and 3, each tree's geometry) and ``int_times.py`` (the integer
-    units at 2^24 pairs and 8 bits exhaustive, beside int32 ``a * b`` /
-    ``a // b``), on the parent commit's kernels and on this tree's, in
-    turns (parent, this, this, parent), one process each; every shape
-    with both means, and the parent's revision; then the parent's Table
+    1, 2 and 3, each tree's geometry, and K6) and ``int_times.py`` (the
+    integer units at 2^24 pairs and 8 bits exhaustive, beside int32
+    ``a * b`` / ``a // b``), on the parent commit's kernels and on this
+    tree's, in turns (parent, this, this, parent), one process each;
+    every shape with both means, and the parent's revision; then the
+    parent's Table
     III accuracy (``int_times.py --table3``), which the integer units'
     phase holds this tree's to.  Information: nothing here fails on a
     time."""
@@ -1781,7 +1802,8 @@ def parent_ab():
     runs = []
     for kernel, script, key in (("K1", "k1_times.py", ("site", "M")),
                                 ("K4", "k4_times.py", ("shape", "C")),
-                                ("K8", "k8_times.py", ("shape", "depth")),
+                                ("K2/K3/K5/K6/K8", "k8_times.py",
+                                 ("shape", "depth")),
                                 ("K9/K10", "int_times.py",
                                  ("shape", "pairs"))):
         mine = []

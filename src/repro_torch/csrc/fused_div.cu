@@ -11,9 +11,10 @@
 //
 // Every row sum takes the grouping of the plain version
 // (repro_torch/kernels/fused_div/ref.py::lane_sum): grouping lane t sums
-// elements t, t + 128, ... in order, then the 128 partial sums fold by
-// halving.  So each denominator, and with it every quotient, is
-// bit-equal to the plain version.  The rms denominator keeps the
+// elements t, t + 128, ... in order, its chain starting at +0 (as the
+// reference's sum starts: a row of -0 sums to +0), then the 128 partial
+// sums fold by halving.  So each denominator, and with it every
+// quotient, is bit-equal to the plain version.  The rms denominator keeps the
 // reference's canonical form sqrt((ss + n*eps) * (1/n)) with both
 // constants folded to f32 by the caller; every op is an explicit
 // round-to-nearest intrinsic.  The divide is rapid::log_div_f32 (or an
@@ -72,91 +73,201 @@ extern "C" int rapid_softmax_div(const void* e, void* out, void* denom_out,
 }
 
 // ---------------------------------------------------------------------------
-// K5 / K6: out = log_div_f32(a, b) elementwise.
+// K5 / K6: out = log_div_f32(a, b) elementwise, as a 16 B stream.
 //
-// What bounds them on an H100: device memory.  Each element is read once
-// and written once (K6 also reads its own denominator), with ~20 int32
-// ops per element against ~3.35 TB/s of HBM.
+// Replaces div_pallas (K6: a / b on operands of one shape) and, at its
+// depth 1, div_rowbcast_pallas (K5: a [rows, n] / b [rows], the
+// online-softmax combine acc / l) of src/repro/kernels/fused_div/fused_div.py.
 //
-// Design: one thread per output element over the flat operand, in a
-// grid-stride loop sized to fill the card (8 CTAs of 256 threads per SM),
-// the 256-entry LUT staged in shared memory.  K5 finds its row as i / n
-// and reads the [rows] denominator vector, which neighbouring threads
-// share, so it is served from L1; the lane broadcast that the TPU kernel
-// did in VMEM costs nothing here.  K6 reads a second full-size operand
-// instead.  The divide is rapid::log_div_f32,
-// the function K2-K4 share, so every quotient is bit-equal to
-// float_approx.log_div_f32 on the same operands.
+// What bounds them on an H100: device memory.  K6 reads two f32 operands
+// and writes one f32 result, 12 B an element (2048 x 2048: 50.3 MB, 15.0 us
+// at 3.35 TB/s); K5 reads a and writes out, 8 B an element, and 4 B a row
+// of b (266240 x 80: 171 MB, 51.2 us).  A divide is ~20 int32 ops, under
+// the bytes across the card, but only while the loads stay in flight as
+// the divides run.
+//
+// Design: K9 / K10's stream (csrc/rapid_int.cu; PERF.md, PR 20), through
+// the walk the four share (rapid::stream_walk):
+// * float4 loads of a (and K6's b), float4 stores; a grid-stride walk, the
+//   next round's vectors loaded before this round's divides, the first
+//   round's issued before the LUT is staged;
+// * geometry from kernels/spec.py (int_split, int_geometry; K5's through
+//   row_geometry at depth 1): DIV_THREADS a block, a grid of one wave at
+//   the blocks an SM the launch bounds promise (or fewer, a vector a
+//   thread), a head and a tail of single elements where a, out (and K6's
+//   b) share their offset mod 16 B, one element a thread for the whole
+//   call where they do not.  The entry points refuse a block or thread
+//   count they did not compile, a grid past one wave and a head that
+//   leaves the vector body misaligned;
+// * K5's row: element i lies in row i / n, found with no hardware divide
+//   as umulhi(2 i, magic) >> shift, the wrapper's pair for n
+//   (kernels/fused_div/ops.py::row_magic: exact for every i < 2^31 and
+//   every n; the entry point checks it at n - 1, n and the last element).
+//   Where n % 4 == 0 and the vector body starts at element 0 a vector lies
+//   in one row, found once a vector (every n the paths use is 80);
+//   otherwise once an element.  b[row] is read through the read-only
+//   path: neighbouring threads share it.
+// The divide is rapid::log_div_f32, the function K2-K4 share, so every
+// quotient is bit-equal to float_approx.log_div_f32 on the same operands.
 namespace {
 
 constexpr int DIV_THREADS = 256;
+static_assert(DIV_THREADS == 256, "the LUT is staged one cell a thread");
+// the resident blocks an SM the launch bounds promise (64 registers a
+// thread; kernels/budget.py INT_BLOCKS_PER_SM, as K9 / K10)
+constexpr int DIV_BLOCKS_PER_SM = 4;
 
-template <bool ROWBCAST>
-__global__ void __launch_bounds__(DIV_THREADS)
-elementwise_div_kernel(const float* __restrict__ a,
-                       const float* __restrict__ b, float* __restrict__ out,
-                       const int32_t* __restrict__ lut, unsigned total,
-                       unsigned n) {
-  __shared__ int32_t s_lut[256];
-  for (int i = threadIdx.x; i < 256; i += DIV_THREADS) s_lut[i] = lut[i];
-  __syncthreads();
-  const unsigned stride = gridDim.x * DIV_THREADS;
-  for (unsigned i = blockIdx.x * DIV_THREADS + threadIdx.x; i < total;
-       i += stride)
-    out[i] = rapid::log_div_f32(a[i], ROWBCAST ? __ldg(b + i / n) : b[i],
-                                s_lut);
+// where a quotient's denominator comes from: K6 reads b elementwise; K5
+// reads b[row], the row found once a vector or once an element
+enum DivOperand { ELEMENTWISE = 0, ROW_A_VECTOR = 1, ROW_AN_ELEMENT = 2 };
+
+// i / n for i < 2^31: umulhi(2 i, magic) >> shift
+struct RowMagic {
+  uint32_t magic, shift;
+};
+
+__host__ __device__ __forceinline__ uint32_t row_of(uint32_t i, RowMagic m) {
+#ifdef __CUDA_ARCH__
+  return __umulhi(i << 1, m.magic) >> m.shift;
+#else
+  return static_cast<uint32_t>(
+             (static_cast<unsigned long long>(i << 1) * m.magic) >> 32) >>
+         m.shift;
+#endif
 }
 
-cudaError_t div_grid(unsigned total, int* grid) {
-  int sms = 0;
-  const cudaError_t err = rapid::sm_count(&sms);
+// One vector of four elements, for rapid::stream_walk: a, out (and K6's
+// b) from `head` on, 16 B aligned; the LUT staged one cell a thread.
+template <int B>
+struct DivStream {
+  struct Vec {
+    float4 a, b;  // K5, a row a vector: b.x alone
+  };
+  const float* a;
+  const float* b;
+  float* out;
+  const int32_t* lut;
+  uint32_t head;
+  RowMagic m;
+  int32_t* s_lut;
+
+  __device__ __forceinline__ float den(uint32_t e) const {
+    return __ldg(b + row_of(e, m));
+  }
+  __device__ __forceinline__ Vec load(uint32_t v) const {
+    Vec x;
+    x.a = reinterpret_cast<const float4*>(a + head)[v];
+    if constexpr (B == ELEMENTWISE) {
+      x.b = reinterpret_cast<const float4*>(b + head)[v];
+    } else if constexpr (B == ROW_A_VECTOR) {  // head 0, n % 4 == 0
+      x.b.x = den(4 * v);
+    } else {
+      const uint32_t e = head + 4 * v;
+      x.b = make_float4(den(e), den(e + 1), den(e + 2), den(e + 3));
+    }
+    return x;
+  }
+  __device__ __forceinline__ void stage() const {
+    s_lut[threadIdx.x] = lut[threadIdx.x];
+  }
+  __device__ __forceinline__ void store(uint32_t v, const Vec& x) const {
+    const float4 d = B == ROW_A_VECTOR
+                         ? make_float4(x.b.x, x.b.x, x.b.x, x.b.x)
+                         : x.b;
+    reinterpret_cast<float4*>(out + head)[v] = make_float4(
+        rapid::log_div_f32(x.a.x, d.x, s_lut),
+        rapid::log_div_f32(x.a.y, d.y, s_lut),
+        rapid::log_div_f32(x.a.z, d.z, s_lut),
+        rapid::log_div_f32(x.a.w, d.w, s_lut));
+  }
+  __device__ __forceinline__ void scalar(uint32_t e) const {
+    out[e] = rapid::log_div_f32(a[e], B == ELEMENTWISE ? b[e] : den(e),
+                                s_lut);
+  }
+};
+
+template <int B>
+__global__ void __launch_bounds__(DIV_THREADS, DIV_BLOCKS_PER_SM)
+elementwise_div_kernel(const float* __restrict__ a,
+                       const float* __restrict__ b, float* __restrict__ out,
+                       const int32_t* __restrict__ lut, uint32_t total,
+                       uint32_t head, RowMagic m) {
+  __shared__ int32_t s_lut[256];
+  DivStream<B> op{a, b, out, lut, head, m, s_lut};
+  rapid::stream_walk<DIV_THREADS>(total, head, op);
+}
+
+cudaError_t launch_div(int operand, const void* a, const void* b, void* out,
+                       const void* lut, long long total, long long head,
+                       RowMagic m, int blocks_per_sm, int threads, int grid,
+                       void* stream) {
+  if (total >= (1ll << 31)) return cudaErrorInvalidValue;
+  const cudaError_t err = rapid::stream_launch_ok(
+      total, head, blocks_per_sm, threads, grid, DIV_BLOCKS_PER_SM,
+      DIV_THREADS, {a, operand == ELEMENTWISE ? b : a, out});  // K5: no b
   if (err != cudaSuccess) return err;
-  const unsigned want = (total + DIV_THREADS - 1) / DIV_THREADS;
-  const unsigned cap = 8u * static_cast<unsigned>(sms);
-  *grid = static_cast<int>(want < cap ? want : cap);
-  return cudaSuccess;
+  const auto* pa = static_cast<const float*>(a);
+  const auto* pb = static_cast<const float*>(b);
+  auto* po = static_cast<float*>(out);
+  const auto* pl = static_cast<const int32_t*>(lut);
+  const auto t = static_cast<uint32_t>(total), h = static_cast<uint32_t>(head);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (operand == ELEMENTWISE)
+    elementwise_div_kernel<ELEMENTWISE>
+        <<<grid, DIV_THREADS, 0, s>>>(pa, pb, po, pl, t, h, m);
+  else if (operand == ROW_A_VECTOR)
+    elementwise_div_kernel<ROW_A_VECTOR>
+        <<<grid, DIV_THREADS, 0, s>>>(pa, pb, po, pl, t, h, m);
+  else
+    elementwise_div_kernel<ROW_AN_ELEMENT>
+        <<<grid, DIV_THREADS, 0, s>>>(pa, pb, po, pl, t, h, m);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// a [rows, n] / b [rows] (one denominator per row); rows * n < 2^31.
-// depth 1: one thread per element; depth >= 2: K8, slabs of bm rows
-// walked flat (warps 0).
+// K8: a [rows, n] / b [rows] (one denominator per row) at depth >= 2,
+// slabs of bm rows walked flat (warps 0); rows * n < 2^31.
 extern "C" int rapid_div_rowbcast(const void* a, const void* b, void* out,
                                   const void* lut, int rows, int n, int depth,
                                   int bm, int warps, int grid,
                                   void* stream) {
-  if (depth > 1)
-    return launch_slabs(2, depth, warps, grid,
-                        static_cast<const float*>(a),
-                        static_cast<const float*>(b), static_cast<float*>(out),
-                        nullptr, static_cast<const int32_t*>(lut), rows, n,
-                        bm, 0.0f, 0.0f, 0.0f,
-                        static_cast<cudaStream_t>(stream));
-  const unsigned total = static_cast<unsigned>(rows) * static_cast<unsigned>(n);
-  int blocks = 0;
-  const cudaError_t err = div_grid(total, &blocks);
-  if (err != cudaSuccess) return err;
-  elementwise_div_kernel<true>
-      <<<blocks, DIV_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(a), static_cast<const float*>(b),
-          static_cast<float*>(out), static_cast<const int32_t*>(lut), total,
-          static_cast<unsigned>(n));
-  return cudaGetLastError();
+  return launch_slabs(2, depth, warps, grid, static_cast<const float*>(a),
+                      static_cast<const float*>(b), static_cast<float*>(out),
+                      nullptr, static_cast<const int32_t*>(lut), rows, n, bm,
+                      0.0f, 0.0f, 0.0f, static_cast<cudaStream_t>(stream));
 }
 
-// a [total] / b [total]; total < 2^31.
+// K5: a [rows, n] / b [rows] at depth 1, rows * n < 2^31; head,
+// blocks_per_sm, threads and grid from kernels/spec.py::row_geometry,
+// (magic, shift) = kernels/fused_div/ops.py::row_magic(n).
+extern "C" int rapid_div_rowbcast_stream(const void* a, const void* b,
+                                         void* out, const void* lut,
+                                         int rows, int n, long long head,
+                                         unsigned magic, unsigned shift,
+                                         int blocks_per_sm, int threads,
+                                         int grid, void* stream) {
+  const long long total = static_cast<long long>(rows) * n;
+  const RowMagic m{magic, shift};
+  if (rows < 1 || n < 1 || total >= (1ll << 31) || shift > 31 ||
+      row_of(static_cast<uint32_t>(n - 1), m) != 0 ||
+      row_of(static_cast<uint32_t>(n), m) != 1 ||
+      row_of(static_cast<uint32_t>(total - 1), m) !=
+          static_cast<uint32_t>(rows - 1))
+    return cudaErrorInvalidValue;
+  const int operand = n % 4 == 0 && head == 0 ? ROW_A_VECTOR : ROW_AN_ELEMENT;
+  return launch_div(operand, a, b, out, lut, total, head, m, blocks_per_sm,
+                    threads, grid, stream);
+}
+
+// K6: a [total] / b [total], total < 2^31; head, blocks_per_sm, threads
+// and grid from kernels/spec.py (int_split, int_geometry).
 extern "C" int rapid_div(const void* a, const void* b, void* out,
-                         const void* lut, int total, void* stream) {
-  const unsigned t = static_cast<unsigned>(total);
-  int blocks = 0;
-  const cudaError_t err = div_grid(t, &blocks);
-  if (err != cudaSuccess) return err;
-  elementwise_div_kernel<false>
-      <<<blocks, DIV_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(a), static_cast<const float*>(b),
-          static_cast<float*>(out), static_cast<const int32_t*>(lut), t, 1u);
-  return cudaGetLastError();
+                         const void* lut, long long total, long long head,
+                         int blocks_per_sm, int threads, int grid,
+                         void* stream) {
+  return launch_div(ELEMENTWISE, a, b, out, lut, total, head, RowMagic{0, 0},
+                    blocks_per_sm, threads, grid, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -554,9 +665,9 @@ cudaError_t launch_slabs(int op, int depth, int warps, int grid,
 // The 16 B path and the streamed one are template parameters too, so a
 // launch fetches only the instructions its rows run: with a block an SM
 // running one row, every instruction fetched is on the critical path.
-// Each chain starts at -0 (-0 + v is v for every v) and adds the row's
+// Each chain starts at +0, as lane_sum's and K8's do, and adds the row's
 // zero padding, as lane_sum does on the padded row, so every
-// denominator, -0 and NaN included, is lane_sum's.
+// denominator, the +0 of a row of -0 and NaN included, is lane_sum's.
 namespace {
 
 // rounds of LANE the four-warp form holds in shared memory
@@ -636,7 +747,7 @@ row_hold_kernel(const float* __restrict__ x, float* __restrict__ out,
         rapid::cp_async_commit();
         rapid::cp_async_wait<0>();  // this row (and, first, the LUT)
         __syncthreads();
-        float p = -0.0f;
+        float p = 0.0f;
 #pragma unroll 4
         for (int k = 0; k < hr; ++k)  // the padding adds +0, as lane_sum's
           p = __fadd_rn(p, row_term<OP>(held[tid + k * LANE]));
@@ -713,7 +824,7 @@ row_hold_kernel(const float* __restrict__ x, float* __restrict__ out,
         float d[RW];
 #pragma unroll
         for (int q = 0; q < RW; ++q) {
-          float p[4] = {-0.0f, -0.0f, -0.0f, -0.0f};
+          float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
           for (int k = 0; k < ROUNDS; ++k)
 #pragma unroll
@@ -863,7 +974,7 @@ extern "C" int rapid_row_slab_smem(int op, int depth, int warps, int bm,
   cudaError_t err = cudaErrorInvalidValue;
   long long dynamic = 0;
   if (depth == 1 && op == 2) {
-    const auto k5 = elementwise_div_kernel<true>;
+    const auto k5 = elementwise_div_kernel<ROW_A_VECTOR>;
     if (warps == 0) err = cudaFuncGetAttributes(&attr, k5);
   } else if (depth == 1) {
     const HoldInstance inst = hold_instance(op, warps, n, true, true);

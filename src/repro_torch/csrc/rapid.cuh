@@ -14,6 +14,7 @@
 
 #include <atomic>
 #include <cstdint>
+#include <initializer_list>
 #include <cuda_runtime.h>
 
 namespace rapid {
@@ -127,6 +128,73 @@ inline cudaError_t sm_count(int* sms) {
     if (dev < kDevices) cached[dev].store(count, std::memory_order_relaxed);
   }
   *sms = count;
+  return cudaSuccess;
+}
+
+// The walk of the elementwise streaming kernels (K5 / K6 in
+// fused_div.cu, K9 / K10 in rapid_int.cu), over `total` elements of which
+// the first `head` come before the 16 B vector body (kernels/spec.py
+// int_split): thread t of the grid's S threads takes vectors t, t + S,
+// t + 2 S, ..., so the grid streams one window of memory at a time and
+// every thread walks the same count to within one vector.  Each round a
+// thread loads its next round's vector before it computes this round's,
+// and the first round's loads are issued before the block stages its
+// shared memory (op.stage(), then a barrier).  The head and the tail (the
+// fewer than 4 elements past the body) follow, one element a thread.
+// Op supplies Vec (what one vector's loads bring), Vec load(v), void
+// stage(), void store(v, const Vec&) (compute and store vector v) and
+// void scalar(e) (compute and store element e); Index is uint32_t below
+// 2^31 elements, unsigned long long past them.
+template <int THREADS, typename Index, typename Op>
+__device__ __forceinline__ void stream_walk(Index total, Index head, Op& op) {
+  const Index vectors = (total - head) / 4;
+  const Index stride = static_cast<Index>(gridDim.x) * THREADS;
+
+  // the first round's loads in flight before the shared memory is staged
+  Index v = static_cast<Index>(blockIdx.x) * THREADS + threadIdx.x;
+  typename Op::Vec cur, next;
+  if (v < vectors) cur = op.load(v);
+  op.stage();
+  __syncthreads();
+
+  for (; v < vectors; v += stride) {
+    const Index nv = v + stride;
+    if (nv < vectors) next = op.load(nv);
+    op.store(v, cur);
+    cur = next;
+  }
+
+  // the head and the tail, one element a thread
+  const Index tail = head + 4 * vectors;
+  const Index scalars = head + (total - tail);
+  for (Index i = static_cast<Index>(blockIdx.x) * THREADS + threadIdx.x;
+       i < scalars; i += stride)
+    op.scalar(i < head ? i : tail + (i - head));
+}
+
+// A launch of a streaming kernel the entry point may make: `head` (from
+// kernels/spec.py int_split) leaves the vector body 16 B aligned for each
+// of `ptrs` (or is the whole call), the block and thread counts are the
+// compiled ones, and the grid is at least one block and at most one wave
+// of `blocks_per_sm` an SM.  cudaSuccess, or the error to return.
+inline cudaError_t stream_launch_ok(long long total, long long head,
+                                    int blocks_per_sm, int threads, int grid,
+                                    int compiled_blocks, int compiled_threads,
+                                    std::initializer_list<const void*> ptrs) {
+  if (total < 1 || head < 0 || head > total || threads != compiled_threads ||
+      blocks_per_sm != compiled_blocks)
+    return cudaErrorInvalidValue;
+  if (head < total) {  // a vector body: 16 B aligned from `head` on
+    const uintptr_t at = 4 * static_cast<uintptr_t>(head);
+    uintptr_t bits = 0;
+    for (const void* p : ptrs) bits |= reinterpret_cast<uintptr_t>(p) + at;
+    if (head > 3 || (bits & 15u)) return cudaErrorInvalidValue;
+  }
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  if (grid < 1 || grid > sms * compiled_blocks)
+    return cudaErrorInvalidConfiguration;
   return cudaSuccess;
 }
 

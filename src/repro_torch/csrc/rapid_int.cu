@@ -14,9 +14,10 @@
 //
 // Design, a streaming elementwise kernel:
 // * 16 B accesses: int4 loads of each operand, uint4 stores of results.
-// * A grid-stride walk: thread t of the grid's S threads takes vectors t,
-//   t + S, t + 2 S, ..., so the grid streams one window of memory at a
-//   time and every thread walks the same count to within one vector.
+// * A grid-stride walk (rapid::stream_walk, which K5 / K6 in fused_div.cu
+//   share): thread t of the grid's S threads takes vectors t, t + S,
+//   t + 2 S, ..., so the grid streams one window of memory at a time and
+//   every thread walks the same count to within one vector.
 //   Each round a thread loads its next round's vectors before it
 //   computes this round's (two vectors of each operand in flight at the
 //   top of a round), and the first round's loads are issued before the
@@ -27,7 +28,8 @@
 //   of one wave of resident blocks (the launch bounds promise 4 an SM;
 //   53-56 registers a thread) or fewer, a vector a thread, where the pairs
 //   are few.  The entry points refuse a block or thread
-//   count they did not compile and a grid past the wave.
+//   count they did not compile and a grid past the wave
+//   (rapid::stream_launch_ok).
 // * Head and tail (kernels/spec.py::int_split): `head` elements come
 //   before the first index at which a, b and out are all 16 B aligned,
 //   the vector body follows, then a tail of fewer than 4.  Both run one
@@ -166,53 +168,48 @@ __device__ __forceinline__ uint4 unit4(const int4& a, const int4& b,
                     unit<MUL>(a.w, b.w, u, s_lut));
 }
 
-// Index: uint32_t below 2^31 pairs, unsigned long long past them.  Thread
-// t of the grid's S threads takes vectors t, t + S, t + 2 S, ..., so at
-// any time the grid streams one window of memory and every thread walks
-// the same count to within one vector.  Each round it loads the next
-// round's vector of each operand before it computes this round's, so two
-// vectors of each operand are in flight at the top of a round.
+// One vector of four pairs, for rapid::stream_walk: a and b from `head`
+// on, 16 B aligned; the LUT staged one cell a thread.
+template <bool MUL, typename Index>
+struct IntStream {
+  struct Vec {
+    int4 a, b;
+  };
+  const int32_t* a;
+  const int32_t* b;
+  const int32_t* lut;
+  uint32_t* out;
+  const int4* a4;
+  const int4* b4;
+  uint4* o4;
+  const Unit& u;
+  int32_t* s_lut;
+
+  __device__ __forceinline__ Vec load(Index v) const { return {a4[v], b4[v]}; }
+  __device__ __forceinline__ void stage() const {
+    s_lut[threadIdx.x] = lut[u.F >= 4 ? threadIdx.x : 0];
+  }
+  __device__ __forceinline__ void store(Index v, const Vec& x) const {
+    o4[v] = unit4<MUL>(x.a, x.b, u, s_lut);
+  }
+  __device__ __forceinline__ void scalar(Index e) const {
+    out[e] = unit<MUL>(a[e], b[e], u, s_lut);
+  }
+};
+
+// Index: uint32_t below 2^31 pairs, unsigned long long past them.  The
+// walk is rapid::stream_walk, K5 / K6's.
 template <bool MUL, typename Index>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 int_unit_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
                 const int32_t* __restrict__ lut, uint32_t* __restrict__ out,
                 Index total, Index head, Unit u) {
   __shared__ int32_t s_lut[256];
-  const Index vectors = (total - head) / 4;
-  const Index stride = static_cast<Index>(gridDim.x) * THREADS;
-  const int4* a4 = reinterpret_cast<const int4*>(a + head);
-  const int4* b4 = reinterpret_cast<const int4*>(b + head);
-  uint4* o4 = reinterpret_cast<uint4*>(out + head);
-
-  // the first round's loads in flight before the LUT is staged
-  Index v = static_cast<Index>(blockIdx.x) * THREADS + threadIdx.x;
-  int4 va, vb, na, nb;
-  if (v < vectors) {
-    va = a4[v];
-    vb = b4[v];
-  }
-  s_lut[threadIdx.x] = lut[u.F >= 4 ? threadIdx.x : 0];
-  __syncthreads();
-
-  for (; v < vectors; v += stride) {
-    const Index next = v + stride;
-    if (next < vectors) {
-      na = a4[next];
-      nb = b4[next];
-    }
-    o4[v] = unit4<MUL>(va, vb, u, s_lut);
-    va = na;
-    vb = nb;
-  }
-
-  // the head and the tail, one element a thread
-  const Index tail = head + 4 * vectors;
-  const Index scalars = head + (total - tail);
-  for (Index i = static_cast<Index>(blockIdx.x) * THREADS + threadIdx.x;
-       i < scalars; i += stride) {
-    const Index e = i < head ? i : tail + (i - head);
-    out[e] = unit<MUL>(a[e], b[e], u, s_lut);
-  }
+  IntStream<MUL, Index> op{a, b, lut, out,
+                           reinterpret_cast<const int4*>(a + head),
+                           reinterpret_cast<const int4*>(b + head),
+                           reinterpret_cast<uint4*>(out + head), u, s_lut};
+  rapid::stream_walk<THREADS>(total, head, op);
 }
 
 template <bool MUL>
@@ -220,21 +217,11 @@ cudaError_t launch(const void* a, const void* b, const void* lut, void* out,
                    long long total, long long head, const Unit& u,
                    int blocks_per_sm, int threads, int grid, int wide,
                    void* stream) {
-  if (total < 1 || head < 0 || head > total || threads != THREADS ||
-      blocks_per_sm != BLOCKS_PER_SM || (!wide && total >= (1ll << 31)))
-    return cudaErrorInvalidValue;
-  if (head < total) {  // a vector body: 16 B aligned from `head` on
-    const uintptr_t at = 4 * static_cast<uintptr_t>(head);
-    if (head > 3 || ((reinterpret_cast<uintptr_t>(a) + at) |
-                     (reinterpret_cast<uintptr_t>(b) + at) |
-                     (reinterpret_cast<uintptr_t>(out) + at)) & 15u)
-      return cudaErrorInvalidValue;
-  }
-  int sms = 0;
-  const cudaError_t err = rapid::sm_count(&sms);
+  if (!wide && total >= (1ll << 31)) return cudaErrorInvalidValue;
+  const cudaError_t err = rapid::stream_launch_ok(
+      total, head, blocks_per_sm, threads, grid, BLOCKS_PER_SM, THREADS,
+      {a, b, out});
   if (err != cudaSuccess) return err;
-  if (grid < 1 || grid > sms * BLOCKS_PER_SM)
-    return cudaErrorInvalidConfiguration;
   const auto* pa = static_cast<const int32_t*>(a);
   const auto* pb = static_cast<const int32_t*>(b);
   const auto* pl = static_cast<const int32_t*>(lut);

@@ -2,10 +2,13 @@
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
+from typing import Optional
 
 import torch
 
-__all__ = ["on_cuda", "ptr", "stream", "require", "count_launch"]
+__all__ = ["on_cuda", "ptr", "stream", "require", "count_launch", "sm_count",
+           "result_like"]
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
@@ -50,3 +53,22 @@ def count_launch(wrapper, depth: int) -> None:
     and, by stage count, ``launches_by_depth``."""
     wrapper.launches += 1
     wrapper.launches_by_depth[depth] = wrapper.launches_by_depth.get(depth, 0) + 1
+
+
+@lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """SMs of CUDA card ``index``, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def result_like(t: torch.Tensor,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """An uninitialised result of ``t``'s shape (and ``dtype``, default
+    ``t``'s) that starts at the same address mod 16 B as ``t``, so the
+    streaming kernels (K5 / K6, K9 / K10) keep a 16 B vector body after a
+    head of single elements where an operand starts past a 16 B
+    boundary."""
+    dtype = dtype or t.dtype
+    lag = (t.data_ptr() % 16) // torch.empty(0, dtype=dtype).element_size()
+    flat = torch.empty(t.numel() + lag, dtype=dtype, device=t.device)
+    return flat[lag:].view(t.shape)

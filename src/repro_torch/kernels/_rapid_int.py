@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.core import mitchell
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import ptr, stream
+from repro_torch.kernels._launch import ptr, result_like, sm_count, stream
 from repro_torch.kernels.spec import int_geometry, int_split
 
 __all__ = ["ARGTYPES", "launch", "sm_count"]
@@ -26,11 +26,6 @@ __all__ = ["ARGTYPES", "launch", "sm_count"]
 ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
-@lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    """SMs of CUDA card ``index``, read once."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
 
 @lru_cache(maxsize=None)
 def _lut_in_contract(scheme: mitchell.ErrorScheme, frac_bits: int) -> bool:
@@ -38,15 +33,6 @@ def _lut_in_contract(scheme: mitchell.ErrorScheme, frac_bits: int) -> bool:
     reference's clamp at 0 never binds) needs every LUT coefficient above
     -2^frac_bits; the registered schemes' lie within half of that."""
     return int(mitchell.lut_host(scheme, frac_bits).min()) > -(1 << frac_bits)
-
-
-def _result_like(t: torch.Tensor) -> torch.Tensor:
-    """An uninitialised uint32 result of ``t``'s shape, starting at the
-    same address mod 16 as ``t``, so operands that share a misalignment
-    keep a 16 B vector body after a head of single elements."""
-    lag = (t.data_ptr() % 16) // 4
-    flat = torch.empty(t.numel() + lag, dtype=torch.uint32, device=t.device)
-    return flat[lag:].view(t.shape)
 
 
 def launch(fn_name: str, a: torch.Tensor, b: torch.Tensor,
@@ -67,7 +53,7 @@ def launch(fn_name: str, a: torch.Tensor, b: torch.Tensor,
     a32 = a.to(torch.int32).contiguous()
     b32 = b.to(torch.int32).contiguous()
     if a32.data_ptr() % 16 == b32.data_ptr() % 16:
-        out = _result_like(a32)
+        out = result_like(a32, torch.uint32)
     else:
         out = torch.empty(a.shape, dtype=torch.uint32, device=a.device)
     total = out.numel()

@@ -91,10 +91,11 @@ ROW_HOLD_N = LANE * ROW_HOLD_ROUNDS
 ROW_HOLD_BLOCKS_PER_SM = 4
 WARP_HOLD = 16
 
-# K9 / K10 (csrc/rapid_int.cu): threads a block, and the blocks an SM
-# holds, which the launched instance's launch bounds promise (4 leave 64
-# registers a thread).  From INT_WIDE_PAIRS pairs the kernel indexes in
-# 64 bits
+# The streaming kernels, K9 / K10 (csrc/rapid_int.cu) and K5 / K6
+# (csrc/fused_div.cu): threads a block, and the blocks an SM holds, which
+# the launched instance's launch bounds promise (4 leave 64 registers a
+# thread).  From INT_WIDE_PAIRS elements K9 / K10 index in 64 bits (K5 /
+# K6 take fewer than 2^31)
 INT_THREADS = 256
 INT_BLOCKS_PER_SM = 4
 INT_WIDE_PAIRS = 1 << 31

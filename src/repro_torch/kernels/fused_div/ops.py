@@ -17,8 +17,12 @@ trailing dim 1) goes to :func:`div_rowbcast` (K5), any other broadcast to
   / ``div_pallas`` of ``src/repro/kernels/fused_div/fused_div.py``): at
   depth 1 K2/K3 read each row once onto the chip (four warps on a wide
   row, staged in shared memory; a warp a narrow one, in registers; a
-  block walking its slabs of rows), K5/K6 one thread per element; K2/K3/K5 at depth >= 2 walk row slabs with
-  ``depth`` slabs in flight (K8, replacing ``_rowwise_pipelined_call``).
+  block walking its slabs of rows); K6, and K5 at depth 1, stream their
+  operands 16 B a thread as K9 / K10 do (geometry from ``int_split`` /
+  ``int_geometry``; K5 finds each row with :func:`row_magic`'s multiply
+  and shift, no hardware divide); K2/K3/K5 at depth >= 2 walk row slabs
+  with ``depth`` slabs in flight (K8, replacing
+  ``_rowwise_pipelined_call``).
 
 ``spec`` (:class:`repro_torch.kernels.spec.KernelSpec`) of K2/K3/K5 sets
 the stage count and the rows per slab, resolved by ``resolve_spec``
@@ -32,30 +36,57 @@ count (nor has the reference's ``div_pallas``).
 (the kernel writes its own), so a check can hold the quotients against
 the plain divide fed the same denominator.  Each kernel wrapper
 (``fused_rms_div``, ``fused_softmax_div``, ``div_rowbcast``,
-``div_elementwise``) counts its launches in ``.launches``; the first
-three also by stage count in ``.launches_by_depth``.
+``div_elementwise``) counts its launches through ``count_launch``, in
+``.launches`` and by stage count in ``.launches_by_depth`` (K6's all at
+depth 1).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core import float_approx as fa
 from repro_torch.kernels import _build, budget
 from repro_torch.kernels._launch import (count_launch, on_cuda, ptr, require,
-                                         stream)
+                                         result_like, sm_count, stream)
 from repro_torch.kernels.fused_div import ref
-from repro_torch.kernels.spec import (KernelSpec, RowGeometry, resolve_spec,
-                                      row_geometry)
+from repro_torch.kernels.spec import (KernelSpec, RowGeometry, int_geometry,
+                                      int_split, resolve_spec, row_geometry)
 
 __all__ = ["fused_rms_div", "fused_softmax_div", "fused_elementwise_div",
            "div_rowbcast", "div_elementwise", "rms_div_plain",
-           "softmax_div_plain", "div_rowbcast_plain", "div_plain"]
+           "softmax_div_plain", "div_rowbcast_plain", "div_plain",
+           "row_magic", "row_index"]
 
 # flat element indices of K5/K6 are 32-bit
 _MAX_ELEMENTS = 2**31 - 1
+
+
+def row_magic(n: int) -> Tuple[int, int]:
+    """(magic, shift) with which K5 finds the row ``i // n`` of element
+    ``i`` as ``umulhi(2 i, magic) >> shift`` (:func:`row_index`), exact
+    for every ``i < 2^31``.  With ``shift = ceil(log2 n)`` and ``magic =
+    ceil(2^(31 + shift) / n)``, ``magic * n - 2^(31 + shift) < n <=
+    2^shift``, which is Granlund and Montgomery's condition for
+    ``floor(i * magic / 2^(31 + shift)) == i // n`` over 31-bit ``i``;
+    ``magic < 2^32`` (it is ``2^31`` for a power of two, and under
+    ``2^32`` otherwise), and the product's high word shifted right by
+    ``shift`` is that floor, since ``2 i < 2^32``."""
+    if not 1 <= n < 2**31:
+        raise ValueError(f"row width {n} outside [1, 2^31)")
+    shift = (n - 1).bit_length()
+    magic = -(-(1 << (31 + shift)) // n)
+    assert magic < 1 << 32
+    return magic, shift
+
+
+def row_index(i, magic: int, shift: int):
+    """The kernel's row of element ``i`` (an int, or a numpy uint64 array
+    of them, each below 2^31) in its uint32 arithmetic:
+    ``umulhi(i << 1, magic) >> shift``."""
+    return (((i << 1) & 0xFFFFFFFF) * magic >> 32) >> shift
 
 
 def _divide(x, denom, scheme):
@@ -154,7 +185,8 @@ def div_plain(a, b, scheme: str):
 
 def div_rowbcast(a: torch.Tensor, b: torch.Tensor, scheme: str, *,
                  spec: Optional[KernelSpec] = None):
-    """RAPID ``a [M, N] / b [M]``, one denominator per row; f32 in/out."""
+    """RAPID ``a [M, N] / b [M]``, one denominator per row; f32 in/out.
+    Depth 1 is K5, depth >= 2 K8."""
     ks, geom = _row_plan("fused_div_rowbcast", a, spec)
     if not on_cuda(a, b):
         return div_rowbcast_plain(a, b, scheme)
@@ -171,19 +203,37 @@ def div_rowbcast(a: torch.Tensor, b: torch.Tensor, scheme: str, *,
 
 
 def _launch_rowbcast(a, b, scheme, ks: KernelSpec, geom: RowGeometry):
-    out = torch.empty_like(a)
-    fn = _build.function("fused_div", "rapid_div_rowbcast",
-                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                         + [ctypes.c_void_p])
-    err = fn(ptr(a), ptr(b), ptr(out), ptr(fa.div_lut_device(scheme, a.device)),
-             a.shape[0], a.shape[1], ks.depth, geom.bm, geom.warps,
-             geom.grid, stream(a.device))
+    """K8 at depth >= 2 with ``geom``; at depth 1 K5, whose result starts
+    where ``a`` does mod 16 B and whose geometry ``row_geometry`` plans
+    for that head (``geom`` only names the slab)."""
+    lut = ptr(fa.div_lut_device(scheme, a.device))
+    rows, n = a.shape
+    if ks.depth > 1:
+        out = torch.empty_like(a)
+        fn = _build.function("fused_div", "rapid_div_rowbcast",
+                             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                             + [ctypes.c_void_p])
+        err = fn(ptr(a), ptr(b), ptr(out), lut, rows, n, ks.depth, geom.bm,
+                 geom.warps, geom.grid, stream(a.device))
+    else:
+        out = result_like(a)
+        head, _, _ = int_split(a.numel(), a.data_ptr(), out.data_ptr())
+        geom = row_geometry("fused_div_rowbcast", rows, n, 1, geom.bm, head)
+        fn = _build.function("fused_div", "rapid_div_rowbcast_stream",
+                             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                             + [ctypes.c_longlong] + [ctypes.c_uint] * 2
+                             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        err = fn(ptr(a), ptr(b), ptr(out), lut, rows, n, head, *row_magic(n),
+                 geom.blocks_per_sm, budget.INT_THREADS, geom.grid,
+                 stream(a.device))
     _build.check(err, "div_rowbcast")
     return out
 
 
 def div_elementwise(a: torch.Tensor, b: torch.Tensor, scheme: str):
-    """RAPID ``a / b`` on operands of one shape; f32 in/out."""
+    """RAPID ``a / b`` on operands of one shape; f32 in/out.  The result
+    starts where ``a`` does mod 16 B where ``b`` does too, so the three
+    share a 16 B vector body."""
     if not on_cuda(a, b):
         return div_plain(a, b, scheme)
     require(a, "a", torch.float32)
@@ -191,13 +241,19 @@ def div_elementwise(a: torch.Tensor, b: torch.Tensor, scheme: str):
     if not 0 < a.numel() <= _MAX_ELEMENTS:
         raise ValueError(f"div_elementwise: {a.numel()} elements, expected "
                          f"1..{_MAX_ELEMENTS}")
-    out = torch.empty_like(a)
+    out = (result_like(a) if a.data_ptr() % 16 == b.data_ptr() % 16
+           else torch.empty_like(a))
+    head, _, _ = int_split(a.numel(), a.data_ptr(), b.data_ptr(),
+                           out.data_ptr())
+    geom = int_geometry(a.numel(), sm_count(a.device.index or 0), head)
     fn = _build.function("fused_div", "rapid_div",
-                         [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
+                         [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
+                         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     err = fn(ptr(a), ptr(b), ptr(out), ptr(fa.div_lut_device(scheme, a.device)),
-             a.numel(), stream(a.device))
+             a.numel(), head, geom.blocks_per_sm, geom.threads, geom.grid,
+             stream(a.device))
     _build.check(err, "div_elementwise")
-    div_elementwise.launches += 1
+    count_launch(div_elementwise, 1)
     return out
 
 
@@ -244,3 +300,4 @@ div_elementwise.launches = 0
 fused_rms_div.launches_by_depth = {}
 fused_softmax_div.launches_by_depth = {}
 div_rowbcast.launches_by_depth = {}
+div_elementwise.launches_by_depth = {}

@@ -5,7 +5,8 @@ row's denominator as the reduction over the row zero-padded to a
 multiple of ``LANE``, and leaves the partial-sum grouping to XLA.  The
 port fixes the grouping itself, so that its CUDA kernels can match the
 plain version bit for bit (:func:`lane_sum`): lane ``t`` sums elements
-``t, t + LANE, t + 2*LANE, ...`` in that order, then the ``LANE``
+``t, t + LANE, t + 2*LANE, ...`` in that order, starting from +0 as the
+reference's sum does (so a row of -0 sums to +0), then the ``LANE``
 partial sums are folded by halving (``s[t] += s[t + h]`` for
 ``h = LANE/2, ..., 1``).  XLA groups the same row otherwise, so against
 the reference the denominators agree to a few ulp and the quotients
@@ -59,7 +60,9 @@ def lane_sum(x_padded: torch.Tensor) -> torch.Tensor:
     n_pad = x_padded.shape[-1]
     if n_pad % LANE:
         raise ValueError(f"row width {n_pad} is not lane-padded")
-    acc = x_padded[..., :LANE]
+    # each lane's chain starts at +0, as the reference's sum does: +0 + v
+    # is v for every v but -0, so only a lane of all -0 changes (to +0)
+    acc = x_padded[..., :LANE] + 0.0
     for j in range(1, n_pad // LANE):
         acc = acc + x_padded[..., j * LANE:(j + 1) * LANE]
     h = LANE // 2

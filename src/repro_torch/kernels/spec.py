@@ -13,7 +13,8 @@ Stage counts on Hopper:
   * ``depth == 1`` -- the unpipelined form: K1 stages each K block
     synchronously; K2/K3 read each row once onto the chip (shared
     memory under four warps, registers under one), a block walking its
-    rows with none in flight ahead; K5 runs one thread per element.
+    rows with none in flight ahead; K5 streams its rows 16 B a thread,
+    as K6 and K9 / K10 do (:func:`int_geometry`).
   * ``depth >= 2`` -- ``depth`` tiles in flight through ``cp.async``
     into a ring in shared memory: K1's K loop keeps ``depth`` raw x/w
     tiles in flight (the reference's ``log_matmul_pipelined``, K7), and
@@ -50,12 +51,13 @@ wrapper and the plain version take them from :func:`resolve_spec`, so
 the plain version always runs the kernel's order.  K4 has one stage
 count: it double-buffers its chunks (:data:`FLASH_DEPTH`).
 
-K9 / K10's geometry is decided here too (:func:`int_split`,
+The streaming kernels' geometry is decided here too (:func:`int_split`,
 :func:`int_geometry`): the head, the 16 B vector body and the tail of a
 call, the blocks an SM, the threads a block and the grid, which the
-wrapper passes to ``csrc/rapid_int.cu``; the kernel refuses a block or
-thread count it did not compile, a grid past one wave and a head that
-leaves its vector body misaligned.
+wrappers of K9 / K10 pass to ``csrc/rapid_int.cu`` and those of K6 and
+(through :func:`row_geometry` at depth 1) K5 to ``csrc/fused_div.cu``;
+each kernel refuses a block or thread count it did not compile, a grid
+past one wave and a head that leaves its vector body misaligned.
 """
 from __future__ import annotations
 
@@ -238,7 +240,8 @@ def flash_geometry(rows: int, c: int) -> Tuple[int, int]:
 
 
 class IntGeometry(NamedTuple):
-    """One K9 / K10 call's geometry (:func:`int_geometry`)."""
+    """One streaming call's geometry (:func:`int_geometry`): K9 / K10,
+    K6, and K5 at depth 1."""
 
     #: blocks an SM holds (the launched instance's launch bounds)
     blocks_per_sm: int
@@ -251,11 +254,11 @@ class IntGeometry(NamedTuple):
 
 
 def int_split(total: int, *addresses: int) -> Tuple[int, int, int]:
-    """(head, vectors, tail) of ``total`` elementwise pairs whose
-    operands and result start at the byte ``addresses`` (each 4 B
-    aligned): ``head`` elements before the first index at which every
-    address is 16 B aligned, then ``vectors`` vectors of 4 elements, then
-    a ``tail`` of fewer than 4.  Where the addresses are not congruent
+    """(head, vectors, tail) of ``total`` elements of a streaming kernel
+    (K9 / K10, K5 / K6) whose streamed operands and result start at the
+    byte ``addresses`` (each 4 B aligned): ``head`` elements before the
+    first index at which every address is 16 B aligned, then ``vectors``
+    vectors of 4 elements, then a ``tail`` of fewer than 4.  Where the addresses are not congruent
     mod 16 no index aligns them all, and the head is the whole call."""
     if any(p % 4 for p in addresses):
         raise ValueError(f"addresses must be 4 B aligned, got {addresses}")
@@ -267,8 +270,9 @@ def int_split(total: int, *addresses: int) -> Tuple[int, int, int]:
 
 
 def int_geometry(total: int, sms: int, head: int = 0) -> IntGeometry:
-    """K9 / K10's geometry for ``total`` pairs with a head of ``head``
-    elements (:func:`int_split`) on a card of ``sms`` SMs:
+    """A streaming kernel's geometry (K9 / K10, and K5 / K6, which
+    compile the same block) for ``total`` elements with a head of
+    ``head`` elements (:func:`int_split`) on a card of ``sms`` SMs:
     budget.INT_THREADS threads a block, budget.INT_BLOCKS_PER_SM blocks an
     SM, and a grid of one wave of them, or fewer where a thread would
     otherwise get no vector (or, past the vectors, no head or tail
@@ -359,11 +363,11 @@ class RowGeometry(NamedTuple):
     #: warp per row), or 0 (the row broadcast's flat walk, where no warp
     #: owns a row)
     warps: int
-    #: blocks one SM is assumed to hold at once (0 for K5 at depth 1)
+    #: blocks one SM is assumed to hold at once
     blocks_per_sm: int
     #: blocks the kernel launches: the slabs, at most budget.SMS x
     #: blocks_per_sm (the kernel refuses a grid its card cannot hold at
-    #: once; 0 for K5 at depth 1, which sizes its own grid)
+    #: once); K5 at depth 1: :func:`int_geometry`'s
     grid: int
     #: shared memory of one block (:func:`row_smem`)
     smem: int
@@ -392,9 +396,11 @@ def warp_rounds(n: int) -> int:
     return 1 if rounds <= 1 else 2 if rounds <= 2 else 4
 
 
-def _hold_geometry(family: str, rows: int, n: int,
-                   bm: Optional[int]) -> RowGeometry:
-    """Depth 1.  K5: one thread an element on a grid of its own.  K2/K3:
+def _hold_geometry(family: str, rows: int, n: int, bm: Optional[int],
+                   head: int) -> RowGeometry:
+    """Depth 1.  K5: the stream of :func:`int_geometry` over the ``rows``
+    x ``n`` elements with a head of ``head`` (no warp owns a row; ``bm``
+    is not used, 1 unless given).  K2/K3:
     four warps a row (one thread a grouping lane, the row held in shared
     memory) from ROW_WIDE_N elements, or where the rows, a block each,
     fit one wave of the four-warp form (ROW_HOLD_BLOCKS_PER_SM an SM);
@@ -406,7 +412,9 @@ def _hold_geometry(family: str, rows: int, n: int,
     are streamed (``streams``)."""
     if family == "fused_div_rowbcast":
         bm = 1 if bm is None else bm
-        return RowGeometry(bm, 0, 0, 0, row_smem(bm, n, 1, 0))
+        g = int_geometry(rows * n, budget.SMS, head)
+        return RowGeometry(bm, 0, g.blocks_per_sm, g.grid,
+                           row_smem(bm, n, 1, 0))
     wide = (n >= budget.ROW_WIDE_N
             or rows <= budget.SMS * budget.ROW_HOLD_BLOCKS_PER_SM)
     if wide:
@@ -423,12 +431,13 @@ def _hold_geometry(family: str, rows: int, n: int,
 
 @lru_cache(maxsize=1024)
 def row_geometry(family: str, rows: int, n: int, depth: int,
-                 bm: Optional[int] = None) -> RowGeometry:
+                 bm: Optional[int] = None, head: int = 0) -> RowGeometry:
     """The geometry of a row divider over ``rows`` rows of ``n`` at
     stage count ``depth``; ``bm``, where given, is kept.
 
-    At depth 1, K2/K3 read each row once onto the chip and K5 runs one
-    thread an element (:func:`_hold_geometry`).  At depth >= 2 (K8):
+    At depth 1, K2/K3 read each row once onto the chip and K5 streams
+    the elements 16 B a thread, after ``head`` single ones
+    (:func:`int_split`; :func:`_hold_geometry`).  At depth >= 2 (K8):
 
     * warps on a row: rms / softmax rows from ROW_WIDE_N elements are
       shared by ROW_WARPS warps, one thread per grouping lane, and so
@@ -451,7 +460,7 @@ def row_geometry(family: str, rows: int, n: int, depth: int,
                        f"{_ROW_FAMILIES}")
     rows = max(1, rows)
     if depth == 1:
-        return _hold_geometry(family, rows, n, bm)
+        return _hold_geometry(family, rows, n, bm, head)
     if family == "fused_div_rowbcast":
         warps = 0
     elif n >= budget.ROW_WIDE_N or rows <= budget.SMS * \

@@ -450,13 +450,142 @@ def test_cuda_fused_elementwise_div_matches_cpu(cuda, b_shape):
 
 @pytest.mark.gpu
 def test_cuda_div_kernels_count_launches(cuda):
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (launch_counts, launch_counts_by_depth,
+                                     reset_launch_counts)
     reset_launch_counts()
     a = torch.ones(4, 80, device=cuda)
     fused_elementwise_div(a, torch.full((4, 1), 3.0, device=cuda), "rapid9")
     fused_elementwise_div(a, torch.full((80,), 3.0, device=cuda), "rapid9")
     counts = launch_counts()
     assert counts["div_rowbcast"] == 1 and counts["div"] == 1
+    assert launch_counts_by_depth()["div"] == {1: 1}
+
+
+def _sentinel_result(cuda, total, lag):
+    """The address at which the next ``total + lag``-element allocation
+    lands, its memory filled with a sentinel first, so a test sees every
+    element the kernel leaves unwritten."""
+    fill = torch.full((total + lag,), float("nan"), device=cuda)
+    fill.view(torch.int32).fill_(0x7FA5A5A5)
+    at = fill.data_ptr()
+    del fill  # the result's allocation takes this block back
+    return at + 4 * lag
+
+
+_K6_TOTALS = [1, 3, 4, 5, 4097, (1 << 20) + 3]
+_OFFSET_PAIRS = [(a, b) for a in range(4) for b in range(4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("total", _K6_TOTALS)
+@pytest.mark.parametrize("offsets", _OFFSET_PAIRS)
+def test_cuda_div_elementwise_ragged_and_offset(cuda, total, offsets):
+    """K6 from every offset pair mod 16 B (``a[k:]`` of a contiguous
+    buffer) at ragged totals: a shared offset takes a head of single
+    elements before the 16 B body (the result starts where a does),
+    different offsets one element a thread for the whole call; special
+    operands lead both operands; bit-equal to the plain version, every
+    element written."""
+    rng = np.random.default_rng(total + 7 * offsets[0] + offsets[1])
+    a = T(special_sample(rng, max(total + 3, 18))).to(cuda)
+    b = T(special_sample(rng, max(total + 3, 18))[::-1].copy()).to(cuda)
+    a = a[offsets[0]:offsets[0] + total]
+    b = b[offsets[1]:offsets[1] + total]
+    b[:18] = T(special_sample(rng, 18))[:min(18, total)].to(cuda)
+    ref = div_plain(a, b, "rapid9")
+    lag = offsets[0] if offsets[0] == offsets[1] else 0
+    at = _sentinel_result(cuda, total, lag)
+    got = div_elementwise(a, b, "rapid9")
+    assert got.data_ptr() == at
+    assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
+
+
+def _k5_cases():
+    for n in (1, 3, 80, 130, 40_000):
+        for rows in sorted({1, 3, -(-((1 << 20) + 3) // n)}):
+            yield rows, n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,n", list(_k5_cases()))
+@pytest.mark.parametrize("offsets", _OFFSET_PAIRS)
+def test_cuda_div_rowbcast_depth_one_ragged_and_offset(cuda, rows, n,
+                                                       offsets):
+    """K5 (depth 1) from every offset pair of a and b mod 16 B, at n = 1,
+    3, 80, 130 and 40 000 and totals up to 2^20 + 3: the result starts
+    where a does, so a head of at most 3 single elements precedes the
+    16 B body (the row found once a vector where n % 4 == 0 and the head
+    is 0, else once an element); special operands lead a and b;
+    bit-equal to the plain version, every element written, one launch a
+    call at depth 1."""
+    from repro_torch.kernels import launch_counts_by_depth, reset_launch_counts
+    rng = np.random.default_rng(rows * n + 7 * offsets[0] + offsets[1])
+    total = rows * n
+    a = T(special_sample(rng, max(total + 3, 18))).to(cuda)
+    a = a[offsets[0]:offsets[0] + total].view(rows, n)
+    b = T(special_sample(rng, max(rows + 3, 18))[::-1].copy()).to(cuda)
+    b = b[offsets[1]:offsets[1] + rows]
+    b[:18] = T(special_sample(rng, 18))[:min(18, rows)].to(cuda)
+    ref = div_rowbcast_plain(a, b, "rapid9")
+    at = _sentinel_result(cuda, total, offsets[0])
+    reset_launch_counts()
+    got = div_rowbcast(a, b, "rapid9", spec=_depth(1))
+    assert got.data_ptr() == at
+    assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
+    assert launch_counts_by_depth()["div_rowbcast"] == {1: 1}
+
+
+@pytest.mark.gpu
+def test_cuda_div_stream_refuses_what_it_did_not_compile(cuda):
+    """K6 and K5 (depth 1) refuse a block or thread count they did not
+    compile, a grid past one wave or empty, a head that leaves the body
+    misaligned, 2^31 elements or more, and (K5) a magic pair that does
+    not divide by n."""
+    import ctypes
+
+    from repro_torch.core import float_approx as fa
+    from repro_torch.kernels import _build, budget
+    from repro_torch.kernels._launch import ptr, sm_count, stream
+    from repro_torch.kernels.fused_div.ops import row_magic
+    a = torch.ones(64 * 80, device=cuda)
+    b = torch.ones(64 * 80, device=cuda)
+    out = torch.empty(64 * 80, device=cuda)
+    lut = fa.div_lut_device("rapid9", cuda)
+    k6 = _build.function("fused_div", "rapid_div",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
+                         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    k5 = _build.function("fused_div", "rapid_div_rowbcast_stream",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                         + [ctypes.c_longlong] + [ctypes.c_uint] * 2
+                         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    blocks, threads = budget.INT_BLOCKS_PER_SM, budget.INT_THREADS
+    wave = sm_count(cuda.index or 0) * blocks
+
+    def call6(total=64 * 80, head=0, blocks_per_sm=blocks, threads=threads,
+              grid=1, x=a):
+        return k6(ptr(x), ptr(b), ptr(out), ptr(lut), total, head,
+                  blocks_per_sm, threads, grid, stream(cuda))
+
+    def call5(rows=64, n=80, head=0, magic=None, blocks_per_sm=blocks,
+              threads=threads, grid=1, x=a):
+        m, s = row_magic(n) if magic is None else magic
+        return k5(ptr(x), ptr(b), ptr(out), ptr(lut), rows, n, head, m, s,
+                  blocks_per_sm, threads, grid, stream(cuda))
+
+    for call in (call6, call5):
+        assert call() == 0
+        assert call(grid=wave) == 0
+        torch.cuda.synchronize()
+        for bad in (dict(blocks_per_sm=blocks + 1), dict(threads=128),
+                    dict(grid=0), dict(grid=wave + 1), dict(head=1),
+                    dict(head=4), dict(x=a[1:])):
+            assert call(**bad) != 0, (call.__name__, bad)
+    assert call6(total=1 << 31) != 0
+    assert call5(rows=1 << 16, n=1 << 15) != 0  # 2^31 elements
+    assert call5(magic=row_magic(81)) != 0
+    assert call5(magic=(row_magic(80)[0], 32)) != 0
+    assert call6(x=a[1:], total=63, head=63) == 0  # single elements only
+    torch.cuda.synchronize()
 
 
 # --------------------------------------------------------------------------
@@ -968,9 +1097,12 @@ def test_cuda_row_dividers_depths_bit_exact(cuda, depth, rows, n, bm,
     """K2 / K3 / K5 at every depth against their plain versions on the
     card, denominators included, with the LUT divide and (rms, softmax:
     K1's norm tail passes None on an exact divide) the IEEE one; special
-    operands head every row set, and at depth >= 2 each op also runs
-    from a start 4 B past a 16 B boundary (4 B copies, no 16 B
-    stores).  The row broadcast is RAPID only."""
+    operands head every row set, the last of several softmax rows is all
+    -0 and softmax runs at the default floor and at 0.0 (where the -0
+    row's denominator is +0); at depth >= 2 each op also runs from a
+    start 4 B past a 16 B boundary (4 B copies, no 16 B stores), and so
+    does the row broadcast at depth 1 (K5: a head of single elements).
+    The row broadcast is RAPID only."""
     from repro_torch.kernels.spec import KernelSpec, PipelineSpec
     spec = KernelSpec(bm=bm, pipeline=PipelineSpec(depth=depth))
     rng = np.random.default_rng(rows + n + depth)
@@ -982,23 +1114,34 @@ def test_cuda_row_dividers_depths_bit_exact(cuda, depth, rows, n, bm,
     assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
     e = torch.exp(x.clamp(-30, 30))
     e.view(-1)[:18] = x.view(-1)[:18]
-    got, den = fused_softmax_div(e, scheme, return_denom=True, spec=spec)
-    sref, sden = softmax_div_plain(e, scheme, return_denom=True)
-    assert_same_bits(den.cpu().numpy(), sden.cpu().numpy())
-    assert_same_bits(got.cpu().numpy(), sref.cpu().numpy())
+    if rows > 1:
+        e[-1] = -0.0
+    srefs = {}
+    for floor in (1e-20, 0.0):
+        got, den = fused_softmax_div(e, scheme, floor=floor,
+                                     return_denom=True, spec=spec)
+        sref, sden = softmax_div_plain(e, scheme, floor=floor,
+                                       return_denom=True)
+        assert_same_bits(den.cpu().numpy(), sden.cpu().numpy())
+        assert_same_bits(got.cpu().numpy(), sref.cpu().numpy())
+        srefs[floor] = sref
+    if rows > 1 and n % 128 == 0:  # the -0 row at floor 0: -0 / +0
+        assert bits(sden[-1].cpu().numpy())[0] == 0
     if scheme is not None:
         b = T(special_sample(rng, max(rows, 18))[:rows]).to(cuda)
         got = div_rowbcast(x, b, scheme, spec=spec)
         bref = div_rowbcast_plain(x, b, scheme)
         assert_same_bits(got.cpu().numpy(), bref.cpu().numpy())
+        # and from a start 4 B past a 16 B boundary
+        got = div_rowbcast(_misaligned(x), b, scheme, spec=spec)
+        assert_same_bits(got.cpu().numpy(), bref.cpu().numpy())
     if depth > 1:  # and from a start 4 B past a 16 B boundary
         got = fused_rms_div(_misaligned(x), 1e-6, scheme, spec=spec)
         assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
-        got = fused_softmax_div(_misaligned(e), scheme, spec=spec)
-        assert_same_bits(got.cpu().numpy(), sref.cpu().numpy())
-        if scheme is not None:
-            got = div_rowbcast(_misaligned(x), b, scheme, spec=spec)
-            assert_same_bits(got.cpu().numpy(), bref.cpu().numpy())
+        for floor, sref in srefs.items():
+            got = fused_softmax_div(_misaligned(e), scheme, floor=floor,
+                                    spec=spec)
+            assert_same_bits(got.cpu().numpy(), sref.cpu().numpy())
 
 
 @pytest.mark.gpu
@@ -1067,9 +1210,10 @@ def test_cuda_row_dividers_depth_one_bit_exact(cuda, rows, n, scheme):
     """K2 / K3 at depth 1 against their plain versions on the card,
     denominators included, on the LUT and the IEEE divide: special
     operands scattered over the first and the last row, a softmax row of
-    -0, from an aligned start and from one 4 B past a 16 B boundary;
-    both warp forms and the streamed one (``row_geometry``); one launch
-    a call, filed under depth 1."""
+    -0 (softmax at the default floor and at 0.0, where that row's
+    denominator is +0), from an aligned start and from one 4 B past a
+    16 B boundary; both warp forms and the streamed one
+    (``row_geometry``); one launch a call, filed under depth 1."""
     from repro_torch.kernels import launch_counts_by_depth, reset_launch_counts
     from repro_torch.kernels.spec import row_geometry
     rng = np.random.default_rng(7 * rows + n)
@@ -1086,18 +1230,24 @@ def test_cuda_row_dividers_depth_one_bit_exact(cuda, rows, n, scheme):
         e[1] = -0.0
     spec = _depth(1)
     ref, rden = rms_div_plain(xt, 1e-6, scheme, return_denom=True)
-    sref, sden = softmax_div_plain(e, scheme, return_denom=True)
+    sref = {floor: softmax_div_plain(e, scheme, floor=floor,
+                                     return_denom=True)
+            for floor in (1e-20, 0.0)}
+    if rows > 2 and n % 128 == 0:  # the -0 row at floor 0: -0 / +0
+        assert bits(sref[0.0][1][1].cpu().numpy())[0] == 0
     reset_launch_counts()
     for t, u in ((xt, e), (_misaligned(xt), _misaligned(e))):
         got, den = fused_rms_div(t, 1e-6, scheme, return_denom=True,
                                  spec=spec)
         assert_same_bits(den.cpu().numpy(), rden.cpu().numpy())
         assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
-        got, den = fused_softmax_div(u, scheme, return_denom=True, spec=spec)
-        assert_same_bits(den.cpu().numpy(), sden.cpu().numpy())
-        assert_same_bits(got.cpu().numpy(), sref.cpu().numpy())
+        for floor, (sq, sden) in sref.items():
+            got, den = fused_softmax_div(u, scheme, floor=floor,
+                                         return_denom=True, spec=spec)
+            assert_same_bits(den.cpu().numpy(), sden.cpu().numpy())
+            assert_same_bits(got.cpu().numpy(), sq.cpu().numpy())
     counts = launch_counts_by_depth()
-    assert counts["rms_div"] == {1: 2} and counts["softmax_div"] == {1: 2}
+    assert counts["rms_div"] == {1: 2} and counts["softmax_div"] == {1: 4}
     assert row_geometry("fused_rms", rows, n, 1).streams == (n > 4096)
 
 

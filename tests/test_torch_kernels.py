@@ -203,6 +203,115 @@ def test_lane_sum_grouping():
     np.testing.assert_array_equal(bits(got), bits(lanes))
 
 
+@pytest.mark.parametrize("n", [128, 256, 2560])
+def test_softmax_div_plain_negative_zero_rows_vs_reference(n):
+    """Rows of -0 at ``floor=0.0`` (a width that is a multiple of 128,
+    so no padding's +0 joins the sum): the reference's sum starts at +0,
+    so its denominator is +0 and every quotient -0; the port's
+    ``lane_sum`` starts each lane's chain at +0 and gives the same bits,
+    signs of zero included."""
+    e = np.full((2, n), -0.0, np.float32)
+    lut = jfa.div_lut_device("rapid9")
+    ref_out = np.asarray(jfd.softmax_div_ref(jnp.asarray(e), lut, floor=0.0))
+    ref_den = np.asarray(jfd.softmax_denom(jfd.pad_lanes(jnp.asarray(e)),
+                                           0.0))
+    got, den = tfdops.softmax_div_plain(T(e), "rapid9", floor=0.0,
+                                        return_denom=True)
+    np.testing.assert_array_equal(bits(den.numpy()), bits(ref_den))
+    np.testing.assert_array_equal(bits(got.numpy()), bits(ref_out))
+    assert (bits(den.numpy()) == 0).all()  # +0
+    assert (bits(got.numpy()) == bits(np.float32(-0.0))).all()  # -0
+
+
+def _lane_sum_from_first_group(x):
+    """``lane_sum`` as it was before its chains started at +0: each
+    lane's chain starts from the row's first lane group."""
+    acc = x[:, :128]
+    for j in range(1, x.shape[1] // 128):
+        acc = acc + x[:, 128 * j:128 * (j + 1)]
+    h = 64
+    while h:
+        acc = acc[:, :h] + acc[:, h:2 * h]
+        h //= 2
+    return acc
+
+
+@pytest.mark.parametrize("n", [128, 256, 2560])
+def test_lane_sum_plus_zero_start_moves_only_negative_zero_lanes(n):
+    """Starting the chains at +0 changes the sum of a row only where a
+    whole lane is -0 (its -0 becomes +0): rows of normals, of normals
+    and -0, of -0 and +0, of special operands and of subnormals keep
+    their bits; a row of -0 sums to +0, where it summed to -0."""
+    rng = np.random.default_rng(n)
+    x = randn(rng, 6, n, scale=3.0)
+    x[1, rng.random(n) < 0.5] = -0.0
+    x[2] = -0.0
+    x[2, n // 2] = 0.0
+    x[3] = special_sample(rng, max(n, 18))[:n]
+    x[4] = rng.choice(np.array([1e-40, -1e-42, -0.0], np.float32), n)
+    x[5] = -0.0
+    got = tfd.lane_sum(T(x)).numpy()
+    old = _lane_sum_from_first_group(T(x)).numpy()
+    assert_same_bits(got[:5], old[:5])
+    assert bits(got[5])[0] == 0 and bits(old[5])[0] == bits(np.float32(-0.0))
+    # the mixed rows' quotients, against the reference fed the port's
+    # denominators, and the -0 row's against the reference's own
+    lut = jfa.div_lut_device("rapid9")
+    e = np.abs(x[:2])
+    e[0, :3] = -0.0
+    got, den = tfdops.softmax_div_plain(T(e), "rapid9", floor=0.0,
+                                        return_denom=True)
+    np.testing.assert_array_equal(
+        bits(got.numpy()),
+        bits(np.asarray(jfa.log_div_f32(jnp.asarray(e),
+                                        jnp.asarray(den.numpy()), lut))))
+
+
+# --------------------------------------------------------------------------
+# K5's row index: the wrapper's magic multiply in place of i // n
+# --------------------------------------------------------------------------
+
+_MAGIC_WIDTHS = list(range(1, 4097)) + [40_000, 2**30, 2**30 + 1,
+                                        3 * 2**29, 2**31 - 1]
+
+
+def test_row_magic_is_floor_division():
+    """``row_index(i, *row_magic(n))`` -- a model of csrc/fused_div.cu's
+    ``umulhi(2 i, magic) >> shift`` in uint32 arithmetic -- equals
+    ``i // n`` for every n in 1..4096, 80, 40 000 and the widest ones, at
+    i = 0, n - 1, n, the last index below 2^31 and random indices."""
+    rng = np.random.default_rng(21)
+    last = 2**31 - 1
+    for n in _MAGIC_WIDTHS:
+        magic, shift = tfdops.row_magic(n)
+        assert 0 < magic < 2**32 and 0 <= shift <= 31
+        idx = [0, n - 1, n, 2 * n - 1, 2 * n, last, last - 1,
+               last - last % n, last - last % n - 1]
+        idx += rng.integers(0, 2**31, 8).tolist()
+        idx = np.array([i for i in idx if 0 <= i <= last], np.uint64)
+        got = tfdops.row_index(idx, np.uint64(magic), np.uint64(shift))
+        np.testing.assert_array_equal(got, idx // np.uint64(n))
+        for i in (0, n - 1, last):  # and in Python's unbounded ints
+            assert tfdops.row_index(i, magic, shift) == i // n
+
+
+@pytest.mark.parametrize("n", [1, 3, 80, 130, 40_000])
+def test_row_magic_every_index_of_a_call(n):
+    """At the card tests' widths, every element index of a call of
+    about 2^20 elements finds its row."""
+    i = np.arange(-(-(1 << 20) // n) * n, dtype=np.uint64)
+    magic, shift = tfdops.row_magic(n)
+    np.testing.assert_array_equal(
+        tfdops.row_index(i, np.uint64(magic), np.uint64(shift)),
+        i // np.uint64(n))
+
+
+def test_row_magic_refuses_a_width_past_the_index():
+    for n in (0, -1, 2**31):
+        with pytest.raises(ValueError):
+            tfdops.row_magic(n)
+
+
 # --------------------------------------------------------------------------
 # K4 flash decode (plain)
 # --------------------------------------------------------------------------

@@ -295,7 +295,7 @@ _HOLD_GEOMETRY = [
     ("fused_rms", 4, 40_000, (1, 4, 4, 4, True)),        # past two slabs
     ("fused_softmax", 9001, 200, (8, 1, 1056, 8, False)),   # blocks walk
     ("fused_rms", 1000, 601, (1, 4, 528, 4, False)),     # blocks walk
-    ("fused_div_rowbcast", 2048, 80, (1, 0, 0, 0, False)),  # K5's own grid
+    ("fused_div_rowbcast", 2048, 80, (1, 0, 160, 4, False)),  # K5: a stream
 ]
 
 
@@ -305,7 +305,8 @@ def test_row_geometry_at_depth_one(family, rows, n, want):
     rows fit one wave of the four-warp form; a warp a row of narrow rows
     past it, 16 rows of 128 a block (a warp holds four); a grid of one
     block a slab up to one wave; the 40 000-wide rows of the deferred
-    depth's fallback streamed.  K5 keeps its own grid."""
+    depth's fallback streamed.  K5 streams 16 B a thread, on
+    ``int_geometry``'s grid: a vector a thread up to one wave."""
     g = row_geometry(family, rows, n, 1)
     assert (g.bm, g.warps, g.grid, g.blocks_per_sm, g.streams) == want
     assert g.smem == row_smem(g.bm, n, 1, g.warps)
@@ -367,7 +368,7 @@ def _warp_fold(s):
 
 def _chain(terms, idx, held):
     """One chain a column of ``idx`` [rounds, lanes] (element indices of
-    each round), as the kernel runs it: from -0, the first ``held``
+    each round), as the kernel runs it: from +0, the first ``held``
     rounds read onto the chip (shared memory under four warps,
     registers under one) before the first add, the rest streamed; an
     index past the row adds the padding's +0 (zero-filled, or not
@@ -380,7 +381,7 @@ def _chain(terms, idx, held):
                            torch.zeros(()))
 
     regs = [load(k) for k in range(min(held, len(idx)))]
-    p = torch.full((terms.shape[0], idx.shape[1]), -0.0)
+    p = torch.full((terms.shape[0], idx.shape[1]), 0.0)
     for v in regs:
         p = p + v
     for k in range(len(regs), len(idx)):
@@ -445,8 +446,8 @@ def test_depth_one_sum_orders_are_lane_sums(form, n):
         else:
             got = _four_warp_sum(terms, 1)
         assert_same_bits(got.numpy(), want.numpy())
-    assert bits(tref.lane_sum(tref.pad_lanes(x[1:2])).numpy())[0, 0] == (
-        bits(np.float32(-0.0)) if n % 128 == 0 else 0)
+    # a row of -0 sums to +0, as the reference's sum does, at every width
+    assert bits(tref.lane_sum(tref.pad_lanes(x[1:2])).numpy())[0, 0] == 0
 
 
 def test_check_smem_refuses_the_card_limit():
@@ -711,3 +712,94 @@ def test_int_split_refuses_unaligned_addresses():
     from repro_torch.kernels.spec import int_split
     with pytest.raises(ValueError):
         int_split(8, 2, 0, 0)
+
+
+# --------------------------------------------------------------------------
+# K5 / K6: the same split and geometry, as their wrappers place the result
+# --------------------------------------------------------------------------
+
+def _k56_addresses(kind, total, a_off, b_off):
+    """(streamed addresses, the head) of a K6 call (a, b and the result
+    streamed) or a K5 call (a and the result; b is read by row) whose
+    operands start ``a_off`` / ``b_off`` elements past a 16 B boundary:
+    the result starts where ``a`` does mod 16 B wherever the streamed
+    operands share their offset (``_launch.result_like``), else aligned."""
+    from repro_torch.kernels.spec import int_split
+    a, b = 4096 + 4 * a_off, 65536 + 4 * b_off
+    shared = kind == "K5" or a_off == b_off
+    out = (1 << 20) + (4 * a_off if shared else 0)
+    addresses = (a, b, out) if kind == "K6" else (a, out)
+    return addresses, int_split(total, *addresses)
+
+
+@pytest.mark.parametrize("kind", ["K5", "K6"])
+@pytest.mark.parametrize("total", [1, 2, 3, 4, 5, 7, 4097, 2048 * 80,
+                                   (1 << 20) + 3])
+@pytest.mark.parametrize("offsets", [(a, b) for a in range(4)
+                                     for b in range(4)])
+def test_div_stream_split_covers_every_element_once(kind, total, offsets):
+    """K5 / K6 take K9 / K10's split and geometry (``int_split``,
+    ``int_geometry``; K5 through ``row_geometry`` at depth 1, for the
+    head its wrapper finds): at ragged and tiny totals and at every
+    offset pair mod 16 B, the head, the 16 B body and the tail cover each
+    element once, the body starts 16 B aligned for every streamed
+    pointer, K5 (whose result follows ``a``) always has a body past a
+    head of at most 3, K6 only where a and b share their offset, and the
+    grid is at most one wave."""
+    from repro_torch.kernels.spec import int_geometry, row_geometry
+    addresses, (head, vectors, tail) = _k56_addresses(kind, total, *offsets)
+    assert head + 4 * vectors + tail == total and 0 <= tail < 4
+    if kind == "K5" or offsets[0] == offsets[1]:
+        assert head == min(total, -offsets[0] % 4)
+        assert head == total or all((p + 4 * head) % 16 == 0
+                                    for p in addresses)
+    else:
+        assert (head, vectors, tail) == (total, 0, 0)
+    geom = int_geometry(total, budget.SMS, head)
+    if kind == "K5":
+        for n in {1, 3, 80, total}:
+            if total % n:
+                continue
+            g = row_geometry("fused_div_rowbcast", total // n, n, 1, None,
+                             head)
+            assert (g.warps, g.blocks_per_sm, g.grid) == (
+                0, geom.blocks_per_sm, geom.grid)
+    assert 1 <= geom.grid <= budget.SMS * budget.INT_BLOCKS_PER_SM
+    hits, per_thread = _walk_int_kernel(total, head, geom)
+    assert (hits == 1).all()
+    assert per_thread.max() - per_thread.min() <= 1
+
+
+@pytest.mark.parametrize("rows,n", [(5, 3), (33, 129), (2048, 80), (7, 4),
+                                    (3, 130), (1, 40_000)])
+@pytest.mark.parametrize("head", [0, 1, 2, 3])
+def test_div_rowbcast_stream_finds_each_row(rows, n, head):
+    """A model of K5's denominators (csrc/fused_div.cu ``DivStream``):
+    where n % 4 == 0 and the body starts at element 0, each vector takes
+    the row of its first element; otherwise every element its own, by the
+    wrapper's magic multiply.  Every element meets ``b[i // n]``."""
+    from repro_torch.kernels.fused_div.ops import row_index, row_magic
+    total = rows * n
+    head = min(head, total)
+    vectors = (total - head) // 4
+    magic, shift = (np.uint64(v) for v in row_magic(n))
+    e = np.arange(total, dtype=np.uint64)
+    row = row_index(e, magic, shift)  # the head, the tail, ROW_AN_ELEMENT
+    if n % 4 == 0 and head == 0:  # ROW_A_VECTOR
+        v = np.arange(vectors, dtype=np.uint64)
+        row[:4 * vectors] = np.repeat(row_index(4 * v, magic, shift), 4)
+    np.testing.assert_array_equal(row, e // np.uint64(n))
+
+
+def test_result_like_starts_where_its_operand_does():
+    """The streaming wrappers' result: the operand's shape and the given
+    dtype, starting at the operand's address mod 16 B."""
+    from repro_torch.kernels._launch import result_like
+    buf = torch.zeros(64)
+    for k in range(4):
+        t = buf[k:k + 40].view(5, 8)
+        for dtype in (None, torch.float32, torch.uint32):
+            out = result_like(t, dtype)
+            assert out.shape == t.shape and out.is_contiguous()
+            assert out.dtype == (dtype or t.dtype)
+            assert out.data_ptr() % 16 == t.data_ptr() % 16
