@@ -14,27 +14,44 @@ one NVIDIA H100.  It
 3. serves full-width h2o_danube_1_8b (24 layers, d_model 2560, random
    weights from a seed) with RAPID arithmetic through the lockstep
    ``ServeEngine``: 4 requests of 96-128 prompt tokens, 16 greedy tokens
-   each, bf16 activations and KV cache, ``cache_n=512``; the launch
+   each, bf16 activations and KV cache, ``cache_n=512``, its decode step
+   captured as a CUDA graph (the graph route, the main path); the launch
    counts are set to 0 just before and read just after, and K1-K4 must
-   have launched;
-4. serves a 2-layer full-width copy once through the kernels and once
-   through the plain versions on the card: the greedy tokens must agree,
-   and the launch counts show that the first run launched the path's
-   kernels and the second none;
+   have launched.  The same requests then run on the eager route and
+   both routes again, warm (graph, eager, eager, graph): the greedy
+   tokens must be equal, the eager route's launch counts equal to the
+   graph route's (each replay counts what its capture recorded), and
+   ``trace_counts`` {"decode": 1, "prefill": 1}; the decode step's time
+   and tokens/s are printed for both routes;
+4. serves a 2-layer full-width copy once through the kernels (graph
+   route) and once through the plain versions (eager) on the card: the
+   greedy tokens must agree, and the launch counts show that the first
+   run launched the path's kernels and the second none;
 5. serves the same model through ``ContinuousServeEngine`` (paged KV,
    chunked prefill, slot recycling): 6 requests of 96-128 prompt tokens,
-   16 greedy tokens each, 4 slots, so the queue backs up; K1, K2, K4 and
-   K5 must launch, K3 must not, and the page free list must be whole
-   after the drain.  The process's first continuous prefill tick is timed
-   layer by layer; the same load then runs again on the drained engine
-   (warm) and must give the same tokens, and one tick of each kind runs
-   under torch.profiler;
+   16 greedy tokens each, 4 slots, so the queue backs up; on the graph
+   route (both ticks captured) cold, then warm on the drained engine,
+   then on the eager route cold and warm; K1, K2, K4 and K5 must
+   launch, K3 must not, every run must give the same tokens and launch
+   counts, ``trace_counts`` must read {"decode": 1, "prefill": 1} and
+   the page free list must be whole after each drain.  The process's
+   first continuous prefill tick (warm-up and capture) is timed layer by
+   layer, and one tick of each kind on each route runs under
+   torch.profiler (the device's busy share), where the port's kernels
+   the profiler saw must number the launches the counters gained (on
+   the graph route: what the capture recorded, added per replay);
 6. runs the continuous engine on a 2-layer copy kernels vs plain (the
    greedy tokens must agree), and prefills one 8320-token prompt on a
    2-layer copy, which takes the blockwise attention path (K5) and wraps
    the 4096-slot sliding-window ring cache, then decodes 4 steps; at
    that shape ``_attn_blockwise`` with K5 must equal it with the plain
-   K5;
+   K5; then, after the depth A/B of step 9, serves full-width
+   starcoder2_7b (32 layers, d_model 4608, LN, the ungated gelu MLP; f32
+   params from a seed) on the graph route through both engines (4
+   requests of 96-128 prompt tokens, 8 greedy tokens; 4 slots, page 16,
+   chunk 64), launches counted from 0 and peak memory read, and a
+   2-layer copy kernels vs plain through both engines at that load
+   (equal greedy tokens);
 7. drives the paper's integer units (K9 ``rapid_mul``, K10
    ``rapid_div``) through their wrappers as Table III does, at 8 bits
    exhaustively and 2^24 random pairs at 16 (16/8) bits, all four
@@ -73,7 +90,12 @@ one NVIDIA H100.  It
     gradient within 1e-5 of its largest magnitude, the kernels launched
     in the first run and none in the second.
 
-Step 2 holds K4 bit-equal to its plain version, both arms, at the
+Step 2 holds K1 at starcoder2_7b's sites (M = 4, 64 and 512: wq,
+wk/wv, wo and w2 bit-equal, w1 with the tanh gelu epilogue within 2
+ulp) at every stage count, timed beside f32 ``torch.matmul``, and its
+LN divides (K2/K8 over 4 / 64 / 512 rows of 4608) and a 64-token
+chunk's combine (K5, 36 heads of 128) bit-equal.  It holds K4 bit-equal
+to its plain version, both arms, at the
 lockstep step (512 slots, 136 live), the full 4096-slot window and the
 continuous tick's paged views, and times beside each the library's
 ``scaled_dot_product_attention`` on the exact arm as a yardstick (the
@@ -107,8 +129,10 @@ counting the launches at depth >= 2).  The whole record also goes to
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -137,6 +161,10 @@ D, KV_HEADS, G, HD, D_FF = 2560, 8, 4, 80, 6912
 # K1's rows: lockstep prefill (4 x 128 tokens), a continuous prefill
 # tick (one 64-token chunk) and a decode step (4 tokens)
 PREFILL_M, CHUNK_M, DECODE_M = 4 * 128, 64, 4
+# starcoder2_7b's widths (its w1 takes the gelu epilogue) and the bound
+# of K1's tanh gelu against the plain version on the card, in ulp
+SC_D, SC_FF, SC_KV_HEADS, SC_HEADS, SC_HD = 4608, 18432, 4, 36, 128
+GELU_ULP = 2
 
 # fewest int32 ops of one integer RAPID unit (K9/K10): two leading-one
 # detections, two fraction alignments, the cell index, the ternary add
@@ -191,6 +219,20 @@ SOURCES = {
 # path, the one it must not: K3 serves only lockstep prefill)
 LOCKSTEP_KERNELS = ("log_matmul", "rms_div", "softmax_div", "flash_decode")
 CONTINUOUS_KERNELS = ("log_matmul", "rms_div", "flash_decode", "div_rowbcast")
+# the CUDA kernels each wrapper family launches (one a counted launch),
+# by the names the profiler gives them: a profiled tick's kernel events
+# must number what its launch counters gained
+PROFILED_KERNELS = {
+    ("log_matmul",): ("log_matmul_kernel", "lean_kernel", "decode_kernel"),
+    ("rms_div", "softmax_div", "div_rowbcast"): ("row_slab_kernel",
+                                                 "row_hold_kernel"),
+    ("div",): ("elementwise_div_kernel",),
+    ("flash_decode",): ("flash_decode_kernel",),
+    ("rapid_mul", "rapid_div"): ("int_unit_kernel",),
+}
+# the wait between opening the profiler's window and the profiled tick,
+# and between the tick's end and closing it
+PROFILE_SETTLE_S = 0.05
 # the blockwise prefill: over _PLAIN_ATTN_MAX_T (8192) tokens and over
 # the 4096-token sliding window
 LONG_PROMPT = 8320
@@ -487,6 +529,54 @@ def kernel_phase(torch, dev, timer):
                 del got
             del x, w, r, ref
 
+    # K1 / K7 at starcoder2_7b's sites (LN: no norm tail on wo) at M = 4
+    # / 64 / 512, every stage count: wq, wk/wv (4 KV heads of 128), wo
+    # and w2 with the residual, bit-equal, and w1 with the tanh gelu
+    # epilogue within GELU_ULP (the kernel takes torch's CUDA gelu step
+    # for step, its fma written out).  The plain version (thousands of
+    # launches) is timed once by the host clock between syncs
+    sc_sites = [("wq", SC_D, SC_D, None, False),
+                ("wk/wv", SC_D, SC_KV_HEADS * SC_HD, None, False),
+                ("wo", SC_D, SC_D, None, True),
+                ("w1", SC_D, SC_FF, "gelu", False),
+                ("w2", SC_FF, SC_D, None, True)]
+    for m in (DECODE_M, CHUNK_M, PREFILL_M):
+        for site, k, n, act, res in sc_sites:
+            x = randn(m, k)
+            w = randn(k, n, std=k ** -0.5)
+            r = randn(m, n) if res else None
+            kw = dict(activation=act, residual=r)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = log_matmul_plain(x, w, "rapid10", **kw)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            exact_ms = timer(lambda: torch.matmul(x, w), 5)
+            limit = GELU_ULP if act else 0
+            for depth in DEPTHS:
+                got = log_matmul(x, w, "rapid10", spec=at(depth), **kw)
+                torch.cuda.synchronize()
+                ulps = ulp_max(got, ref)
+                lib = {} if act or res else {
+                    "library_ms": exact_ms,
+                    "library": "torch.matmul, f32 with TF32 off (exact, "
+                               "no epilogue, no RAPID; never called by "
+                               "the port)"}
+                record("log_matmul" if depth == 1 else "log_matmul_pipelined",
+                       f"starcoder2 {site} M={m} K={k} N={n}"
+                       + (f" {act}" if act else "") + (" +res" if res else "")
+                       + f" depth={depth}", abs_max(got, ref), ulps,
+                       ulps <= limit,
+                       timer(lambda: log_matmul(x, w, "rapid10",
+                                                spec=at(depth), **kw), 5),
+                       plain_ms, 4 * (m * k + k * n + m * n * (1 + res)),
+                       m * n * k * INT32_OPS_PER_PRODUCT, INT32_OPS_PER_S,
+                       {"exact_matmul_ms": exact_ms, "products": m * n * k,
+                        "depth": depth, **lib,
+                        **({"gelu_ulp_bound": GELU_ULP} if act else {})})
+                del got
+            del x, w, r, ref
+
     # K1 / K7 where the ring meets its edges: K not a multiple of BK with
     # N not a multiple of 4 (4 B copies), K % 4 != 0, and K shorter than
     # depth K blocks (nk < depth); bit-equal at every depth
@@ -594,15 +684,17 @@ def kernel_phase(torch, dev, timer):
     # K2: ln1/ln2/final norm of a decode step (4 rows), of a continuous
     # prefill tick (64 rows) and of the lockstep prefill / a train step
     # (512 rows), a single row (fewer slabs than depth) and 37 rows (a
-    # ragged last slab), at every stage count (depth >= 2: K8);
+    # ragged last slab), and starcoder2_7b's LN divides (4 / 64 / 512
+    # rows of 4608), at every stage count (depth >= 2: K8);
     # tolerance: denominators and quotients bit-equal.  Library: torch's
     # f32 rms_norm, a yardstick with an exact divide and no RAPID one
     rms_norm = torch.nn.functional.rms_norm
-    for rows in (1, DECODE_M, CHUNK_M, 37, PREFILL_M):
-        x = randn(rows, D, std=3.0)
+    for rows, n in [(r, D) for r in (1, DECODE_M, CHUNK_M, 37, PREFILL_M)] + [
+            (r, SC_D) for r in (DECODE_M, CHUNK_M, PREFILL_M)]:
+        x = randn(rows, n, std=3.0)
         ref, rden = rms_div_plain(x, 1e-6, "rapid9", return_denom=True)
         plain_ms = timer(lambda: rms_div_plain(x, 1e-6, "rapid9"), 3)
-        lib = {"library_ms": timer.graph(lambda: rms_norm(x, (D,), eps=1e-6),
+        lib = {"library_ms": timer.graph(lambda: rms_norm(x, (n,), eps=1e-6),
                                          100),
                "library": "torch.nn.functional.rms_norm, f32 (exact "
                           "divide, no RAPID; never called by the port)"}
@@ -614,9 +706,9 @@ def kernel_phase(torch, dev, timer):
             k2 = lambda: fused_rms_div(x, 1e-6, "rapid9",  # noqa: E731
                                        spec=at(depth))
             record("rms_div" if depth == 1 else "rowwise_pipelined",
-                   f"rms rows={rows} n={D} depth={depth}", abs_max(got, ref),
+                   f"rms rows={rows} n={n} depth={depth}", abs_max(got, ref),
                    ulps, ulps == 0, timer.graph(k2, 100), plain_ms,
-                   4 * (2 * rows * D), rows * D * 2, FP32_FLOPS_PER_S / 2,
+                   4 * (2 * rows * n), rows * n * 2, FP32_FLOPS_PER_S / 2,
                    {"call_ms": timer(k2, 20), "depth": depth, **lib})
 
     # K3: prefill attention probabilities, B*H*S rows of T = 128, and a
@@ -760,8 +852,9 @@ def kernel_phase(torch, dev, timer):
     del pool_k, pool_v, kg, vg
 
     # K5: the online-softmax combine acc / l of a 64-token prefill chunk
-    # (64 x 32 heads rows of head_dim 80) and of an 8320-token blockwise
-    # prefill, at every stage count (depth >= 2: K8), and at depth 1 also
+    # (64 x 32 heads rows of head_dim 80; starcoder2_7b's: 64 x 36 heads
+    # of 128) and of an 8320-token blockwise prefill, at every stage
+    # count (depth >= 2: K8), and at depth 1 also
     # with a starting 4 B past a 16 B boundary (the combine hands K5 a
     # view of the caller's tensor: a head of single elements, then the
     # 16 B stream); K6 where the apps launch it -- 2048 x 2048 (JPEG's
@@ -790,8 +883,9 @@ def kernel_phase(torch, dev, timer):
         out.copy_(t)
         return out
 
-    for rows in (64 * 32, LONG_PROMPT * 32):
-        a = with_specials(randn(rows, HD))
+    for rows, hd in ((64 * 32, HD), (LONG_PROMPT * 32, HD),
+                     (64 * SC_HEADS, SC_HD)):
+        a = with_specials(randn(rows, hd))
         b = with_specials(randn(rows).abs() * 40 + 1)
         ref = div_rowbcast_plain(a, b, "rapid9")
         fin = torch.isfinite(ref)
@@ -807,11 +901,11 @@ def kernel_phase(torch, dev, timer):
             k5 = lambda: div_rowbcast(x, b, "rapid9",  # noqa: E731
                                       spec=at(depth))
             record("div_rowbcast" if depth == 1 else "rowwise_pipelined",
-                   f"a=[{rows},{HD}] b=[{rows}] depth={depth}"
+                   f"a=[{rows},{hd}] b=[{rows}] depth={depth}"
                    + ("" if x is a else " a +4B"),
                    abs_max(got[fin], ref[fin]), 0 if ok else -1, ok,
                    timer.graph(k5, reps), plain_ms,
-                   4 * (2 * rows * HD + rows), 3 * rows * HD, INT32_OPS_PER_S,
+                   4 * (2 * rows * hd + rows), 3 * rows * hd, INT32_OPS_PER_S,
                    {"call_ms": timer(k5, 20), "depth": depth, **lib})
             del got
         del a, b, ref
@@ -943,50 +1037,63 @@ def integer_and_batched_cases(torch, dev, timer, g, record, at):
 # phases 3 and 4: serving
 # --------------------------------------------------------------------------
 
-class TimedModel:
-    """The model with host-clock timing around prefill, decode_step and
-    decode_paged (synchronised; paged calls sorted into prefill ticks,
-    S > 1, and decode ticks), and a finiteness check on every logits row
-    that a request reads.  With ``probe`` set, the first paged call runs
-    under :func:`tick_probe`."""
+class TimedEngine:
+    """Host-clock timing around an engine's steps, each between two device
+    syncs, and a finiteness check on every logits row that a request
+    reads.  The lockstep engine's prefill and decode steps land in
+    ``prefill_s`` / ``decode_s``; the continuous engine's ticks in
+    ``prefill_tick_s`` / ``decode_tick_s``.  On the graph route a
+    phase's first step is its warm-up and capture, every later one a
+    replay.  With ``probe`` set, the first continuous tick runs under
+    :func:`tick_probe`."""
 
-    def __init__(self, torch, model, probe: bool = False):
-        self.torch, self.model = torch, model
+    def __init__(self, torch, engine, probe: bool = False):
+        self.torch, self.engine = torch, engine
         self.prefill_s, self.decode_s = [], []
         self.prefill_tick_s, self.decode_tick_s = [], []
         self.probe = {} if probe else None
+        if hasattr(engine, "_steps"):  # ContinuousServeEngine
+            run = engine._run
 
-    def __getattr__(self, name):
-        return getattr(self.model, name)
-
-    def _timed(self, sink, fn, *a, rows=None):
-        self.torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if self.probe == {} and fn == self.model.decode_paged:
-            with tick_probe(self.torch, self.probe):
-                logits, cache = fn(*a)
+            def timed_run(phase, tokens, page_table, offsets, n_valid):
+                sink = (self.prefill_tick_s if phase == "prefill"
+                        else self.decode_tick_s)
+                return self._timed(sink, run, phase, tokens, page_table,
+                                   offsets, n_valid, rows=n_valid > 0)
+            engine._run = timed_run
         else:
-            logits, cache = fn(*a)
-        self.torch.cuda.synchronize()
+            prefill, decode = engine._prefill, engine._decode
+            engine._prefill = lambda *a, **k: self._timed(
+                self.prefill_s, prefill, *a, **k)
+            engine._decode = lambda *a, **k: self._timed(
+                self.decode_s, decode, *a, **k)
+
+    def _timed(self, sink, fn, *a, rows=None, **k):
+        torch = self.torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if self.probe == {} and rows is not None:
+            with tick_probe(torch, self.probe):
+                res = fn(*a, **k)
+        else:
+            res = fn(*a, **k)
+        torch.cuda.synchronize()
         sink.append(time.perf_counter() - t0)
-        read = logits if rows is None else logits[rows]
-        if not bool(self.torch.isfinite(read).all()):
+        logits = res[0] if isinstance(res, tuple) else res
+        read = logits if rows is None else logits[
+            torch.from_numpy(rows).to(logits.device)]
+        if not bool(torch.isfinite(read).all()):
             raise AssertionError("non-finite logits")
-        return logits, cache
+        return res
 
-    def prefill(self, *a):
-        return self._timed(self.prefill_s, self.model.prefill, *a)
 
-    def decode_step(self, *a):
-        return self._timed(self.decode_s, self.model.decode_step, *a)
-
-    def decode_paged(self, params, tokens, cache, page_table, offsets,
-                     n_valid):
-        sink = self.prefill_tick_s if tokens.shape[1] > 1 else \
-            self.decode_tick_s
-        return self._timed(sink, self.model.decode_paged, params, tokens,
-                           cache, page_table, offsets, n_valid,
-                           rows=n_valid > 0)
+def step_stats(times) -> dict:
+    """The first step (on the graph route: warm-up and capture) apart
+    from the rest (replays), in ms."""
+    rest = times[1:] or times
+    return {"first_ms": times[0] * 1e3,
+            "rest_mean_ms": float(np.mean(rest)) * 1e3,
+            "rest_median_ms": float(np.median(rest)) * 1e3, "n": len(times)}
 
 
 @contextmanager
@@ -997,7 +1104,10 @@ def tick_probe(torch, out: dict):
     allocator's cudaMalloc calls and OOM retries around the tick.  A
     layer whose host time is long while the device waited on it stalled
     on the host (module loading, allocation); one whose device time is
-    long ran long on the card.  Fills ``out``."""
+    long ran long on the card.  On the graph route the tick's layers run
+    in its warm-up (marked) and again in its capture (not marked: a
+    capture records no event), so the last segment is the head and the
+    capture.  Fills ``out``."""
     from repro_torch.models import model as model_mod
 
     orig = model_mod.block_decode_paged
@@ -1010,7 +1120,8 @@ def tick_probe(torch, out: dict):
 
     def block(*a, **k):
         res = orig(*a, **k)
-        marks.append(event())
+        if not torch.cuda.is_current_stream_capturing():
+            marks.append(event())
         return res
 
     mem0 = torch.cuda.memory_stats()
@@ -1061,6 +1172,11 @@ def counts_now() -> dict:
 
 
 def serve_phase(torch, dev):
+    """Full-width lockstep serving on the graph route (the main path,
+    counted), the same requests on the eager route (the same greedy
+    tokens and launch counts), both again warm in turns (eager, graph)
+    for the decode step's time; then the 2-layer copy kernels vs
+    plain."""
     from repro_torch.configs.base import RAPID, get_config
     from repro_torch.kernels import plain_versions, reset_launch_counts
     from repro_torch.models.model import Model
@@ -1075,24 +1191,42 @@ def serve_phase(torch, dev):
         f"RAPID {cfg.approx.mul_scheme}/{cfg.approx.div_scheme}, params "
         f"{sum(p.numel() for p in _leaves(params)) / 1e9:.3f}e9 f32 "
         f"(init {time.perf_counter() - t0:.1f}s)")
-    timed = TimedModel(torch, model)
-    engine = ServeEngine(timed, params, cache_n=512)
     prompts = prompts_for(cfg.vocab_size)
     max_new = 16
-
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    out = engine.generate(prompts, max_new=max_new)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = counts_now()
-
-    n_dec = sum(len(o) for o in out) - len(out)  # tokens after the first
-    dec_s = sum(timed.decode_s)
-    log(f"serve: prompts {[len(p) for p in prompts]}, prefill "
-        f"{timed.prefill_s[0] * 1e3:.1f} ms, decode {len(timed.decode_s)} "
-        f"steps {dec_s * 1e3:.1f} ms ({n_dec / dec_s:.1f} tokens/s, "
-        f"{dec_s / len(timed.decode_s) * 1e3:.2f} ms/step), wall {wall:.2f}s")
+    routes = {"graph": ServeEngine(model, params, cache_n=512),
+              "eager": ServeEngine(model, params, cache_n=512,
+                                   cuda_graphs=False)}
+    timers = {route: TimedEngine(torch, eng) for route, eng in routes.items()}
+    runs = {}
+    for route, turn in (("graph", "cold"), ("eager", "cold"),
+                        ("eager", "warm"), ("graph", "warm")):
+        timed = timers[route]
+        n_dec = len(timed.decode_s)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = routes[route].generate(prompts, max_new=max_new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dec = timed.decode_s[n_dec:]
+        n_tok = sum(len(o) for o in out) - len(out)  # after the first
+        runs[route, turn] = {
+            "wall_s": wall, "tokens": out, "launches": counts_now(),
+            "prefill_ms": timed.prefill_s[-1] * 1e3,
+            "decode_steps": len(dec), **step_stats(dec),
+            "decode_ms_per_step": float(np.mean(dec)) * 1e3,
+            "decode_tokens_per_s": n_tok / sum(dec),
+            "decode_tokens_per_s_replays": (n_tok - len(out))
+            / sum(dec[1:])}
+        r = runs[route, turn]
+        log(f"serve {route} {turn}: prompts {[len(p) for p in prompts]}, "
+            f"prefill {r['prefill_ms']:.1f} ms, decode {len(dec)} steps "
+            f"{sum(dec) * 1e3:.1f} ms ({r['decode_tokens_per_s']:.1f} "
+            f"tokens/s; step 1 {r['first_ms']:.2f} ms, the rest mean "
+            f"{r['rest_mean_ms']:.2f} ms = "
+            f"{r['decode_tokens_per_s_replays']:.1f} tokens/s), wall "
+            f"{wall:.2f}s")
+    main = runs["graph", "cold"]
+    counts, out = main["launches"], main["tokens"]
     log("kernels " + json.dumps(counts))
     for i, o in enumerate(out):
         log(f"req{i}: {o}")
@@ -1101,20 +1235,41 @@ def serve_phase(torch, dev):
     if any(not 0 <= t < cfg.padded_vocab for o in out for t in o):
         raise AssertionError("token outside the vocabulary")
     require_launches("lockstep serve", counts, LOCKSTEP_KERNELS)
+    for key, r in runs.items():
+        if r["tokens"] != out:
+            raise AssertionError(f"lockstep {key} tokens differ from the "
+                                 f"graph route's:\n{out}\n{r['tokens']}")
+    if runs["eager", "cold"]["launches"] != counts:
+        raise AssertionError(f"lockstep launches, graph route {counts} vs "
+                             f"eager {runs['eager', 'cold']['launches']}")
+    traces = routes["graph"].trace_counts
+    if traces != {"decode": 1, "prefill": 1}:
+        raise AssertionError(f"lockstep trace_counts {traces} after two "
+                             "runs of one shape")
+    g, e = runs["graph", "warm"], runs["eager", "warm"]
+    log(f"serve graph vs eager (warm, same requests): decode step "
+        f"{g['decode_ms_per_step']:.2f} vs {e['decode_ms_per_step']:.2f} ms "
+        f"({e['decode_ms_per_step'] / g['decode_ms_per_step']:.2f}x), "
+        f"{g['decode_tokens_per_s']:.1f} vs {e['decode_tokens_per_s']:.1f} "
+        f"tokens/s; tokens equal, launches equal, trace_counts {traces}")
 
-    # the path end to end: 2-layer full-width copy, kernels vs plain
+    # the path end to end: 2-layer full-width copy, kernels (graph route)
+    # vs plain (eager: a capture of the plain matmul's K-step loop would
+    # hold hundreds of thousands of nodes)
     cfg2 = cfg.with_(n_layers=2)
     params2 = dict(params, blocks=params["blocks"][:2])
-    eng2 = ServeEngine(Model(cfg2), params2, cache_n=512)
     reset_launch_counts()
     t0 = time.perf_counter()
-    k_tok = eng2.generate(prompts, max_new=max_new)
+    k_tok = ServeEngine(Model(cfg2), params2, cache_n=512).generate(
+        prompts, max_new=max_new)
     t_k = time.perf_counter() - t0
     k_counts = counts_now()
     reset_launch_counts()
     t0 = time.perf_counter()
     with plain_versions():
-        p_tok = eng2.generate(prompts, max_new=max_new)
+        p_tok = ServeEngine(Model(cfg2), params2, cache_n=512,
+                            cuda_graphs=False).generate(prompts,
+                                                        max_new=max_new)
     t_p = time.perf_counter() - t0
     p_counts = counts_now()
     # the comparison means something only if the two runs took different
@@ -1128,11 +1283,15 @@ def serve_phase(torch, dev):
     if k_tok != p_tok:
         raise AssertionError(f"2-layer greedy tokens differ:\n{k_tok}\n{p_tok}")
     return cfg, params, {
-        "prefill_ms": timed.prefill_s[0] * 1e3,
-        "decode_ms_per_step": dec_s / len(timed.decode_s) * 1e3,
-        "decode_tokens_per_s": n_dec / dec_s,
-        "decode_steps": len(timed.decode_s), "launches": counts,
-        "tokens": out, "e2e_2layer_equal": True}
+        "prefill_ms": main["prefill_ms"],
+        "decode_ms_per_step": main["decode_ms_per_step"],
+        "decode_tokens_per_s": main["decode_tokens_per_s"],
+        "decode_steps": main["decode_steps"], "launches": counts,
+        "tokens": out, "trace_counts": traces,
+        "graph_vs_eager": {f"{route}_{turn}": {
+            k: v for k, v in r.items() if k != "tokens"}
+            for (route, turn), r in runs.items()},
+        "e2e_2layer_equal": True}
 
 
 def drain(engine, prompts, max_new):
@@ -1153,94 +1312,150 @@ def drain(engine, prompts, max_new):
     return [outs[r] for r in sorted(outs)], max_queued, first
 
 
-def profile_ticks(torch, model, params):
+def profiled_step(torch, engine):
+    """One ``engine.step()`` under torch.profiler: its wall time in ms,
+    the profiler's averages of the kernels the card ran in it, and the
+    launch counts before and after it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    before = counts_now()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        # warm-up step: the tracer runs, its events are dropped
+        torch.ones(1, device=engine.device).add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        # the window opens here; a tick started at once now and then
+        # lost its first kernels to the profiler, one started after a
+        # wait did not (PERF.md §6)
+        time.sleep(PROFILE_SETTLE_S)
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_SETTLE_S)
+        prof.step()
+    after = counts_now()
+    # the step's annotation spans the window; it is no kernel
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]
+    return wall, kern, before, after
+
+
+def profile_ticks(torch, model, params, cuda_graphs: bool = True):
     """A prefill tick (the first 64-token chunk of a 128-token prompt, no
     slot decoding) and a decode-only tick (one slot) under torch.profiler,
-    on a warm process: for each, wall time, the device time of its
-    kernels, the device's busy share (kernel time / wall; one stream, so
-    kernels never overlap) and the kernels that take most of it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    on a warm process and, on the graph route, on graphs already captured
+    (a 2-token request drains first): for each, wall time, the device
+    time of its kernels, the device's busy share (kernel time / wall; one
+    stream, so kernels never overlap) and the kernels that take most of
+    it.  The port's kernels the profiler saw in each tick must number
+    the launches its counters gained (on the graph route, the launches
+    the capture recorded, which each replay adds): proof that a replay
+    ran them."""
     from repro_torch.serve.scheduler import ContinuousServeEngine
 
     engine = ContinuousServeEngine(model, params, n_slots=4, max_len=256,
-                                   page_size=16, prefill_chunk=64)
+                                   page_size=16, prefill_chunk=64,
+                                   cuda_graphs=cuda_graphs)
     prompt = np.random.default_rng(4).integers(
         0, model.cfg.vocab_size, 128).tolist()
+    engine.generate([prompt[:64]], max_new=2)  # one tick of each phase
     rid = engine.submit(prompt, 16)
     out = {}
     # the first tick prefills chunk 1, the second chunk 2 and decodes the
     # first token, the third only decodes
+    route = "graph" if cuda_graphs else "eager"
     for tick in ("prefill", "mixed", "decode"):
         torch.cuda.synchronize()
         if tick == "mixed":
             engine.step()
             continue
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            engine.step()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        kern = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
+        wall, kern, before, after = profiled_step(torch, engine)
+        # the counters' gain (on the graph route: the capture's record,
+        # added per replay) against the kernels the card ran
+        seen = {}
+        for wrappers, names in PROFILED_KERNELS.items():
+            pat = re.compile(r"(?<!\w)(%s)\b" % "|".join(names))
+            seen[wrappers] = (
+                sum(after[w] - before[w] for w in wrappers),
+                sum(e.count for e in kern if pat.search(e.key)))
+        if any(c != r for c, r in seen.values()) or not seen[
+                ("log_matmul",)][1]:
+            raise AssertionError(
+                f"profiled {route} {tick} tick: launches counted vs kernels "
+                f"the profiler saw: {seen}")
         dev = sum(e.self_device_time_total for e in kern) / 1e3
         top = sorted(kern, key=lambda e: -e.self_device_time_total)[:3]
         out[tick] = {"wall_ms": wall, "kernel_ms": dev,
                      "busy": dev / wall if dev else None,
+                     "launches_vs_profiled": {
+                         "+".join(w): list(v) for w, v in seen.items()},
                      "top": [(e.key[:70], e.count,
                               e.self_device_time_total / 1e3) for e in top]}
         busy = (f"busy {dev / wall:.1%}" if dev else
                 "device time not measured (the profiler saw no kernels)")
-        log(f"profile {tick} tick: wall {wall:.1f} ms, kernels {dev:.1f} ms, "
-            f"{busy}; top " + "; ".join(f"{k} x{n} {t:.1f} ms"
-                                        for k, n, t in out[tick]["top"]))
+        log(f"profile {route} {tick} tick: wall {wall:.1f} ms, kernels "
+            f"{dev:.1f} ms, {busy}; launches counted = kernels profiled "
+            f"{ {'+'.join(w): v[0] for w, v in seen.items()} }; top " + "; ".join(
+                f"{k} x{n} {t:.1f} ms" for k, n, t in out[tick]["top"]))
     engine.cancel(rid)
+    if engine.trace_counts != {"decode": 1, "prefill": 1}:
+        raise AssertionError(f"profiled engine traced {engine.trace_counts}")
     return out
 
 
 def continuous_phase(torch, cfg, params, lockstep_out):
     """Full-width continuous serving (paged KV, chunked prefill, slot
-    recycling): the process's first run, whose first prefill tick is
-    probed layer by layer; the same load again on the drained engine
-    (warm); a profile of one tick of each kind; then the 2-layer
-    kernels-vs-plain comparison."""
+    recycling) on the graph route: the process's first run (the main
+    path, counted), whose first prefill tick is probed layer by layer,
+    and the same load again on the drained engine (warm); the same load
+    on the eager route, cold and warm (the same greedy tokens and launch
+    counts as the graph route's cold run); a profile of one tick of each
+    kind on each route; then the 2-layer kernels-vs-plain comparison."""
     from repro_torch.kernels import plain_versions, reset_launch_counts
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.scheduler import ContinuousServeEngine
 
-    timed = TimedModel(torch, Model(cfg), probe=True)
-    engine = ContinuousServeEngine(timed, params, n_slots=4, max_len=256,
-                                   page_size=16, prefill_chunk=64)
-    pool_mb = sum(t.numel() * t.element_size()
-                  for t in _leaves(engine.cache)) / 2**20
     prompts = prompts_for(cfg.vocab_size, n_extra=2)
     max_new = 16
-
-    serve_runs = []
-    for run in ("cold", "warm"):
+    serve_runs, engines = {}, {}
+    for route, turn in (("graph", "cold"), ("graph", "warm"),
+                        ("eager", "cold"), ("eager", "warm")):
+        if turn == "cold":
+            engine = ContinuousServeEngine(Model(cfg), params, n_slots=4,
+                                           max_len=256, page_size=16,
+                                           prefill_chunk=64,
+                                           cuda_graphs=route == "graph")
+            engines[route] = (engine, TimedEngine(
+                torch, engine, probe=route == "graph"))
+        engine, timed = engines[route]
+        pool_mb = sum(t.numel() * t.element_size()
+                      for t in _leaves(engine.cache)) / 2**20
         n_pf, n_dc = len(timed.prefill_tick_s), len(timed.decode_tick_s)
-        if run == "cold":
-            reset_launch_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         out, max_queued, ttft = drain(engine, prompts, max_new)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        if run == "cold":
-            counts = counts_now()
+        counts = counts_now()
         pf, dc = timed.prefill_tick_s[n_pf:], timed.decode_tick_s[n_dc:]
         n_gen = sum(len(o) for o in out)
-        serve_runs.append({
-            "run": run, "wall_s": wall, "tokens_per_s": n_gen / wall,
-            "ttft_s": ttft, "prefill_ticks": len(pf),
-            "prefill_tick_ms": np.mean(pf) * 1e3, "decode_ticks": len(dc),
-            "decode_tick_ms": np.mean(dc) * 1e3,
+        serve_runs[route, turn] = {
+            "run": f"{route} {turn}", "wall_s": wall,
+            "tokens_per_s": n_gen / wall, "ttft_s": ttft,
+            "prefill_ticks": len(pf), "prefill_tick_ms": np.mean(pf) * 1e3,
+            "decode_ticks": len(dc), "decode_tick_ms": np.mean(dc) * 1e3,
             "prefill_tick_ms_each": [t * 1e3 for t in pf],
             "decode_tick_ms_each": [t * 1e3 for t in dc],
-            "longest_queue": max_queued, "tokens": out})
-        log(f"continuous {run}: {len(prompts)} requests "
+            "longest_queue": max_queued, "launches": counts,
+            "trace_counts": dict(engine.trace_counts), "tokens": out}
+        log(f"continuous {route} {turn}: {len(prompts)} requests "
             f"{[len(p) for p in prompts]}, n_slots 4, page 16, "
             f"{engine.geom.n_pages} pages ({pool_mb:.1f} MiB of pools), "
             f"prefill_chunk 64; longest queue {max_queued}; {len(pf)} "
@@ -1250,7 +1465,7 @@ def continuous_phase(torch, cfg, params, lockstep_out):
             f"first {dc[0] * 1e3:.1f}, the rest median "
             f"{np.median(dc[1:]) * 1e3:.2f}); first token after "
             f"{ttft * 1e3:.1f} ms; {n_gen} tokens in {wall:.2f}s wall = "
-            f"{n_gen / wall:.2f} tokens/s")
+            f"{n_gen / wall:.2f} tokens/s; traces {engine.trace_counts}")
         if any(len(o) != max_new for o in out):
             raise AssertionError(f"expected {max_new} tokens per request")
         if any(not 0 <= t < cfg.padded_vocab for o in out for t in o):
@@ -1261,17 +1476,21 @@ def continuous_phase(torch, cfg, params, lockstep_out):
         if engine.alloc.n_free != engine.geom.usable_pages:
             raise AssertionError(f"page leak: {engine.alloc.n_free} free of "
                                  f"{engine.geom.usable_pages}")
-    cold, warm = serve_runs
-    out = cold["tokens"]
-    probe = timed.probe
+        if engine.trace_counts != {"decode": 1, "prefill": 1}:
+            raise AssertionError(f"continuous {route} {turn}: trace_counts "
+                                 f"{engine.trace_counts}")
+    cold, warm = serve_runs["graph", "cold"], serve_runs["graph", "warm"]
+    out, counts = cold["tokens"], cold["launches"]
+    probe = engines["graph"][1].probe
     slow = [(i, round(h, 1), round(d, 1)) for i, (h, d) in
             enumerate(zip(probe["host_ms"], probe["device_ms"])) if d > 50]
-    log(f"continuous cold first prefill tick: "
+    log(f"continuous cold first prefill tick (warm-up and capture): "
         f"{cold['prefill_tick_ms_each'][0]:.1f} ms; per layer host ms median {np.median(probe['host_ms'][:-1]):.2f}, "
         f"device ms median {np.median(probe['device_ms'][:-1]):.2f}; segments "
         f"over 50 ms (index, host ms, device ms; index {cfg.n_layers} is the "
-        f"head) {slow}; cudaMalloc calls {probe['num_device_alloc']}, "
-        f"cudaFree calls {probe['num_device_free']}, allocator OOM retries "
+        f"head and the capture) {slow}; cudaMalloc calls "
+        f"{probe['num_device_alloc']}, cudaFree calls "
+        f"{probe['num_device_free']}, allocator OOM retries "
         f"{probe['num_alloc_retries']}")
     log("kernels " + json.dumps(counts))
     for i, o in enumerate(out):
@@ -1279,27 +1498,42 @@ def continuous_phase(torch, cfg, params, lockstep_out):
     require_launches("continuous serve", counts, CONTINUOUS_KERNELS,
                      ("softmax_div",))
     # the warm run reuses pages the cold run wrote: stale KV must not leak
-    # into a new request
-    if warm["tokens"] != out:
-        raise AssertionError(f"warm rerun's tokens differ:\n{out}\n"
-                             f"{warm['tokens']}")
-    prof = profile_ticks(torch, Model(cfg), params)
+    # into a new request; the eager route gives the graph route's tokens
+    # and, run for run, its launches
+    for key, r in serve_runs.items():
+        if r["tokens"] != out:
+            raise AssertionError(f"continuous {key} tokens differ from the "
+                                 f"graph route's cold run:\n{out}\n"
+                                 f"{r['tokens']}")
+        if r["launches"] != counts:
+            raise AssertionError(f"continuous {key} launches {r['launches']}"
+                                 f" vs the graph route's cold run {counts}")
+    ew = serve_runs["eager", "warm"]
+    log(f"continuous graph vs eager (warm, same load): decode tick "
+        f"{warm['decode_tick_ms']:.2f} vs {ew['decode_tick_ms']:.2f} ms "
+        f"({ew['decode_tick_ms'] / warm['decode_tick_ms']:.2f}x), prefill "
+        f"tick {warm['prefill_tick_ms']:.1f} vs {ew['prefill_tick_ms']:.1f} "
+        f"ms, {warm['tokens_per_s']:.2f} vs {ew['tokens_per_s']:.2f} "
+        f"tokens/s; tokens and launches equal")
+    del engines
+    prof = {route: profile_ticks(torch, Model(cfg), params, route == "graph")
+            for route in ("graph", "eager")}
 
     # information, not a gate: each of the 4 lockstep prompts alone
     # through the lockstep engine (the batch run left-pads them); bf16
     # rounds differently on the two paths (fused ln2 tail vs a separate
     # norm, softmax-then-PV vs PV-then-divide)
-    alone = [ServeEngine(Model(cfg), params, cache_n=256).generate(
-        [p], max_new=4)[0] for p in prompts[:4]]
+    alone_engine = ServeEngine(Model(cfg), params, cache_n=256)
+    alone = [alone_engine.generate([p], max_new=4)[0] for p in prompts[:4]]
     agree = sum(a == b for x, y in zip(alone, out) for a, b in zip(x, y))
     log(f"continuous vs lockstep (each prompt alone, first 4 tokens): "
         f"{agree}/16 equal; lockstep batch run's first tokens "
         f"{[o[0] for o in lockstep_out]}, continuous "
         f"{[o[0] for o in out[:4]]}")
 
-    # 2-layer full-width copy, kernels vs plain: 4 requests of 40-70
-    # tokens through 2 slots (admission waits) in 32-token chunks (2-3
-    # chunks per prompt)
+    # 2-layer full-width copy, kernels (graph route) vs plain (eager): 4
+    # requests of 40-70 tokens through 2 slots (admission waits) in
+    # 32-token chunks (2-3 chunks per prompt)
     cfg2 = cfg.with_(n_layers=2)
     params2 = dict(params, blocks=params["blocks"][:2])
     rng = np.random.default_rng(1)
@@ -1307,9 +1541,11 @@ def continuous_phase(torch, cfg, params, lockstep_out):
                 for n in rng.integers(40, 71, 4)]
     runs = {}
     for route in ("kernels", "plain"):
-        t2 = TimedModel(torch, Model(cfg2))
-        eng2 = ContinuousServeEngine(t2, params2, n_slots=2, max_len=128,
-                                     page_size=16, prefill_chunk=32)
+        eng2 = ContinuousServeEngine(Model(cfg2), params2, n_slots=2,
+                                     max_len=128, page_size=16,
+                                     prefill_chunk=32,
+                                     cuda_graphs=route == "kernels")
+        t2 = TimedEngine(torch, eng2)
         reset_launch_counts()
         t0 = time.perf_counter()
         if route == "plain":
@@ -1336,7 +1572,9 @@ def continuous_phase(torch, cfg, params, lockstep_out):
     if k_tok != p_tok:
         raise AssertionError(f"continuous 2-layer greedy tokens differ:\n"
                              f"{k_tok}\n{p_tok}")
-    return {"cold": cold, "warm": warm, "first_tick_probe": probe,
+    return {"cold": cold, "warm": warm,
+            "eager_cold": serve_runs["eager", "cold"],
+            "eager_warm": ew, "first_tick_probe": probe,
             "launches": counts, "profile": prof,
             "lockstep_alone_agree": agree, "e2e_2layer_equal": True}
 
@@ -1353,18 +1591,20 @@ def long_prefill_phase(torch, dev, cfg, params):
 
     cfg2 = cfg.with_(n_layers=2)
     params2 = dict(params, blocks=params["blocks"][:2])
-    timed = TimedModel(torch, Model(cfg2))
-    engine = ServeEngine(timed, params2, cache_n=LONG_PROMPT + 5)
+    engine = ServeEngine(Model(cfg2), params2, cache_n=LONG_PROMPT + 5)
+    timed = TimedEngine(torch, engine)
     prompt = np.random.default_rng(2).integers(
         0, cfg.vocab_size, LONG_PROMPT).tolist()
     reset_launch_counts()
     out = engine.generate([prompt], max_new=5)[0]  # prefill + 4 decode steps
     torch.cuda.synchronize()
     counts = counts_now()
+    dec = step_stats(timed.decode_s)
     log(f"long prefill: {LONG_PROMPT} tokens, 2 layers, window "
         f"{cfg.sliding_window} (ring cache wraps): prefill "
         f"{timed.prefill_s[0] * 1e3:.1f} ms, {len(timed.decode_s)} decode "
-        f"steps mean {np.mean(timed.decode_s) * 1e3:.2f} ms; tokens {out}; "
+        f"steps (the first, warm-up and capture, {dec['first_ms']:.2f} ms, "
+        f"the replays mean {dec['rest_mean_ms']:.2f} ms); tokens {out}; "
         f"kernels {json.dumps(counts)}")
     if len(out) != 5 or len(timed.decode_s) != 4:
         raise AssertionError(f"long prefill: {len(out)} tokens, "
@@ -1401,9 +1641,173 @@ def long_prefill_phase(torch, dev, cfg, params):
     if n_k5 != 1 or diff != 0.0:
         raise AssertionError(f"_attn_blockwise K5 vs plain: diff {diff}, "
                              f"{n_k5} K5 launches")
-    return {"prefill_ms": timed.prefill_s[0] * 1e3,
-            "decode_ms_per_step": float(np.mean(timed.decode_s)) * 1e3,
+    return {"prefill_ms": timed.prefill_s[0] * 1e3, "decode": dec,
             "launches": counts, "tokens": out, "blockwise_k5_vs_plain": diff}
+
+
+def starcoder2_phase(torch, dev):
+    """Full-width starcoder2_7b (32 layers, d_model 4608, 36 heads over 4
+    KV heads of 128, d_ff 18432, LN, the ungated gelu MLP; RAPID rapid10
+    / rapid9, f32 params from a seed, bf16 activations and KV) on the
+    graph route: the lockstep engine (4 requests of 96-128 prompt tokens,
+    8 greedy tokens, cache_n 256) and the continuous engine (the same 4
+    through 4 slots, page 16, chunk 64), each with its launches counted
+    from 0 and its peak memory; then a 2-layer full-width copy through
+    both engines at the same load, kernels (graph route) vs plain
+    (eager): the greedy tokens must agree."""
+    from repro_torch.configs.base import RAPID, get_config
+    from repro_torch.kernels import plain_versions, reset_launch_counts
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import ContinuousServeEngine
+
+    cfg = get_config("starcoder2_7b").with_(approx=RAPID)
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"starcoder2: {cfg.n_layers} layers d_model={cfg.d_model} heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd} d_ff={cfg.d_ff} "
+        f"act={cfg.act} norm={cfg.norm}, params {n_params / 1e9:.3f}e9 f32 "
+        f"({n_params * 4 / 2**30:.2f} GiB, init "
+        f"{time.perf_counter() - t0:.1f}s)")
+    prompts = prompts_for(cfg.vocab_size)
+    max_new = 8
+    rec = {"params": n_params}
+
+    engine = ServeEngine(model, params, cache_n=256)
+    timed = TimedEngine(torch, engine)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, max_new=max_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counts_now()
+    dec = step_stats(timed.decode_s)
+    n_tok = sum(len(o) for o in out) - len(out)
+    rec["lockstep"] = {
+        "wall_s": wall, "prefill_ms": timed.prefill_s[0] * 1e3,
+        "decode": dec, "decode_tokens_per_s": n_tok / sum(timed.decode_s),
+        "decode_tokens_per_s_replays": (n_tok - len(out))
+        / sum(timed.decode_s[1:]),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": counts, "trace_counts": dict(engine.trace_counts),
+        "tokens": out}
+    r = rec["lockstep"]
+    log(f"starcoder2 lockstep: prompts {[len(p) for p in prompts]}, prefill "
+        f"{r['prefill_ms']:.1f} ms, decode {dec['n']} steps (the first, "
+        f"warm-up and capture, {dec['first_ms']:.1f} ms; the replays mean "
+        f"{dec['rest_mean_ms']:.2f} ms = "
+        f"{r['decode_tokens_per_s_replays']:.1f} tokens/s; all "
+        f"{r['decode_tokens_per_s']:.1f} tokens/s), wall {wall:.2f}s, peak "
+        f"{r['peak_gib']:.2f} GiB; traces {engine.trace_counts}; kernels "
+        f"{json.dumps(counts)}")
+    for i, o in enumerate(out):
+        log(f"sreq{i}: {o}")
+    if any(len(o) != max_new for o in out) or any(
+            not 0 <= t < cfg.padded_vocab for o in out for t in o):
+        raise AssertionError(f"starcoder2 lockstep tokens: {out}")
+    require_launches("starcoder2 lockstep", counts, LOCKSTEP_KERNELS)
+    if engine.trace_counts != {"decode": 1, "prefill": 1}:
+        raise AssertionError(f"starcoder2 lockstep traced "
+                             f"{engine.trace_counts}")
+    del engine, timed
+
+    engine = ContinuousServeEngine(model, params, n_slots=4, max_len=256,
+                                   page_size=16, prefill_chunk=64)
+    timed = TimedEngine(torch, engine)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cout, max_queued, ttft = drain(engine, prompts, max_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counts_now()
+    pf = step_stats(timed.prefill_tick_s)
+    dc = step_stats(timed.decode_tick_s)
+    n_gen = sum(len(o) for o in cout)
+    rec["continuous"] = {
+        "wall_s": wall, "tokens_per_s": n_gen / wall, "ttft_s": ttft,
+        "prefill_tick": pf, "decode_tick": dc,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": counts, "trace_counts": dict(engine.trace_counts),
+        "tokens": cout}
+    r = rec["continuous"]
+    log(f"starcoder2 continuous: 4 slots, page 16, chunk 64; {pf['n']} "
+        f"prefill ticks (the first {pf['first_ms']:.1f} ms, the replays mean "
+        f"{pf['rest_mean_ms']:.1f}), {dc['n']} decode ticks (the first "
+        f"{dc['first_ms']:.1f} ms, the replays mean {dc['rest_mean_ms']:.2f})"
+        f"; first token after {ttft * 1e3:.1f} ms; {n_gen} tokens in "
+        f"{wall:.2f}s = {n_gen / wall:.2f} tokens/s; peak "
+        f"{r['peak_gib']:.2f} GiB; traces {engine.trace_counts}; kernels "
+        f"{json.dumps(counts)}")
+    if any(len(o) != max_new for o in cout) or any(
+            not 0 <= t < cfg.padded_vocab for o in cout for t in o):
+        raise AssertionError(f"starcoder2 continuous tokens: {cout}")
+    require_launches("starcoder2 continuous", counts, CONTINUOUS_KERNELS,
+                     ("softmax_div",))
+    if engine.trace_counts != {"decode": 1, "prefill": 1}:
+        raise AssertionError(f"starcoder2 continuous traced "
+                             f"{engine.trace_counts}")
+    if engine.alloc.n_free != engine.geom.usable_pages:
+        raise AssertionError("starcoder2 continuous: page leak")
+    del engine, timed
+
+    # the 2-layer full-width copy at the main path's load (the same 4
+    # prompts, 8 greedy tokens), kernels (graph route) vs plain (eager),
+    # through both engines as the main path runs them
+    cfg2 = cfg.with_(n_layers=2)
+    params2 = dict(params, blocks=params["blocks"][:2])
+    engines = {
+        "lockstep": (lambda graphs: ServeEngine(Model(cfg2), params2,
+                                                cache_n=256,
+                                                cuda_graphs=graphs),
+                     LOCKSTEP_KERNELS, ()),
+        "continuous": (lambda graphs: ContinuousServeEngine(
+                           Model(cfg2), params2, n_slots=4, max_len=256,
+                           page_size=16, prefill_chunk=64,
+                           cuda_graphs=graphs),
+                       CONTINUOUS_KERNELS, ("softmax_div",))}
+    for path, (make, must, must_not) in engines.items():
+        runs = {}
+        for route in ("kernels", "plain"):
+            eng2 = make(route == "kernels")
+            gen = ((lambda: eng2.generate(prompts, max_new=max_new))
+                   if path == "lockstep"
+                   else (lambda: drain(eng2, prompts, max_new)[0]))
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            if route == "plain":
+                with plain_versions():
+                    toks = gen()
+            else:
+                toks = gen()
+            torch.cuda.synchronize()
+            runs[route] = (toks, time.perf_counter() - t0, counts_now())
+            del eng2
+        (k_tok, t_k, k_counts), (p_tok, t_p, p_counts) = (runs["kernels"],
+                                                          runs["plain"])
+        require_launches(f"starcoder2 2-layer {path} kernel run", k_counts,
+                         must, must_not)
+        require_launches(f"starcoder2 2-layer {path} plain run", p_counts,
+                         (), p_counts)
+        agree = sum(a == b for x, y in zip(k_tok, p_tok)
+                    for a, b in zip(x, y))
+        log(f"starcoder2 e2e 2-layer {path}: prompts "
+            f"{[len(p) for p in prompts]}; kernels {t_k:.2f}s "
+            f"{json.dumps(k_counts)}, plain {t_p:.2f}s; greedy tokens equal "
+            f"{agree}/{sum(len(o) for o in p_tok)}")
+        if k_tok != p_tok:
+            raise AssertionError(f"starcoder2 2-layer {path} greedy tokens "
+                                 f"differ:\n{k_tok}\n{p_tok}")
+        rec[f"e2e_2layer_{path}"] = {"kernels_s": t_k, "plain_s": t_p,
+                                     "launches": k_counts, "tokens": k_tok}
+    rec["e2e_2layer_equal"] = True
+    del params, params2
+    torch.cuda.empty_cache()
+    return rec
 
 
 # --------------------------------------------------------------------------
@@ -1663,9 +2067,10 @@ def apps_phase(torch, dev):
 def depth_ab_phase(torch, cfg, params):
     """The serve paths at the default stage counts against depth 1 and
     depth 2 everywhere, in turns on this card (default, 1, 2, 2, 1,
-    default): the lockstep decode step (4 tokens; K1 in its decode
-    regime), the lockstep prefill (4 x 128 tokens) and the continuous
-    prefill tick (one 64-token chunk; K1's chunk regime); then
+    default), on the graph route: the lockstep decode step (4 tokens; K1
+    in its decode regime; the replays, not the capture), the lockstep
+    prefill (4 x 128 tokens) and the continuous prefill tick (64-token
+    chunks; K1's chunk regime; the two replays of three ticks); then
     ``launch/k1_times.py`` at depth 1 and 2 in turns (1, 2, 2, 1), one
     process each.  Information: nothing here fails on a time."""
     from repro_torch.kernels.spec import deferred_depth
@@ -1676,24 +2081,26 @@ def depth_ab_phase(torch, cfg, params):
     settings = {"default": None, "depth1": 1, "depth2": 2}
     prompts = prompts_for(cfg.vocab_size)
     chunk_prompt = np.random.default_rng(5).integers(
-        0, cfg.vocab_size, 128).tolist()
+        0, cfg.vocab_size, 192).tolist()
     runs = {k: {"decode_s": [], "prefill_s": [], "tick_s": []}
             for k in settings}
     for name in ("default", "depth1", "depth2", "depth2", "depth1",
                  "default"):
         with deferred_depth(settings[name]):
-            timed = TimedModel(torch, Model(cfg))
-            ServeEngine(timed, params, cache_n=512).generate(prompts,
-                                                             max_new=5)
-            runs[name]["decode_s"] += timed.decode_s
+            engine = ServeEngine(Model(cfg), params, cache_n=512)
+            timed = TimedEngine(torch, engine)
+            engine.generate(prompts, max_new=5)
+            # the replays: the first decode step is the capture
+            runs[name]["decode_s"] += timed.decode_s[1:]
             runs[name]["prefill_s"] += timed.prefill_s
-            timed = TimedModel(torch, Model(cfg))
-            engine = ContinuousServeEngine(timed, params, n_slots=4,
+            engine = ContinuousServeEngine(Model(cfg), params, n_slots=4,
                                            max_len=256, page_size=16,
                                            prefill_chunk=64)
+            timed = TimedEngine(torch, engine)
             engine.submit(chunk_prompt, 2)
-            engine.step()  # the first 64-token chunk of the prompt
-            runs[name]["tick_s"] += timed.prefill_tick_s
+            for _ in range(3):  # the prompt's three 64-token chunks
+                engine.step()
+            runs[name]["tick_s"] += timed.prefill_tick_s[1:]
     out = {}
     for name, r in runs.items():
         out[name] = {key[:-2] + "_ms": float(np.mean(v)) * 1e3
@@ -2050,6 +2457,12 @@ def main() -> int:
     long_ = long_prefill_phase(torch, dev, cfg, params)
     ab = depth_ab_phase(torch, cfg, params)
     del params
+    # the timed engines sit in reference cycles: collect them, and the
+    # graphs' memory pools they hold, before the next phases allocate
+    gc.collect()
+    torch.cuda.empty_cache()
+    sc2 = starcoder2_phase(torch, dev)
+    gc.collect()
     torch.cuda.empty_cache()
     ints = integer_units_phase(torch, dev, ab["parent_ab"].get("table3"))
     apps = apps_phase(torch, dev)
@@ -2093,6 +2506,10 @@ def main() -> int:
         by_path = {path: launches(runs["launches"], name)
                    for path, runs in (("lockstep", serve),
                                       ("continuous", cont),
+                                      ("starcoder2_lockstep",
+                                       sc2["lockstep"]),
+                                      ("starcoder2_continuous",
+                                       sc2["continuous"]),
                                       ("integer_units", ints),
                                       ("apps", apps), ("train", train))}
         row = {
@@ -2110,6 +2527,7 @@ def main() -> int:
     record = {"card": card, "ptxas": ptxas, "sass": sass,
               "cases": cases, "serve": serve,
               "continuous": cont, "long_prefill": long_, "depth_ab": ab,
+              "starcoder2": sc2,
               "integer_units": ints, "apps": apps, "train": train,
               "train_2layer": train_check, "kernels": kernels,
               "seconds": time.perf_counter() - t_start}

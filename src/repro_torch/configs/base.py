@@ -17,8 +17,8 @@ from typing import Optional
 __all__ = ["ARCH_IDS", "ApproxConfig", "ModelConfig", "EXACT", "RAPID",
            "get_config"]
 
-# the architectures this slice ports (dense family only)
-ARCH_IDS = ("h2o_danube_1_8b", "yi_6b", "minicpm_2b")
+# the architectures the port has (dense family only)
+ARCH_IDS = ("h2o_danube_1_8b", "yi_6b", "minicpm_2b", "starcoder2_7b")
 
 
 @dataclass(frozen=True)
@@ -66,8 +66,8 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0  # 0 -> d_model // n_heads
-    act: str = "silu"  # silu (swiglu)
-    norm: str = "rms"
+    act: str = "silu"  # silu (swiglu) | gelu (tanh form, ungated MLP)
+    norm: str = "rms"  # rms | ln (scale and bias)
     norm_eps: float = 1e-6
     rope_theta: float = 10000.0
     sliding_window: int = 0  # 0 = full attention

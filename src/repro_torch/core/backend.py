@@ -43,8 +43,9 @@ ACTIVATIONS: Dict[str, Callable] = {
 }
 
 # activation -> the `act` code of csrc/log_matmul.cu: the ones the ported
-# configs use; the kernel has no other
-ACT_CODES = {None: 0, "silu": 1}
+# configs use (silu: the swiglu configs; gelu, tanh form: starcoder2_7b);
+# the kernel has no other
+ACT_CODES = {None: 0, "silu": 1, "gelu": 2}
 
 
 def normalize_activation(activation: Optional[str]) -> Optional[str]:

@@ -98,14 +98,39 @@ constexpr uint32_t NONNEG = 1u << 10;  // x side: |x|bits - BIAS >= 0
 // regime codes of the entry point (kernels/spec.py MATMUL_REGIMES)
 enum Regime { BLOCK8 = 0, DECODE = 1, CHUNK = 2, PREFILL = 3 };
 
-// The configs on the ported path use silu or no activation; the wrapper
+// The activations of the ported configs: none, silu (the swiglu
+// configs) and gelu in its tanh form (starcoder2_7b).  The wrapper
 // refuses the reference's other epilogue activations on the card until a
 // config needs them (and a card test holds them against the plain
-// version).
-enum Act { ACT_NONE = 0, ACT_SILU = 1 };
+// version); the entry point refuses any other code.
+enum Act { ACT_NONE = 0, ACT_SILU = 1, ACT_GELU = 2 };
+
+// torch's CUDA tanh gelu (ActivationGeluKernel.cu), step for step:
+// x_cube = x * x * x, inner = kBeta * (x + kKappa * x_cube), then
+// 0.5 * x * (1 + tanh(inner)), with kBeta = sqrt(2) * 2 / sqrt(pi) / 2
+// rounded once to f32.  torch builds that file with FMA contraction, which
+// turns x + kKappa * x_cube into one fma; this file builds with
+// --fmad=false, so the fma is written out.  Where 1 + tanh(inner)
+// cancels (z below about -3) a one-ulp change of tanh moves the result by
+// thousands of ulps, so the plain version's bits need its exact steps.
+// Out of line: inlined into every instance, it slowed the prefill
+// regime's none / silu products by 3% at M = 512 (same registers), and
+// out of line by under 1%; the gelu call is one per output.
+__device__ __noinline__ float gelu_tanh(float z) {
+  // M_SQRT2 * M_2_SQRTPI * 0.5 and 0.044715 in double, then rounded to
+  // f32, as torch's constexpr opmath_t constants are
+  constexpr float kBeta = static_cast<float>(
+      1.41421356237309504880 * 1.12837916709551257390 * 0.5);
+  constexpr float kKappa = static_cast<float>(0.044715);
+  const float cube = z * z * z;
+  const float inner = kBeta * __fmaf_rn(kKappa, cube, z);
+  return 0.5f * z * (1.0f + tanhf(inner));
+}
 
 __device__ __forceinline__ float activate(float z, int act) {
-  return act == ACT_SILU ? z / (1.0f + expf(-z)) : z;
+  return act == ACT_SILU   ? z / (1.0f + expf(-z))
+         : act == ACT_GELU ? gelu_tanh(z)
+                           : z;
 }
 
 __device__ __forceinline__ float product(int32_t a1, uint32_t i1, int32_t m2,
@@ -879,6 +904,8 @@ extern "C" int rapid_log_matmul(const void* x, const void* w, const void* lut,
                Batch{batch, sx, sw, sb, sr},
                lut_min, lut_max,
                static_cast<cudaStream_t>(stream)};
+  if (act != ACT_NONE && act != ACT_SILU && act != ACT_GELU)
+    return cudaErrorInvalidValue;
   switch (regime) {
     case BLOCK8:
       if (M > 8 || N > 8 || !geometry_is(bm, bn, bk, 8, 8, 8)) break;

@@ -2,9 +2,10 @@
 
 Each wrapper keeps a plain integer ``launches`` that it raises by one
 where it launches its kernel, and nowhere else; :func:`launch_counts`
-reads them and :func:`reset_launch_counts` sets them to 0.  The wrappers
-of K1-K3 and K5 / K6 count through ``_launch.count_launch``, which also
-splits their launches by depth in ``launches_by_depth``
+reads them and :func:`reset_launch_counts` sets them to 0.  Every
+wrapper counts through ``_launch.count_launch``, so a CUDA graph's
+replays count the launches its capture recorded.  K1-K3 and K5 / K6
+also split their launches by depth in ``launches_by_depth``
 (:func:`launch_counts_by_depth`): K1 at depth >= 2 is K7, K2/K3/K5 at
 depth >= 2 are K8, and K6 has depth 1 only.
 :func:`plain_versions` routes the model's and the applications' kernel

@@ -2,13 +2,15 @@
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
+from contextlib import contextmanager
 from functools import lru_cache
-from typing import Optional
+from typing import Iterator, List, Optional
 
 import torch
 
-__all__ = ["on_cuda", "ptr", "stream", "require", "count_launch", "sm_count",
-           "result_like"]
+__all__ = ["on_cuda", "ptr", "stream", "require", "count_launch",
+           "recording_launches", "replay_launches", "sm_count", "result_like"]
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
@@ -48,11 +50,45 @@ def stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def count_launch(wrapper, depth: int) -> None:
+# the launch records of the CUDA-graph captures in progress (innermost
+# last): a launch made while one is open is recorded there, not counted
+_RECORDING: List[Counter] = []
+
+
+def _add(wrapper, depth: Optional[int], n: int) -> None:
+    wrapper.launches += n
+    if depth is not None:
+        wrapper.launches_by_depth[depth] = (
+            wrapper.launches_by_depth.get(depth, 0) + n)
+
+
+def count_launch(wrapper, depth: Optional[int] = None) -> None:
     """Count one launch of ``wrapper``'s kernel: its total ``launches``
-    and, by stage count, ``launches_by_depth``."""
-    wrapper.launches += 1
-    wrapper.launches_by_depth[depth] = wrapper.launches_by_depth.get(depth, 0) + 1
+    and, for a wrapper with a stage count, ``launches_by_depth``.  Inside
+    :func:`recording_launches` the launch is recorded instead: a graph
+    capture launches nothing, its replays do."""
+    if _RECORDING:
+        _RECORDING[-1][(wrapper, depth)] += 1
+    else:
+        _add(wrapper, depth, 1)
+
+
+@contextmanager
+def recording_launches() -> Iterator[Counter]:
+    """Record, by wrapper and depth, the launches made while open (a
+    CUDA-graph capture); :func:`replay_launches` counts them once per
+    replay, so the counters read as they would after eager runs."""
+    rec: Counter = Counter()
+    _RECORDING.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDING.pop()
+
+
+def replay_launches(rec: Counter) -> None:
+    for (wrapper, depth), n in rec.items():
+        _add(wrapper, depth, n)
 
 
 @lru_cache(maxsize=None)

@@ -14,7 +14,8 @@ RAPID when ``scheme`` is set.
   one block per (row, segment), where a row is a (batch, kv-head) pair
   and a segment a run of whole cache chunks; the last block of a row to
   finish combines the row's segments.  One launch a call, counted in
-  ``flash_decode_attn.launches``.  A build or launch error raises.
+  ``flash_decode_attn.launches`` (through ``count_launch``, so a CUDA
+  graph's replays count too).  A build or launch error raises.
 
 Order of operations, shared by the kernel and the plain version, with
 the geometry from ``kernels/spec.py`` (``resolve_spec("flash_attn",
@@ -47,14 +48,15 @@ formulation, ``repro.kernels.flash_attn.ref.decode_attn_ref``, to which
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core import float_approx as fa
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import on_cuda, ptr, require, stream
+from repro_torch.kernels._launch import (count_launch, on_cuda, ptr,
+                                         require, stream)
 from repro_torch.kernels.fused_div.ref import SOFTMAX_FLOOR
 from repro_torch.kernels.spec import (FLASH_CHUNK, FLASH_MAX_SEGMENT_CHUNKS,
                                       KernelSpec, resolve_spec)
@@ -165,13 +167,23 @@ def _check_kernel_geometry() -> None:
 
 
 # per card: one int32 ticket per row, zero between launches (the last
-# block of a row resets its ticket), grown as more rows come
+# block of a row resets its ticket), grown as more rows come.  A tensor
+# that more rows outgrew stays alive in _RETIRED_TICKETS: a CUDA graph
+# captured while it was current replays on its address, so freeing it
+# would let the allocator hand that memory to another tensor
 _TICKETS: Dict[torch.device, torch.Tensor] = {}
+_RETIRED_TICKETS: List[torch.Tensor] = []
 
 
 def _tickets(device: torch.device, rows: int) -> torch.Tensor:
     t = _TICKETS.get(device)
     if t is None or t.numel() < rows:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("flash_decode: the ticket tensor grows during "
+                               "a CUDA-graph capture; run the step once "
+                               "before capturing it")
+        if t is not None:
+            _RETIRED_TICKETS.append(t)
         t = torch.zeros(max(rows, 256), dtype=torch.int32, device=device)
         _TICKETS[device] = t
     return t
@@ -198,7 +210,7 @@ def _launch(qf, k_cache, v_cache, slot_positions, posv, lut, window: int,
              ptr(out), rows, c, kv, g, hd, int(window), bk, bn, float(floor),
              int(k_cache.dtype == torch.bfloat16), stream(qf.device))
     _build.check(err, "flash_decode")
-    flash_decode_attn.launches += 1
+    count_launch(flash_decode_attn)
     return out
 
 

@@ -14,11 +14,11 @@ epilogues are 2-D only.
 * CUDA tensors launch ``csrc/log_matmul.cu`` (replacing the Pallas
   ``log_matmul_pallas`` and, at depth >= 2, ``log_matmul_pipelined``,
   ``src/repro/kernels/log_matmul/log_matmul.py``), which fuses bias,
-  activation (silu or none, what the ported configs use; the menu's
-  other activations raise on the card) and residual; a norm stage then
-  runs as a K2/K3 launch at the same depth on the kernel's pre-norm
-  output -- the same ``apply_epilogue_tile`` semantics, not yet fused
-  into whole-row tiles.
+  activation (none, silu or tanh gelu, what the ported configs use; the
+  menu's relu, gelu_erf and tanh raise on the card) and residual; a
+  norm stage then runs as a K2/K3 launch at the same depth on the
+  kernel's pre-norm output -- the same ``apply_epilogue_tile``
+  semantics, not yet fused into whole-row tiles.
 
 ``spec`` (:class:`repro_torch.kernels.spec.KernelSpec`) sets the stage
 count, resolved by ``resolve_spec("log_matmul", ...)``: by default K
@@ -288,7 +288,7 @@ def _kernel(x, w, scheme, bias, residual, ep: be.Epilogue, ks: KernelSpec,
         raise NotImplementedError(
             f"the CUDA log_matmul has no {ep.activation!r} epilogue; it "
             f"fuses {tuple(a for a in be.ACT_CODES if a)} (the ported "
-            f"configs' activations)")
+            f"configs' activations: silu, and starcoder2_7b's tanh gelu)")
     if batched:
         _batched_epilogue_ok(ep)
     sx = _batch_stride(x3, "x", (m, k), batch)

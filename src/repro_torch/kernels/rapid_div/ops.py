@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.core import mitchell, schemes
 from repro_torch.kernels import _rapid_int
-from repro_torch.kernels._launch import on_cuda
+from repro_torch.kernels._launch import count_launch, on_cuda
 
 __all__ = ["rapid_div", "rapid_div_plain", "DEFAULT_SCHEME"]
 
@@ -49,7 +49,7 @@ def rapid_div(a: torch.Tensor, b: torch.Tensor, scheme: Optional[str] = None,
     out = _rapid_int.launch("rapid_div_int", a, b, sch, 2 * n_bits - 1,
                             n_bits)
     if out.numel():
-        rapid_div.launches += 1
+        count_launch(rapid_div)
     return out
 
 

@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.core import mitchell, schemes
 from repro_torch.kernels import _rapid_int
-from repro_torch.kernels._launch import on_cuda
+from repro_torch.kernels._launch import count_launch, on_cuda
 
 __all__ = ["rapid_mul", "rapid_mul_plain", "DEFAULT_SCHEME"]
 
@@ -53,7 +53,7 @@ def rapid_mul(a: torch.Tensor, b: torch.Tensor, scheme: Optional[str] = None,
     sch = schemes.MUL_SCHEMES[scheme or DEFAULT_SCHEME]
     out = _rapid_int.launch("rapid_mul_int", a, b, sch, n_bits - 1, n_bits)
     if out.numel():
-        rapid_mul.launches += 1
+        count_launch(rapid_mul)
     return out
 
 

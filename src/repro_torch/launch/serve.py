@@ -2,11 +2,13 @@
 
 ``python -m repro_torch.launch.serve --arch h2o_danube_1_8b --approx``
 (add ``--continuous`` for the continuous-batching engine: paged KV,
-chunked prefill, slot recycling)
+chunked prefill, slot recycling).  ``--arch`` takes every config of the
+port, starcoder2_7b (LN, the ungated gelu MLP) included.
 
 Runs on the card (``--device cuda``, the default) with the CUDA kernels,
-or on the CPU with their plain versions (``--device cpu``; use
-``--reduced`` there).  Weights are a seeded random init.
+its decode steps (and the continuous engine's prefill ticks) captured
+as CUDA graphs, or on the CPU with their plain versions (``--device
+cpu``; use ``--reduced`` there).  Weights are a seeded random init.
 """
 from __future__ import annotations
 
@@ -64,7 +66,8 @@ def main(argv=None):
         print(f"req{i}: {o}")
     mode = "continuous" if args.continuous else "fixed-slot"
     print(f"{n_tok} tokens in {dt:.2f}s ({n_tok / dt:.1f} tok/s on {dev}, "
-          f"{mode}, approx={'RAPID' if args.approx else 'exact'})")
+          f"{mode}, approx={'RAPID' if args.approx else 'exact'}); traces "
+          f"{engine.trace_counts}")
     return 0
 
 

@@ -1,5 +1,6 @@
-"""Core NN layers of the dense serve and train paths: norms, RoPE,
-GQA/SWA attention, SwiGLU MLP -- RAPID-aware.
+"""Core NN layers of the dense serve and train paths: norms (rms and
+LN), RoPE, GQA/SWA attention, the SwiGLU and the ungated (gelu) MLP --
+RAPID-aware.
 
 The port of ``repro.models.layers`` (unsharded).  Every weight matmul
 goes through :func:`repro_torch.core.ops.qmatmul` (kernel K1 under a
@@ -25,6 +26,7 @@ from repro_torch.models.params import P
 __all__ = [
     "dense",
     "rms_norm",
+    "layer_norm",
     "apply_norm",
     "rope",
     "attention_params",
@@ -45,7 +47,10 @@ def dense(x, w, acfg: ApproxConfig, site: str, bias=None, activation=None,
 
 
 def norm_params(cfg: ModelConfig) -> dict:
-    return {"scale": P((cfg.d_model,), "ones")}
+    p = {"scale": P((cfg.d_model,), "ones")}
+    if cfg.norm == "ln":
+        p["bias"] = P((cfg.d_model,), "zeros")
+    return p
 
 
 def rms_norm(x, params, eps: float, acfg: ApproxConfig):
@@ -54,7 +59,18 @@ def rms_norm(x, params, eps: float, acfg: ApproxConfig):
     return (y * params["scale"].float()).to(x.dtype)
 
 
+def layer_norm(x, params, eps: float, acfg: ApproxConfig):
+    # layer norm == rms normalize of the centred activations, through the
+    # same divide (K2, K8 at depth >= 2) as rms_norm
+    xf = x.float()
+    y = qrms_div(xf - xf.mean(dim=-1, keepdim=True), eps, acfg.div("norm"))
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
 def apply_norm(x, params, cfg: ModelConfig):
+    if cfg.norm == "ln":
+        return layer_norm(x, params, cfg.norm_eps, cfg.approx)
     return rms_norm(x, params, cfg.norm_eps, cfg.approx)
 
 
@@ -281,13 +297,19 @@ def chunk_cache_attention(q, k_cache, v_cache, q_pos, kv_pos, window: int,
 
 
 def mlp_params(cfg: ModelConfig) -> dict:
+    """SwiGLU (w1, w3, w2) for ``act == "silu"``, else the ungated MLP
+    (w1, w2), as the reference."""
     D, F = cfg.d_model, cfg.d_ff
-    return {"w1": P((D, F)), "w3": P((D, F)), "w2": P((F, D))}
+    if cfg.act == "silu":
+        return {"w1": P((D, F)), "w3": P((D, F)), "w2": P((F, D))}
+    return {"w1": P((D, F)), "w2": P((F, D))}
 
 
 def mlp(x, params, cfg: ModelConfig, residual=None):
-    # silu rides w1's epilogue, the block's residual add w2's
+    # the activation rides w1's epilogue, the block's residual add w2's;
+    # only the silu MLP is gated by w3
     acfg = cfg.approx
     h = dense(x, params["w1"], acfg, "mlp", activation=cfg.act)
-    h = h * dense(x, params["w3"], acfg, "mlp")
+    if cfg.act == "silu":
+        h = h * dense(x, params["w3"], acfg, "mlp")
     return dense(h, params["w2"], acfg, "mlp", residual=residual)

@@ -17,7 +17,15 @@ The port of the dense path of ``repro.models.model.Model``:
     -- the continuous engine's step: a decode tick or a prefill chunk.
 
 Params and caches are dicts; ``blocks``/``layers`` are lists with one
-entry per layer.  ``cache["pos"]`` is a Python int.
+entry per layer.  ``cache["pos"]`` is a 0-dim int32 tensor on the
+cache's device, which ``decode_step`` advances in place: the step reads
+nothing back to the host, so an engine can capture it in a CUDA graph
+(``serve/compiled.py``).
+
+The dense family's two block kinds: rms norms with the silu-gated MLP
+(h2o_danube_1_8b, minicpm_2b, yi_6b), and LN (scale and bias) with the
+ungated gelu MLP (starcoder2_7b); ``cfg.norm`` picks the norm of every
+block and of the final norm, ``cfg.act`` the MLP.
 """
 from __future__ import annotations
 
@@ -34,11 +42,14 @@ from repro_torch.models.params import P, materialize
 from repro_torch.models.transformer import (attn_cache_specs, block_apply,
                                             block_decode, block_decode_paged,
                                             block_params, cache_len,
-                                            paged_attn_cache_specs)
+                                            paged_attn_cache_specs,
+                                            ring_slot)
 
 __all__ = ["Model"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_ACTS = ("silu", "gelu")
+_NORMS = ("rms", "ln")
 
 
 class Model:
@@ -46,17 +57,15 @@ class Model:
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"the port serves the dense family; {cfg.name} is {cfg.family}")
-        # the port's blocks run rms norms and the silu-gated MLP only:
-        # LN (with its bias), gelu and the ungated MLP of starcoder2_7b
-        # are still to be ported, so refuse them rather than build a
-        # different model from the reference's
-        for field, value, ported in (("act", cfg.act, "silu"),
-                                     ("norm", cfg.norm, "rms")):
-            if value != ported:
+        # the dense blocks the port has: rms or LN, the silu-gated or the
+        # ungated gelu MLP; anything else would build another model than
+        # the reference's
+        for field, value, ported in (("act", cfg.act, _ACTS),
+                                     ("norm", cfg.norm, _NORMS)):
+            if value not in ported:
                 raise NotImplementedError(
-                    f"{cfg.name}: {field}={value!r} is not ported (only "
-                    f"{field}={ported!r}); starcoder2_7b's LN/gelu path is "
-                    "still to be ported")
+                    f"{cfg.name}: {field}={value!r} is not ported (the port "
+                    f"has {field} in {ported})")
         self.cfg = cfg
         self.dtype = _DTYPES[cfg.dtype]
 
@@ -69,7 +78,8 @@ class Model:
         specs = {
             "embed": P((V, D), "small"),
             "final_norm": norm_params(cfg),
-            "blocks": [block_params(cfg) for _ in range(cfg.n_layers)],
+            "blocks": [block_params(cfg)
+                       for _ in range(cfg.n_layers)],
         }
         if not cfg.tie_embeddings:
             specs["lm_head"] = P((D, V))
@@ -84,7 +94,7 @@ class Model:
         layers = [materialize(attn_cache_specs(self.cfg, batch, cache_n), 0,
                               dev) for _ in range(self.cfg.n_layers)]
         C = cache_len(self.cfg, cache_n)
-        return {"pos": 0,
+        return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
                 "slots": torch.full((batch, C), _MAXI32, dtype=torch.int32,
                                     device=dev),
                 "layers": layers}
@@ -197,8 +207,8 @@ class Model:
         else:
             base = torch.zeros((C,), dtype=torch.int32, device=dev)
             base[ring] = torch.arange(S - C, S, dtype=torch.int32, device=dev)
-        cache = {"pos": S, "slots": base.expand(B, C).contiguous(),
-                 "layers": []}
+        cache = {"pos": torch.tensor(S, dtype=torch.int32, device=dev),
+                 "slots": base.expand(B, C).contiguous(), "layers": []}
         for lp in params["blocks"]:
             x, (k, v) = block_apply(x, lp, cfg, pos)
             cache["layers"].append({"k": to_ring(k).to(self.dtype),
@@ -210,16 +220,19 @@ class Model:
         """tokens: [B] integer tensor -> (logits [B, V] f32, cache).
 
         Updates the cache in place (k/v ring slots, slot positions) and
-        advances ``cache["pos"]``.
+        advances the ``cache["pos"]`` tensor in place; reads nothing back
+        to the host.
         """
+        cfg = self.cfg
         pos = cache["pos"]
         x = self._embed(params, tokens[:, None])[:, 0]
         slots = cache["slots"]
-        slots[:, pos % slots.shape[1]] = pos
+        slots.index_copy_(1, ring_slot(pos, slots.shape[1]),
+                          pos.expand(slots.shape[0], 1))
         for lp, lc in zip(params["blocks"], cache["layers"]):
-            x, _ = block_decode(x, lp, lc, slots, pos, self.cfg)
-        cache["pos"] = pos + 1
-        x = apply_norm(x[:, None], params["final_norm"], self.cfg)
+            x, _ = block_decode(x, lp, lc, slots, pos, cfg)
+        pos.add_(1)
+        x = apply_norm(x[:, None], params["final_norm"], cfg)
         return self._logits(params, x)[:, 0], cache
 
     def decode_paged(self, params, tokens, cache, page_table, offsets,

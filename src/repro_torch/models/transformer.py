@@ -1,13 +1,15 @@
 """Decoder transformer block (dense FFN) and its KV-cache decode steps.
 
-The port of the dense parts of ``repro.models.transformer``.  Prefill
-always fuses ln2's rms divide into the attention-out matmul's epilogue
-(``rms_div(wo_out + residual)``, keeping the pre-norm residual stream):
-the reference fuses it whenever the norm and attn_proj sites share a
-backend, and the port has one dispatch path.  The decode steps
-(``block_decode`` on a ring cache, ``block_decode_paged`` on a
-block-paged pool) do not fuse ln2: they call :func:`apply_norm`, as the
-reference.
+The port of the dense parts of ``repro.models.transformer``.  Every
+function reads the block's norm ("rms" or "ln") from ``cfg.norm``.
+Prefill of an rms block always fuses ln2's divide into the
+attention-out matmul's epilogue (``rms_div(wo_out + residual)``, keeping
+the pre-norm residual stream): the reference fuses it whenever the norm
+and attn_proj sites share a backend, and the port has one dispatch path.
+An LN block runs :func:`apply_norm` on the unfused ``wo + residual``
+output, as the reference.  The decode steps (``block_decode`` on a ring
+cache, ``block_decode_paged`` on a block-paged pool) do not fuse ln2:
+they call :func:`apply_norm`, as the reference.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from repro_torch.models.layers import (_MAXI32, apply_norm, attention,
 from repro_torch.models.params import P
 
 __all__ = ["block_params", "block_apply", "block_decode",
-           "block_decode_paged", "cache_len", "attn_cache_specs",
+           "block_decode_paged", "cache_len", "ring_slot", "attn_cache_specs",
            "paged_attn_cache_specs"]
 
 
@@ -37,9 +39,15 @@ def block_params(cfg: ModelConfig) -> dict:
 
 def block_apply(x, p, cfg: ModelConfig, positions):
     """Full-sequence block.  Returns (x, (k, v)) for the decode cache."""
-    (y, ydiv), k, v = attention(apply_norm(x, p["ln1"], cfg), p["attn"], cfg,
-                                positions, residual=x, tail_norm=True)
-    ffn_in = (ydiv.float() * p["ln2"]["scale"].float()).to(y.dtype)
+    fuse_ln2 = cfg.norm == "rms"
+    h, k, v = attention(apply_norm(x, p["ln1"], cfg), p["attn"],
+                        cfg, positions, residual=x, tail_norm=fuse_ln2)
+    if fuse_ln2:
+        y, ydiv = h
+        ffn_in = (ydiv.float() * p["ln2"]["scale"].float()).to(y.dtype)
+    else:
+        y = h
+        ffn_in = apply_norm(y, p["ln2"], cfg)
     return mlp(ffn_in, p["ffn"], cfg, residual=y), (k, v)
 
 
@@ -127,12 +135,22 @@ def block_decode_paged(x, p, cache, page_table, positions, valid, kv_len,
     return mlp(h2, p["ffn"], cfg, residual=x), cache
 
 
-def block_decode(x, p, cache, slot_positions, pos: int, cfg: ModelConfig):
-    """One-token decode. x: [B, D]; cache: {"k", "v"}; pos: int.
+def ring_slot(pos: torch.Tensor, c: int) -> torch.Tensor:
+    """The ring index ``pos % c`` of a 0-dim int32 position, as the
+    ``[1]`` int64 index of an ``index_copy_`` along the slot dim: a
+    tensor index, so the write reads nothing back to the host."""
+    return (pos % c).long().reshape(1)
+
+
+def block_decode(x, p, cache, slot_positions, pos: torch.Tensor,
+                 cfg: ModelConfig):
+    """One-token decode. x: [B, D]; cache: {"k", "v"}; pos: the current
+    position, a 0-dim int32 tensor on the cache's device.
 
     Writes this token's k/v into the ring slot ``pos % C`` of the cache
     tensors in place (the reference returns updated copies) and returns
-    (x, cache).
+    (x, cache).  Nothing here reads ``pos`` back to the host, so the
+    step can be captured in a CUDA graph.
     """
     acfg = cfg.approx
     B, _ = x.shape
@@ -143,13 +161,13 @@ def block_decode(x, p, cache, slot_positions, pos: int, cfg: ModelConfig):
     q = dense(h, p["attn"]["wq"], acfg, "attn_proj").reshape(B, H, hd)
     k = dense(h, p["attn"]["wk"], acfg, "attn_proj").reshape(B, KV, hd)
     v = dense(h, p["attn"]["wv"], acfg, "attn_proj").reshape(B, KV, hd)
-    posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    posv = pos.expand(B, 1)
     q = rope(q[:, None], posv, cfg.rope_theta)[:, 0]
     k = rope(k[:, None], posv, cfg.rope_theta)[:, 0]
 
-    write = pos % C  # ring write for sliding-window caches
-    cache["k"][:, write] = k.to(cache["k"].dtype)
-    cache["v"][:, write] = v.to(cache["v"].dtype)
+    write = ring_slot(pos, C)  # ring write for sliding-window caches
+    cache["k"].index_copy_(1, write, k[:, None].to(cache["k"].dtype))
+    cache["v"].index_copy_(1, write, v[:, None].to(cache["v"].dtype))
     attn_out = decode_attention(q, cache["k"], cache["v"], slot_positions,
                                 pos, cfg.sliding_window, acfg)
     # the residual adds ride the projection epilogues (fused block tail)

@@ -8,6 +8,19 @@ from a generator seeded from ``(seed, i)``, so its tokens do not depend
 on which requests share its batch.  Torch cannot reproduce the
 reference's ``fold_in`` keys, so sampled tokens differ from the
 reference's; greedy tokens do not.
+
+The decode step is compiled, as the reference jits it
+(:mod:`repro_torch.serve.compiled`): on the card it is one CUDA graph
+per ``(B, cache_n)``, captured on the first ``generate`` of that shape
+and replayed after.  A graph is bound to addresses, and ``Model.prefill``
+builds a fresh cache each time, so the engine keeps one persistent cache
+per shape and copies prefill's cache into it; two ``generate`` calls of
+one shape capture once.  The prefill stays eager: its shape changes
+with every prompt length, and a graph per length would be captured
+more often than replayed.  It still counts a trace per new shape, as
+the reference's jit would.  ``trace_counts`` counts both, with the
+reference's meaning; ``cuda_graphs=False`` keeps the card's decode
+eager (the yardstick the graph route is timed against).
 """
 from __future__ import annotations
 
@@ -18,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import Model
+from repro_torch.serve.compiled import CompiledStep
 
 __all__ = ["ServeEngine"]
 
@@ -29,6 +43,32 @@ class ServeEngine:
     cache_n: int = 256
     temperature: float = 0.0
     seed: int = 0
+    cuda_graphs: bool = True
+
+    def __post_init__(self):
+        self.trace_counts = {"decode": 0, "prefill": 0}
+        self._prefill = CompiledStep("prefill", self.trace_counts,
+                                     self.device, graphs=False)
+        self._decode = CompiledStep("decode", self.trace_counts, self.device,
+                                    self.cuda_graphs)
+        self._caches = {}  # (B, cache_n) -> the decode step's cache
+
+    def _decode_cache(self, cache: dict) -> dict:
+        """The persistent cache of ``cache``'s shape, holding a copy of it
+        (made outside inference mode: the graph writes it on every
+        replay)."""
+        B = cache["slots"].shape[0]
+        static = self._caches.get((B, self.cache_n))
+        if static is None:
+            with torch.inference_mode(False):
+                static = self._caches[B, self.cache_n] = self.model.init_cache(
+                    B, self.cache_n, self.device)
+        static["pos"].copy_(cache["pos"])
+        static["slots"].copy_(cache["slots"])
+        for dst, src in zip(static["layers"], cache["layers"]):
+            dst["k"].copy_(src["k"])
+            dst["v"].copy_(src["v"])
+        return static
 
     @property
     def device(self) -> torch.device:
@@ -66,7 +106,14 @@ class ServeEngine:
         gens = self._generators(B)
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
         with torch.inference_mode():
-            logits, cache = self.model.prefill(self.params, batch, self.cache_n)
+            logits, cache = self._prefill(
+                lambda t: self.model.prefill(self.params, {"tokens": t},
+                                             self.cache_n), batch["tokens"])
+            cache = self._decode_cache(cache)
+
+            def decode(t):
+                return self.model.decode_step(self.params, t, cache)[0]
+
             out = [[] for _ in range(B)]
             done = np.zeros(B, bool)
             tok = self._sample(logits, gens)
@@ -79,7 +126,7 @@ class ServeEngine:
                             out[i].append(int(tok[i]))
                 if done.all() or step == max_new - 1:
                     break
-                logits, cache = self.model.decode_step(
-                    self.params, torch.from_numpy(tok).to(self.device), cache)
+                logits = self._decode(decode, torch.from_numpy(tok),
+                                      key=self.cache_n)
                 tok = self._sample(logits, gens)
         return out

@@ -22,7 +22,14 @@ Both phases run ``Model.decode_paged`` at fixed shapes: the decode tick
 ``[n_slots, 1]`` with an occupancy mask (``n_valid``), the prefill tick
 ``[1, prefill_chunk]``.  On the card the decode tick's attention is
 kernel K4 (one position per slot) and the prefill tick's combine divide
-is kernel K5.
+is kernel K5.  Each phase is compiled, as the reference jits it
+(:mod:`repro_torch.serve.compiled`): on the card one CUDA graph each,
+captured on its first tick and replayed after, with the tick's numpy
+``tokens``, ``page_table``, ``offsets`` and ``n_valid`` copied into the
+graph's static device tensors.  ``trace_counts`` counts the captures
+(traces on the CPU) with the reference's meaning: ``{"decode": 1,
+"prefill": 1}`` after any drain.  Sampling stays on the host, outside
+the graphs.  ``cuda_graphs=False`` keeps the card's ticks eager.
 
 Sampling: request ``rid`` draws from its own ``torch.Generator``, seeded
 from ``(seed, rid)`` as the lockstep engine seeds request ``i`` from
@@ -41,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import Model
+from repro_torch.serve.compiled import CompiledStep
 from repro_torch.serve.paged_kv import PageAllocator, PageGeometry
 
 __all__ = ["StreamEvent", "ContinuousServeEngine"]
@@ -96,7 +104,8 @@ class ContinuousServeEngine:
     def __init__(self, model: Model, params: dict, n_slots: int = 4,
                  max_len: int = 256, page_size: int = 16,
                  n_pages: Optional[int] = None, prefill_chunk: int = 16,
-                 temperature: float = 0.0, seed: int = 0):
+                 temperature: float = 0.0, seed: int = 0,
+                 cuda_graphs: bool = True):
         if model.cfg.family != "dense":
             raise ValueError(
                 "continuous batching serves decoder-only text families "
@@ -119,6 +128,11 @@ class ContinuousServeEngine:
         self._queue: deque = deque()
         self._slots: List[Optional[_Slot]] = [None] * n_slots
         self._next_rid = 0
+        # each phase traced (captured) once, as the reference's jit
+        self.trace_counts = {"decode": 0, "prefill": 0}
+        self._steps = {phase: CompiledStep(phase, self.trace_counts,
+                                           self.device, cuda_graphs)
+                       for phase in ("decode", "prefill")}
 
     @property
     def device(self) -> torch.device:
@@ -230,13 +244,16 @@ class ContinuousServeEngine:
     # ------------------------------------------------------------------
     # engine loop
     # ------------------------------------------------------------------
-    def _run(self, tokens, page_table, offsets, n_valid) -> torch.Tensor:
-        dev = self.device
-        logits, self.cache = self.model.decode_paged(
-            self.params, torch.from_numpy(tokens).to(dev), self.cache,
-            torch.from_numpy(page_table).to(dev),
-            torch.from_numpy(offsets).to(dev), torch.from_numpy(n_valid).to(dev))
-        return logits
+    def _tick(self, tokens, page_table, offsets, n_valid) -> torch.Tensor:
+        return self.model.decode_paged(self.params, tokens, self.cache,
+                                       page_table, offsets, n_valid)[0]
+
+    def _run(self, phase: str, tokens, page_table, offsets,
+             n_valid) -> torch.Tensor:
+        """One ``phase`` tick on numpy inputs; the logits stay valid until
+        the phase's next tick."""
+        return self._steps[phase](self._tick, *map(
+            torch.from_numpy, (tokens, page_table, offsets, n_valid)))
 
     def step(self) -> List[StreamEvent]:
         """One engine tick: admit, one prefill chunk, one decode step."""
@@ -253,7 +270,8 @@ class ContinuousServeEngine:
                 chunk = slot.prompt[slot.n_prefilled:slot.n_prefilled + CK]
                 toks = np.zeros((1, CK), np.int32)
                 toks[0, :len(chunk)] = chunk
-                logits = self._run(toks, self.page_table[b:b + 1],
+                logits = self._run("prefill", toks,
+                                   self.page_table[b:b + 1],
                                    np.array([slot.length], np.int32),
                                    np.array([len(chunk)], np.int32))
                 slot.n_prefilled += len(chunk)
@@ -273,7 +291,8 @@ class ContinuousServeEngine:
                     n_valid[b] = 1
                     live.append(b)
             if live:
-                logits = self._run(tokens, self.page_table, offsets, n_valid)
+                logits = self._run("decode", tokens, self.page_table,
+                                   offsets, n_valid)
                 for b in live:
                     slot = self._slots[b]
                     slot.length += 1

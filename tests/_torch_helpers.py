@@ -34,6 +34,25 @@ def special_sample(rng, n: int) -> np.ndarray:
     return x
 
 
+def perturb_ln(tree, seed: int = 5):
+    """A model's param tree (nested dicts of arrays) with every LN's scale
+    and bias (a dict holding both) drawn from a seed, as float32 numpy,
+    instead of the init's ones and zeros, so both reach the logits."""
+    rng = np.random.default_rng(seed)
+
+    def walk(t):
+        if not isinstance(t, dict):
+            return t
+        if {"scale", "bias"} <= set(t):
+            shape = np.shape(t["scale"])
+            return dict(t, scale=(1.0 + 0.2 * rng.standard_normal(shape)
+                                  ).astype(np.float32),
+                        bias=(0.2 * rng.standard_normal(shape)
+                              ).astype(np.float32))
+        return {k: walk(v) for k, v in t.items()}
+    return walk(tree)
+
+
 def randn(rng, *shape, scale=1.0):
     return (rng.standard_normal(shape) * scale).astype(np.float32)
 

@@ -6,8 +6,11 @@ This file imports no JAX: the machine with the card has none.
 
 Tolerances: K1 bit-equal to its plain version run on the card (same
 products, same K order; torch's CUDA silu is x / (1 + expf(-x)), as the
-kernel's); K2/K3 bit-equal (the kernels reduce in the plain version's
-fixed lane grouping); K4 bit-equal to its plain version on the card
+kernel's), its tanh gelu epilogue within GELU_ULP of torch's
+``F.gelu(approximate="tanh")`` on the card (the kernel takes torch's
+steps, its one fma written out; measured bit-equal); K2/K3 bit-equal
+(the kernels reduce in the plain version's fixed lane grouping); K4
+bit-equal to its plain version on the card
 (the plain version takes the kernel's steps in its order) and within
 rtol 1e-5, atol 1e-6 of it on the CPU (the CPU's exp and the card's
 differ in the last bit), at every segment geometry, run to run, and
@@ -28,7 +31,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_helpers import (assert_same_bits, bits,  # noqa: E402
-                            decode_case, int_pairs, randn, special_sample)
+                            decode_case, int_pairs, randn, special_sample,
+                            ulp_diff)
 from repro_torch.kernels.flash_attn.ops import (  # noqa: E402
     flash_decode_attn, flash_decode_plain)
 from repro_torch.kernels.fused_div.ops import (  # noqa: E402
@@ -295,11 +299,12 @@ def test_cuda_flash_decode_refuses_an_uncompiled_geometry(cuda):
 
 
 @pytest.mark.gpu
-def test_cuda_log_matmul_refuses_unported_activation(cuda):
+@pytest.mark.parametrize("act", ["relu", "gelu_erf", "tanh"])
+def test_cuda_log_matmul_refuses_unported_activation(cuda, act):
     x = torch.ones(2, 3, device=cuda)
     w = torch.ones(3, 4, device=cuda)
-    with pytest.raises(NotImplementedError, match="gelu"):
-        log_matmul(x, w, "rapid10", activation="gelu")
+    with pytest.raises(NotImplementedError, match=act):
+        log_matmul(x, w, "rapid10", activation=act)
 
 
 # operands near 1 and 2, whose products sit next to the overflow edge when
@@ -1080,6 +1085,10 @@ _ROW_CASES = [
     # chunk and of the long prefill, and the ragged softmax edge
     (4, 2560, None), (64, 2560, None), (16384, 128, None), (2048, 80, None),
     (266240, 80, None), (33, 130, None),
+    # starcoder2_7b's: the LN divides of a decode step, a continuous
+    # prefill tick and the lockstep prefill, and a 64-token chunk's
+    # combine (36 heads of 128)
+    (4, 4608, None), (64, 4608, None), (512, 4608, None), (2304, 128, None),
     # where a warp a row meets four warps a row (past one wave of rows),
     # and a narrow row under four warps (few rows)
     (2000, 256, None), (2000, 512, None), (40, 256, None),
@@ -1383,3 +1392,187 @@ def test_cuda_loss_backward_through_kernels_equals_plain(cuda):
     assert abs(lk - lp) <= 1e-5 * abs(lp)
     for a, b in zip(gk, gp):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+# --------------------------------------------------------------------------
+# K1's gelu epilogue (starcoder2_7b's w1)
+# --------------------------------------------------------------------------
+
+# the stated bound of K1's tanh gelu against the plain version on the card
+GELU_ULP = 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(4, 4608, 640),   # decode regime
+                                   (4, 64, 8),       # block8
+                                   (33, 300, 130),   # chunk
+                                   (100, 129, 200),  # prefill
+                                   (8, 1, 4096)])    # z over [-8, 8]
+@pytest.mark.parametrize("depth", [1, 2, 3])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_cuda_log_matmul_gelu_within_bound(cuda, m, k, n, depth, with_bias):
+    """K1 with ``activation="gelu"`` (tanh form) at every regime and
+    depths 1-3 against its plain version on the card (torch's CUDA
+    ``F.gelu(approximate="tanh")`` on the same RAPID sums): within
+    GELU_ULP; the K = 1 case sweeps z over [-8, 8], where 1 + tanh
+    cancels."""
+    from repro_torch.kernels.spec import KernelSpec, PipelineSpec
+    rng = np.random.default_rng(m * k + n + depth)
+    if k == 1:
+        x = T(np.linspace(-1.0, 1.0, m, dtype=np.float32)[:, None])
+        w = T(np.linspace(-8.0, 8.0, n, dtype=np.float32)[None])
+    else:
+        x, w = T(randn(rng, m, k)), T(randn(rng, k, n, scale=0.05))
+    x, w = x.to(cuda), w.to(cuda)
+    bias = T(randn(rng, n)).to(cuda) if with_bias else None
+    spec = KernelSpec(pipeline=PipelineSpec(depth=depth))
+    got = log_matmul(x, w, "rapid10", bias=bias, activation="gelu",
+                     spec=spec)
+    ref = log_matmul_plain(x, w, "rapid10", bias=bias, activation="gelu")
+    assert ulp_diff(got.cpu().numpy(), ref.cpu().numpy()).max() <= GELU_ULP
+
+
+# --------------------------------------------------------------------------
+# the engines' compiled steps (CUDA graphs)
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["h2o_danube_1_8b", "starcoder2_7b"])
+def test_cuda_graph_engines_equal_eager(cuda, arch):
+    """Both engines on a reduced RAPID model, graph route against eager
+    route: equal greedy tokens, equal launch counts by wrapper and depth
+    (each replay counts what its capture recorded), one capture a phase;
+    a second lockstep ``generate`` of one shape replays without a new
+    capture and gives the same tokens."""
+    from repro_torch.configs.base import RAPID, get_config
+    from repro_torch.kernels import (launch_counts, launch_counts_by_depth,
+                                     reset_launch_counts)
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import ContinuousServeEngine
+
+    cfg = get_config(arch).reduced().with_(approx=RAPID)
+    model = Model(cfg)
+    params = model.init(0, cuda)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in (5, 9, 3, 12)]
+    runs = {}
+    for graphs in (True, False):
+        reset_launch_counts()
+        lock = ServeEngine(model, params, cache_n=48, cuda_graphs=graphs)
+        out = [lock.generate(prompts, max_new=6) for _ in range(2)]
+        lock_counts = (launch_counts(), launch_counts_by_depth())
+        reset_launch_counts()
+        cont = ContinuousServeEngine(model, params, n_slots=2, max_len=48,
+                                     page_size=8, prefill_chunk=4,
+                                     cuda_graphs=graphs)
+        out.append(cont.generate(prompts, max_new=6))
+        runs[graphs] = (out, lock_counts,
+                        (launch_counts(), launch_counts_by_depth()),
+                        lock.trace_counts, cont.trace_counts)
+    (g_out, g_lock, g_cont, g_lt, g_ct) = runs[True]
+    (e_out, e_lock, e_cont, e_lt, e_ct) = runs[False]
+    assert g_out == e_out
+    assert g_out[0] == g_out[1]
+    assert g_lock == e_lock and g_cont == e_cont
+    for counts, _ in (g_lock, g_cont):
+        assert counts["log_matmul"] > 0 and counts["flash_decode"] > 0
+    assert g_lt == e_lt == {"decode": 1, "prefill": 1}
+    assert g_ct == e_ct == {"decode": 1, "prefill": 1}
+
+
+@pytest.mark.gpu
+def test_cuda_graph_replay_survives_ticket_growth(cuda):
+    """K4 captured at 4 rows, then launched eagerly with more rows than
+    any capture used (its ticket tensor is replaced) and the freed sizes
+    refilled with garbage: the replay gives the bits it gave before, and
+    each replay counts one K4 launch."""
+    from repro_torch.kernels.flash_attn import ops as fops
+    from repro_torch.serve.compiled import CompiledStep
+
+    q, kc, vc, sp = _on(cuda, torch.bfloat16, *_flash_rows(41, 2, 64))
+    pos = 63
+    counts = {"decode": 0}
+    step = CompiledStep("decode", counts, cuda)
+
+    def attend(qf):
+        return flash_decode_attn(qf, kc, vc, sp, pos, 0, "rapid9")
+
+    before = flash_decode_attn.launches
+    first = step(attend, q).clone()  # warm-up, then capture
+    again = step(attend, q).clone()  # replay
+    assert flash_decode_attn.launches == before + 2
+    rows = fops._TICKETS[q.device].numel() + 1
+    big = _on(cuda, torch.bfloat16, *_flash_rows(42, -(-rows // 2), 64))
+    flash_decode_attn(*big, pos, 0, "rapid9")
+    assert fops._TICKETS[q.device].numel() >= rows
+    junk = [torch.full((n,), 7, dtype=torch.int32, device=cuda)
+            for n in (256, 512, 1024) for _ in range(16)]
+    third = step(attend, q).clone()
+    torch.cuda.synchronize()
+    del junk
+    assert counts == {"decode": 1}
+    assert flash_decode_attn.launches == before + 4
+    assert_same_bits(again.cpu().numpy(), first.cpu().numpy())
+    assert_same_bits(third.cpu().numpy(), first.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_cuda_graph_capture_survives_dead_graphs_in_cycles(cuda):
+    """A dead step whose captured graph sits in a reference cycle, and a
+    collection inside the next capture (as the collector may run at any
+    allocation): the capture succeeds and replays right, because the
+    step collects before capturing.  A graph freed inside a capture
+    would release its pool there and invalidate the capture."""
+    import gc
+
+    from repro_torch.serve.compiled import CompiledStep
+
+    x = torch.arange(1024, dtype=torch.float32, device=cuda)
+    gc_on = gc.isenabled()
+    gc.disable()
+    try:
+        dead = CompiledStep("decode", {"decode": 0}, cuda)
+        dead(lambda t: t + 1, x)
+        cycle = {"step": dead}
+        cycle["self"] = cycle
+        del dead, cycle
+
+        def step(t):
+            if torch.cuda.is_current_stream_capturing():
+                gc.collect()
+            return t * 3
+
+        counts = {"decode": 0}
+        live = CompiledStep("decode", counts, cuda)
+        first = live(step, x).clone()
+        again = live(step, x + 1).clone()
+    finally:
+        if gc_on:
+            gc.enable()
+    assert counts == {"decode": 1}
+    assert torch.equal(first, x * 3) and torch.equal(again, (x + 1) * 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["lockstep", "paged"])
+@pytest.mark.parametrize("scheme", ["rapid9", None])
+def test_cuda_flash_decode_starcoder2_shapes(cuda, shape, scheme):
+    """K4 at starcoder2_7b's decode shapes: head_dim 128, 4 kv heads of 9
+    queries (G = 9), bf16 caches; the lockstep step (144 slots, 136
+    live) and the continuous tick's 256-slot views (kv_len 131 / 98 /
+    201 / 0)."""
+    qf, kc, vc, sp = _flash_rows(43, 4, 144 if shape == "lockstep" else 256,
+                                 KV=4, G=9, hd=128)
+    if shape == "lockstep":
+        sp[:, 136:] = 2**31 - 1
+        pos = 135
+    else:
+        kv_len = np.array([131, 98, 201, 0], np.int32)
+        sp = np.where(sp < kv_len[:, None], sp, 2**31 - 1).astype(np.int32)
+        pos = torch.tensor(np.maximum(kv_len - 1, 0), device=cuda)
+    args = _on(cuda, torch.bfloat16, qf, kc, vc, sp)
+    got = flash_decode_attn(*args, pos, 0, scheme)
+    ref = flash_decode_plain(*args, pos, 0, scheme)
+    assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())

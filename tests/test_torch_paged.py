@@ -25,13 +25,14 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_helpers import assert_same_bits, randn  # noqa: E402
+from _torch_helpers import assert_same_bits, perturb_ln, randn  # noqa: E402
 from repro.configs.base import EXACT as JEXACT  # noqa: E402
 from repro.configs.base import RAPID as JRAPID  # noqa: E402
 from repro.configs.base import get_config as jget  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro.models.layers import ParallelCtx  # noqa: E402
 from repro.models.model import Model as JModel  # noqa: E402
+from repro.serve.engine import ServeEngine as JEngine  # noqa: E402
 from repro.serve.scheduler import ContinuousServeEngine as JCont  # noqa: E402
 from repro_torch.configs.base import EXACT as TEXACT  # noqa: E402
 from repro_torch.configs.base import RAPID as TRAPID  # noqa: E402
@@ -59,7 +60,7 @@ def _pair(arch, approx):
     if approx:
         jc, tc = jc.with_(approx=JRAPID), tc.with_(approx=TRAPID)
     jm, tm = JModel(jc.with_backend("jnp")), TModel(tc)
-    jp = jm.init(jax.random.PRNGKey(0))
+    jp = perturb_ln(jm.init(jax.random.PRNGKey(0)))
     tp = load_jax_params(jax.tree.map(np.asarray, jp), device="cpu")
     return jm, jp, tm, tp
 
@@ -172,7 +173,8 @@ def test_attention_dispatches_blockwise_above_plain_max_t(monkeypatch):
 
 @pytest.mark.parametrize("arch,approx", [("h2o_danube_1_8b", True),
                                          ("minicpm_2b", True),
-                                         ("minicpm_2b", False)])
+                                         ("minicpm_2b", False),
+                                         ("starcoder2_7b", True)])
 def test_decode_paged_vs_reference(arch, approx):
     """Two prefill chunks of one slot, then a decode tick over two slots
     (one inactive): logits at each row's last valid token and the pools
@@ -216,16 +218,35 @@ def test_decode_paged_vs_reference(arch, approx):
 
 @pytest.mark.parametrize("arch,approx", [("h2o_danube_1_8b", True),
                                          ("minicpm_2b", True),
-                                         ("minicpm_2b", False)])
+                                         ("minicpm_2b", False),
+                                         ("starcoder2_7b", False)])
 def test_continuous_greedy_equals_reference(arch, approx):
     """Mixed prompt lengths, chunked prefill and slot recycling: the
-    port's greedy tokens equal the reference engine's, per request."""
+    port's greedy tokens equal the reference engine's, per request, and
+    each phase traced once, as the reference's."""
     jm, jp, tm, tp = _pair(arch, approx)
-    ref = JCont(jm, jp, CTX, backend="jnp", **ENGINE_KW).generate(PROMPTS,
-                                                                  max_new=6)
-    got = ContinuousServeEngine(tm, tp, **ENGINE_KW).generate(PROMPTS,
-                                                              max_new=6)
-    assert got == ref
+    jeng = JCont(jm, jp, CTX, backend="jnp", **ENGINE_KW)
+    ref = jeng.generate(PROMPTS, max_new=6)
+    eng = ContinuousServeEngine(tm, tp, **ENGINE_KW)
+    assert eng.generate(PROMPTS, max_new=6) == ref
+    assert eng.trace_counts == jeng.trace_counts == {"decode": 1,
+                                                     "prefill": 1}
+
+
+def test_continuous_matches_fixed_slot_greedy():
+    """The reference's own scenario (``tests/test_serve.py``): reduced
+    minicpm_2b at f32 (exact arithmetic, as there), 4 prompts through 2
+    slots, max_len 32, page 8, chunk 4.  Greedy tokens equal the
+    reference's fixed-slot engine's, request by request, and decode and
+    prefill each traced once across the whole run."""
+    jm, jp, tm, tp = _pair("minicpm_2b", False)
+    ref = [JEngine(jm, jp, CTX, cache_n=32).generate([p], max_new=6)[0]
+           for p in PROMPTS]
+    eng = ContinuousServeEngine(tm, tp, **ENGINE_KW)
+    assert eng.generate(PROMPTS, max_new=6) == ref
+    assert eng.trace_counts == {"decode": 1, "prefill": 1}
+    assert eng.generate(PROMPTS[:2], max_new=3) == [r[:3] for r in ref[:2]]
+    assert eng.trace_counts == {"decode": 1, "prefill": 1}
 
 
 def test_continuous_equals_lockstep_engine(port_model):

@@ -34,7 +34,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_helpers import randn  # noqa: E402
+from _torch_helpers import perturb_ln, randn  # noqa: E402
 from repro.ckpt.checkpoint import CheckpointManager as JCheckpointManager  # noqa: E402
 from repro.configs.base import RAPID as JRAPID  # noqa: E402
 from repro.configs.base import get_config as jget  # noqa: E402
@@ -265,7 +265,7 @@ def _pair(arch, approx, **over):
         jc, tc = jc.with_(approx=JRAPID), tc.with_(approx=TRAPID)
     jc = jc.with_backend("jnp")
     jm, tm = JModel(jc), TModel(tc)
-    jp = jm.init(jax.random.PRNGKey(0))
+    jp = perturb_ln(jm.init(jax.random.PRNGKey(0)))
     tp = load_jax_params(jax.tree.map(np.asarray, jp), device="cpu")
     return jm, jp, tm, tp
 
@@ -288,7 +288,8 @@ def _grad_leaves(tm, tp, batch, remat=None):
 
 @pytest.mark.parametrize("arch,approx", [
     ("h2o_danube_1_8b", False), ("h2o_danube_1_8b", True),
-    ("minicpm_2b", False), ("minicpm_2b", True)])
+    ("minicpm_2b", False), ("minicpm_2b", True),
+    ("starcoder2_7b", False), ("starcoder2_7b", True)])
 def test_loss_and_grads_match_reference(arch, approx):
     jm, jp, tm, tp = _pair(arch, approx)
     batch = _batch(512)
