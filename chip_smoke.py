@@ -51,7 +51,20 @@ one NVIDIA H100.  It
    requests of 96-128 prompt tokens, 8 greedy tokens; 4 slots, page 16,
    chunk 64), launches counted from 0 and peak memory read, and a
    2-layer copy kernels vs plain through both engines at that load
-   (equal greedy tokens);
+   (equal greedy tokens); then serves the MoE family at full width, its
+   depth cut to 4 layers (qwen3_moe_235b_a22b: 4 of 94 layers, 128
+   experts top-8; llama4_scout_17b_a16e: 4 of 48, 16 experts top-1 and
+   the shared expert; f32 params from a seed, one model freed before
+   the next loads) through both engines at the same load, on the graph
+   route and then eagerly: equal greedy tokens and launch counts,
+   ``trace_counts`` {"decode": 1, "prefill": 1}, K1 launched once a
+   layer a step for each projection and expert contraction, the
+   router's softmax divide once a layer a step; one step of each kind
+   profiled on graphs (the kernels seen = the counters' gain; busy
+   share, batched K1's share and the casts'); a 2-layer copy kernels vs
+   plain (qwen3 through both engines, llama4 through the lockstep
+   engine: equal greedy tokens) and one MoE layer kernels vs plain at 4
+   x 128 and 4 x 1 tokens (the same bits);
 7. drives the paper's integer units (K9 ``rapid_mul``, K10
    ``rapid_div``) through their wrappers as Table III does, at 8 bits
    exhaustively and 2^24 random pairs at 16 (16/8) bits, all four
@@ -90,14 +103,24 @@ one NVIDIA H100.  It
     gradient within 1e-5 of its largest magnitude, the kernels launched
     in the first run and none in the second.
 
-Step 2 holds K1 at starcoder2_7b's sites (M = 4, 64 and 512: wq,
-wk/wv, wo and w2 bit-equal, w1 with the tanh gelu epilogue within 2
-ulp) at every stage count, timed beside f32 ``torch.matmul``, and its
+Step 2 holds K1 at every 2-D site of the served configs' blocks
+(h2o_danube_1_8b's, starcoder2_7b's, the MoE configs' attention
+projections and llama4's shared expert; M = 4, 64 and 512) bit-equal at
+every stage count, starcoder2's w1 with the tanh gelu epilogue within 2
+ulp, timed beside f32 ``torch.matmul``, starcoder2's
 LN divides (K2/K8 over 4 / 64 / 512 rows of 4608) and a 64-token
-chunk's combine (K5, 36 heads of 128) bit-equal.  It holds K4 bit-equal
-to its plain version, both arms, at the
+chunk's combine (K5, 36 heads of 128) bit-equal; K1 batched at the MoE
+experts' shapes (w1 with silu, w3, w2 of both configs at 1, 5 and 40
+slots an expert: a decode step's, a 64-token chunk's and the lockstep
+prefill's capacity) bit-equal at the default stage count beside
+batched f32 ``torch.matmul``, the router's gate rows (4 / 64 / 512 rows
+of 8, 4 / 512 of 1), the MoE configs' rms rows (4096 and 5120 wide)
+and qwen3's 64-token combine (K5, 64 heads of 128).  It holds K4 bit-equal
+to its plain version, both arms, at h2o's
 lockstep step (512 slots, 136 live), the full 4096-slot window and the
-continuous tick's paged views, and times beside each the library's
+continuous tick's paged views, and at the MoE configs' lockstep step
+(256 slots, 136 live) and paged views (qwen3: 4 KV heads of 16
+queries, llama4: 8 of 5, heads of 128), and times beside each the library's
 ``scaled_dot_product_attention`` on the exact arm as a yardstick (the
 port never calls it).  It also holds K9/K10 bit-equal to their plain
 versions (special operands included; 2^24 pairs also from offsets of
@@ -163,8 +186,16 @@ D, KV_HEADS, G, HD, D_FF = 2560, 8, 4, 80, 6912
 PREFILL_M, CHUNK_M, DECODE_M = 4 * 128, 64, 4
 # starcoder2_7b's widths (its w1 takes the gelu epilogue) and the bound
 # of K1's tanh gelu against the plain version on the card, in ulp
-SC_D, SC_FF, SC_KV_HEADS, SC_HEADS, SC_HD = 4608, 18432, 4, 36, 128
+SC_D, SC_HEADS, SC_HD = 4608, 36, 128
 GELU_ULP = 2
+
+# the MoE configs' widths (qwen3_moe_235b_a22b, llama4_scout_17b_a16e),
+# qwen3's query heads, and the router's gate rows: (top-k, rows) over a
+# decode step's 4 tokens, a prefill chunk's 64 and the lockstep
+# prefill's 512
+MOE_D, QWEN3_HEADS = (4096, 5120), 64
+ROUTER_ROWS = ((8, DECODE_M), (8, CHUNK_M), (8, PREFILL_M), (1, DECODE_M),
+               (1, PREFILL_M))
 
 # fewest int32 ops of one integer RAPID unit (K9/K10): two leading-one
 # detections, two fraction alignments, the cell index, the ternary add
@@ -230,9 +261,19 @@ PROFILED_KERNELS = {
     ("flash_decode",): ("flash_decode_kernel",),
     ("rapid_mul", "rapid_div"): ("int_unit_kernel",),
 }
+# K1's kernels, and their batched instances (template argument BATCHED)
+K1_NAMES = re.compile(r"(?<!\w)(log_matmul_kernel|lean_kernel|decode_kernel)"
+                      r"\b")
+BATCHED_K1 = re.compile(r"(?<!\w)(log_matmul_kernel|lean_kernel|"
+                        r"decode_kernel)<[^()]*\btrue>")
+# the MoE configs served at full width, their depth cut to MOE_LAYERS
+MOE_ARCHS = ("qwen3_moe_235b_a22b", "llama4_scout_17b_a16e")
+MOE_LAYERS = 4
 # the wait between opening the profiler's window and the profiled tick,
 # and between the tick's end and closing it
 PROFILE_SETTLE_S = 0.05
+# torch kernels launched as the window opens, before the profiled step
+PROFILE_PAD_KERNELS = 64
 # the blockwise prefill: over _PLAIN_ATTN_MAX_T (8192) tokens and over
 # the 4096-token sliding window
 LONG_PROMPT = 8320
@@ -434,7 +475,33 @@ def int_unit_sass(build) -> list:
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 
+def k1_sites(cfg) -> list:
+    """K1's 2-D call sites in one of ``cfg``'s blocks, as
+    ``models/layers.py`` makes them: (site, K, N, activation, residual,
+    the ln2 rms tail).  wq, wk / wv (one row for both), wo with the
+    residual, and in an rms block wo with ln2's divide in its epilogue
+    (prefill); then the dense MLP (w1 with the activation, w3 where it is
+    gated, w2 with the residual) or, in an MoE block, the shared
+    expert's, whose w2 takes no residual (the block adds it after the
+    experts)."""
+    D, F, q, kv = (cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.hd,
+                   cfg.n_kv_heads * cfg.hd)
+    sites = [("wq", D, q, None, False, False),
+             ("wk/wv", D, kv, None, False, False),
+             ("wo", q, D, None, True, False)]
+    if cfg.norm == "rms":
+        sites.append(("wo+ln2", q, D, None, True, True))
+    if cfg.n_experts == 0 or cfg.shared_expert:
+        pre = "shared " if cfg.n_experts else ""
+        sites.append((pre + "w1", D, F, cfg.act, False, False))
+        if cfg.act == "silu":
+            sites.append((pre + "w3", D, F, None, False, False))
+        sites.append((pre + "w2", F, D, None, cfg.n_experts == 0, False))
+    return sites
+
+
 def kernel_phase(torch, dev, timer):
+    from repro_torch.configs.base import get_config
     from repro_torch.core import backend as be
     from repro_torch.kernels.flash_attn.ops import (flash_decode_attn,
                                                     flash_decode_plain)
@@ -481,101 +548,67 @@ def kernel_phase(torch, dev, timer):
             raise AssertionError(f"{kernel} {shape}: kernel disagrees with its "
                                  f"plain version (max_abs {err}, {ulps} ulp)")
 
-    # K1 at M = 4 (decode), 64 (continuous prefill tick) and 512
-    # (lockstep prefill, a train step's 4 x 128 tokens) for each (K, N,
-    # epilogue) of the paths, at every stage count (depth >= 2: K7);
-    # tolerance: bit-equal, silu <= 2 ulp (CUDA expf)
+    # K1 / K7 at every 2-D site of the served configs' blocks
+    # (:func:`k1_sites`: h2o_danube_1_8b, starcoder2_7b and the MoE
+    # configs' attention projections and llama4's shared expert) at M =
+    # 4 (decode), 64 (continuous prefill tick) and 512 (lockstep
+    # prefill, a train step's 4 x 128 tokens), at every stage count:
+    # bit-equal, the tanh gelu epilogue within GELU_ULP (the kernel takes
+    # torch's CUDA gelu step for step, its fma written out).  The plain
+    # version (thousands of launches) is timed once by the host clock
+    # between syncs
     rms_tail = be.Epilogue(norm="rms", div_scheme="rapid9", eps=1e-6,
                            keep_prenorm=True)
-    k1 = [("wq", D, D, None, False, None), ("wk/wv", D, KV_HEADS * HD, None,
-                                            False, None),
-          ("wo", D, D, None, True, None), ("wo+ln2", D, D, None, True, rms_tail),
-          ("w1", D, D_FF, "silu", False, None), ("w3", D, D_FF, None, False, None),
-          ("w2", D_FF, D, None, True, None)]
-    for m in (DECODE_M, CHUNK_M, PREFILL_M):
-        for site, k, n, act, res, ep in k1:
-            x = randn(m, k)
-            w = randn(k, n, std=k ** -0.5)
-            r = randn(m, n) if res else None
-            kw = dict(residual=r, epilogue=ep if ep else be.Epilogue(activation=act))
-            ref = log_matmul_plain(x, w, "rapid10", **kw)
-            plain_ms = timer(lambda: log_matmul_plain(x, w, "rapid10", **kw),
-                             1 if m > 8 else 2)
-            exact_ms = timer(lambda: torch.matmul(x, w), 5)
-            nbytes = 4 * (m * k + k * n + m * n * (1 + res + (ep is not None)))
-            for depth in DEPTHS:
-                got = log_matmul(x, w, "rapid10", spec=at(depth), **kw)
+    for arch, prefix in (("h2o_danube_1_8b", ""),
+                         ("starcoder2_7b", "starcoder2 "),
+                         *((a, a.split("_")[0] + " ") for a in MOE_ARCHS)):
+        sites = k1_sites(get_config(arch))
+        for m in (DECODE_M, CHUNK_M, PREFILL_M):
+            for site, k, n, act, res, tail in sites:
+                x = randn(m, k)
+                w = randn(k, n, std=k ** -0.5)
+                r = randn(m, n) if res else None
+                kw = dict(residual=r, epilogue=rms_tail if tail
+                          else be.Epilogue(activation=act))
                 torch.cuda.synchronize()
-                pairs = list(zip(got, ref)) if ep else [(got, ref)]
-                err = max(abs_max(a, b) for a, b in pairs)
-                ulps = max(ulp_max(a, b) for a, b in pairs)
-                ok = ulps <= (2 if act == "silu" else 0)
-                ms = timer(lambda: log_matmul(x, w, "rapid10", spec=at(depth),
-                                              **kw), 5)
-                lib = {} if act or res or ep else {
-                    "library_ms": exact_ms,
-                    "library": "torch.matmul, f32 with TF32 off (exact, "
-                               "no epilogue, no RAPID; never called by "
-                               "the port)"}
-                record("log_matmul" if depth == 1 else "log_matmul_pipelined",
-                       f"{site} M={m} K={k} N={n}"
-                       + (f" {act}" if act else "") + (" +res" if res else "")
-                       + (" +rms(keep_prenorm)" if ep else "")
-                       + f" depth={depth}",
-                       err, ulps, ok, ms, plain_ms, nbytes,
-                       m * n * k * INT32_OPS_PER_PRODUCT, INT32_OPS_PER_S,
-                       {"exact_matmul_ms": exact_ms, "products": m * n * k,
-                        "depth": depth, **lib})
-                del got
-            del x, w, r, ref
+                t0 = time.perf_counter()
+                ref = log_matmul_plain(x, w, "rapid10", **kw)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                exact_ms = timer(lambda: torch.matmul(x, w), 5)
+                limit = GELU_ULP if act == "gelu" else 0
+                nbytes = 4 * (m * k + k * n + m * n * (1 + res + tail))
+                for depth in DEPTHS:
+                    got = log_matmul(x, w, "rapid10", spec=at(depth), **kw)
+                    torch.cuda.synchronize()
+                    pairs = list(zip(got, ref)) if tail else [(got, ref)]
+                    ulps = max(ulp_max(a, b) for a, b in pairs)
+                    lib = {} if act or res or tail else {
+                        "library_ms": exact_ms,
+                        "library": "torch.matmul, f32 with TF32 off (exact, "
+                                   "no epilogue, no RAPID; never called by "
+                                   "the port)"}
+                    record("log_matmul" if depth == 1
+                           else "log_matmul_pipelined",
+                           f"{prefix}{site} M={m} K={k} N={n}"
+                           + (f" {act}" if act else "")
+                           + (" +res" if res else "")
+                           + (" +rms(keep_prenorm)" if tail else "")
+                           + f" depth={depth}",
+                           max(abs_max(a, b) for a, b in pairs), ulps,
+                           ulps <= limit,
+                           timer(lambda: log_matmul(x, w, "rapid10",
+                                                    spec=at(depth), **kw), 5),
+                           plain_ms, nbytes,
+                           m * n * k * INT32_OPS_PER_PRODUCT, INT32_OPS_PER_S,
+                           {"exact_matmul_ms": exact_ms, "products": m * n * k,
+                            "depth": depth, **lib,
+                            **({"gelu_ulp_bound": GELU_ULP}
+                               if act == "gelu" else {})})
+                    del got
+                del x, w, r, ref
 
-    # K1 / K7 at starcoder2_7b's sites (LN: no norm tail on wo) at M = 4
-    # / 64 / 512, every stage count: wq, wk/wv (4 KV heads of 128), wo
-    # and w2 with the residual, bit-equal, and w1 with the tanh gelu
-    # epilogue within GELU_ULP (the kernel takes torch's CUDA gelu step
-    # for step, its fma written out).  The plain version (thousands of
-    # launches) is timed once by the host clock between syncs
-    sc_sites = [("wq", SC_D, SC_D, None, False),
-                ("wk/wv", SC_D, SC_KV_HEADS * SC_HD, None, False),
-                ("wo", SC_D, SC_D, None, True),
-                ("w1", SC_D, SC_FF, "gelu", False),
-                ("w2", SC_FF, SC_D, None, True)]
-    for m in (DECODE_M, CHUNK_M, PREFILL_M):
-        for site, k, n, act, res in sc_sites:
-            x = randn(m, k)
-            w = randn(k, n, std=k ** -0.5)
-            r = randn(m, n) if res else None
-            kw = dict(activation=act, residual=r)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ref = log_matmul_plain(x, w, "rapid10", **kw)
-            torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t0) * 1e3
-            exact_ms = timer(lambda: torch.matmul(x, w), 5)
-            limit = GELU_ULP if act else 0
-            for depth in DEPTHS:
-                got = log_matmul(x, w, "rapid10", spec=at(depth), **kw)
-                torch.cuda.synchronize()
-                ulps = ulp_max(got, ref)
-                lib = {} if act or res else {
-                    "library_ms": exact_ms,
-                    "library": "torch.matmul, f32 with TF32 off (exact, "
-                               "no epilogue, no RAPID; never called by "
-                               "the port)"}
-                record("log_matmul" if depth == 1 else "log_matmul_pipelined",
-                       f"starcoder2 {site} M={m} K={k} N={n}"
-                       + (f" {act}" if act else "") + (" +res" if res else "")
-                       + f" depth={depth}", abs_max(got, ref), ulps,
-                       ulps <= limit,
-                       timer(lambda: log_matmul(x, w, "rapid10",
-                                                spec=at(depth), **kw), 5),
-                       plain_ms, 4 * (m * k + k * n + m * n * (1 + res)),
-                       m * n * k * INT32_OPS_PER_PRODUCT, INT32_OPS_PER_S,
-                       {"exact_matmul_ms": exact_ms, "products": m * n * k,
-                        "depth": depth, **lib,
-                        **({"gelu_ulp_bound": GELU_ULP} if act else {})})
-                del got
-            del x, w, r, ref
+    expert_cases(torch, dev, timer, g, record)
 
     # K1 / K7 where the ring meets its edges: K not a multiple of BK with
     # N not a multiple of 4 (4 B copies), K % 4 != 0, and K shorter than
@@ -684,13 +717,15 @@ def kernel_phase(torch, dev, timer):
     # K2: ln1/ln2/final norm of a decode step (4 rows), of a continuous
     # prefill tick (64 rows) and of the lockstep prefill / a train step
     # (512 rows), a single row (fewer slabs than depth) and 37 rows (a
-    # ragged last slab), and starcoder2_7b's LN divides (4 / 64 / 512
-    # rows of 4608), at every stage count (depth >= 2: K8);
+    # ragged last slab), starcoder2_7b's LN divides (4 / 64 / 512 rows of
+    # 4608) and the MoE configs' norms (of 4096 and 5120), at every stage
+    # count (depth >= 2: K8);
     # tolerance: denominators and quotients bit-equal.  Library: torch's
     # f32 rms_norm, a yardstick with an exact divide and no RAPID one
     rms_norm = torch.nn.functional.rms_norm
     for rows, n in [(r, D) for r in (1, DECODE_M, CHUNK_M, 37, PREFILL_M)] + [
-            (r, SC_D) for r in (DECODE_M, CHUNK_M, PREFILL_M)]:
+            (r, d) for d in (SC_D,) + MOE_D
+            for r in (DECODE_M, CHUNK_M, PREFILL_M)]:
         x = randn(rows, n, std=3.0)
         ref, rden = rms_div_plain(x, 1e-6, "rapid9", return_denom=True)
         plain_ms = timer(lambda: rms_div_plain(x, 1e-6, "rapid9"), 3)
@@ -711,15 +746,24 @@ def kernel_phase(torch, dev, timer):
                    4 * (2 * rows * n), rows * n * 2, FP32_FLOPS_PER_S / 2,
                    {"call_ms": timer(k2, 20), "depth": depth, **lib})
 
-    # K3: prefill attention probabilities, B*H*S rows of T = 128, and a
-    # ragged 33 x 130 (n % 4 != 0: 4 B copies); every stage count.
+    # K3: prefill attention probabilities, B*H*S rows of T = 128, a
+    # ragged 33 x 130 (n % 4 != 0: 4 B copies), and the MoE router's
+    # gates (top-8 rows of qwen3_moe_235b_a22b, top-1 of
+    # llama4_scout_17b_a16e, over a decode step's 4 tokens, a prefill
+    # chunk's 64 and the lockstep prefill's 512); every stage count.
     # Library: F.normalize(e, p=1, eps=floor), e / max(sum e, floor) for
     # e >= 0 with an exact divide
     from repro_torch.kernels.fused_div.ref import SOFTMAX_FLOOR
     normalize = torch.nn.functional.normalize
     s = randn(4 * 32 * 128, 128, std=2.0)
+
+    def gates(rows, k):  # a router's top-k logits, exp(v - max)
+        v = torch.sort(randn(rows, k), dim=-1, descending=True).values
+        return torch.exp(v - v[:, :1])
+
     for e in (torch.exp(s - s.amax(dim=-1, keepdim=True)),
-              torch.exp(randn(33, 130))):
+              torch.exp(randn(33, 130))) + tuple(
+                  gates(rows, k) for k, rows in ROUTER_ROWS):
         ref, rden = softmax_div_plain(e, "rapid9", return_denom=True)
         plain_ms = timer(lambda: softmax_div_plain(e, "rapid9"), 3)
         lib = {"library_ms": timer.graph(
@@ -786,7 +830,9 @@ def kernel_phase(torch, dev, timer):
         exact_ref = flash_decode_plain(qf, kc, vc, sp, posv, window, None)
         torch.cuda.synchronize()
         ok = same_bits(got, ref) and same_bits(exact, exact_ref)
-        valid = (sp <= posv[:, None]) & (sp > posv[:, None] - window)
+        valid = sp <= posv[:, None]
+        if window:  # 0: full attention
+            valid &= sp > posv[:, None] - window
         live = int(valid.sum())  # slots this step's data needs
         b, kv, g, hd = qf.shape
         nbytes = (4 * qf.numel() * 2 + 2 * kc.element_size() * live * kv * hd
@@ -828,32 +874,53 @@ def kernel_phase(torch, dev, timer):
     del kc, vc
 
     # K4 at the continuous decode tick: 4 slots, each gathering its
-    # 256-slot view out of the [65, 16, 8, 80] bf16 page pool through the
-    # page table as block_decode_paged does, slot positions from kv_len,
-    # a [4] position vector of distinct depths and one inactive slot
-    # (kv_len 0: every slot INT32_MAX, output 0)
+    # 256-slot view out of a 65-page bf16 pool of 16-slot pages through
+    # the page table as block_decode_paged does, slot positions from
+    # kv_len, a [4] position vector of distinct depths and one inactive
+    # slot (kv_len 0: every slot INT32_MAX, output 0); for h2o (8 KV
+    # heads of 4 queries of 80, its 4096-slot window) and for the MoE
+    # configs (full attention, heads of 128: qwen3's 4 KV heads of 16
+    # queries, K4's widest group, and llama4's 8 of 5), whose lockstep
+    # step (cache_n 256, 136 live) is held first
     n_pages, ps, pps = 65, 16, 16
-    pool_k = randn(n_pages, ps, KV_HEADS, HD).to(torch.bfloat16)
-    pool_v = randn(n_pages, ps, KV_HEADS, HD).to(torch.bfloat16)
     table = torch.zeros((B, pps), dtype=torch.long, device=dev)
     table[:3] = (torch.randperm(n_pages - 1, generator=g, device=dev)
                  [:3 * pps] + 1).reshape(3, pps)
     kv_len = torch.tensor([131, 98, 201, 0], dtype=torch.int32, device=dev)
     C = pps * ps
-    kg = pool_k[table].reshape(B, C, KV_HEADS, HD)
-    vg = pool_v[table].reshape(B, C, KV_HEADS, HD)
     j = torch.arange(C, dtype=torch.int32, device=dev)
     sp = torch.where(j[None] < kv_len[:, None], j[None], 2**31 - 1)
-    got = k4_row(f"q=[4,8,4,80] paged view=[4,{C},8,80] bf16 "
-                 f"kv_len={kv_len.tolist()}", qf, kg, vg, sp,
-                 torch.clamp(kv_len - 1, min=0), window)
-    if got[3].any():
-        raise AssertionError("flash_decode: the inactive slot attends")
-    del pool_k, pool_v, kg, vg
+    for prefix, kv, grp, hd, win in (
+            ("", KV_HEADS, G, HD, window),
+            *((a.split("_")[0] + " ", c.n_kv_heads,
+               c.n_heads // c.n_kv_heads, c.hd, c.sliding_window)
+              for a in MOE_ARCHS for c in (get_config(a),))):
+        qf = randn(B, kv, grp, hd, std=hd ** -0.5)
+        geo = f"{kv},{hd}] bf16"
+        if prefix:
+            kc = randn(B, C, kv, hd).to(torch.bfloat16)
+            vc = randn(B, C, kv, hd).to(torch.bfloat16)
+            lsp = torch.where(j < 136, j, 2**31 - 1).expand(B, C)
+            k4_row(f"{prefix}q=[4,{kv},{grp},{hd}] cache=[4,{C},{geo} "
+                   "live=136", qf, kc, vc, lsp.contiguous(),
+                   torch.full((B,), 135, dtype=torch.int32, device=dev), win)
+            del kc, vc
+        pool_k = randn(n_pages, ps, kv, hd).to(torch.bfloat16)
+        pool_v = randn(n_pages, ps, kv, hd).to(torch.bfloat16)
+        kg = pool_k[table].reshape(B, C, kv, hd)
+        vg = pool_v[table].reshape(B, C, kv, hd)
+        got = k4_row(f"{prefix}q=[4,{kv},{grp},{hd}] paged view=[4,{C},"
+                     f"{geo} kv_len={kv_len.tolist()}", qf, kg, vg, sp,
+                     torch.clamp(kv_len - 1, min=0), win)
+        if got[3].any():
+            raise AssertionError(f"flash_decode {prefix}: the inactive slot "
+                                 "attends")
+        del pool_k, pool_v, kg, vg
 
     # K5: the online-softmax combine acc / l of a 64-token prefill chunk
     # (64 x 32 heads rows of head_dim 80; starcoder2_7b's: 64 x 36 heads
-    # of 128) and of an 8320-token blockwise prefill, at every stage
+    # of 128; qwen3_moe_235b_a22b's: 64 x 64 heads of 128) and of an
+    # 8320-token blockwise prefill, at every stage
     # count (depth >= 2: K8), and at depth 1 also
     # with a starting 4 B past a 16 B boundary (the combine hands K5 a
     # view of the caller's tensor: a head of single elements, then the
@@ -884,7 +951,7 @@ def kernel_phase(torch, dev, timer):
         return out
 
     for rows, hd in ((64 * 32, HD), (LONG_PROMPT * 32, HD),
-                     (64 * SC_HEADS, SC_HD)):
+                     (64 * SC_HEADS, SC_HD), (64 * QWEN3_HEADS, SC_HD)):
         a = with_specials(randn(rows, hd))
         b = with_specials(randn(rows).abs() * 40 + 1)
         ref = div_rowbcast_plain(a, b, "rapid9")
@@ -932,6 +999,74 @@ def kernel_phase(torch, dev, timer):
         del a, b, got, ref
     integer_and_batched_cases(torch, dev, timer, g, record, at)
     return cases
+
+
+def expert_cases(torch, dev, timer, g, record):
+    """K1 batched at the MoE experts' shapes, as ``_expert_compute``
+    calls it (operands rounded to bf16, the compute dtype, then f32):
+    w1 with silu in the epilogue, w3 and w2, over each config's experts
+    at the capacity of a decode step (4 tokens), a 64-token prefill
+    chunk and the lockstep prefill (4 x 128 tokens), at the default
+    stage count, with the slots the path leaves empty under even
+    routing (``launch/kernel_timing.py`` ``empty_slots``) as rows of
+    zeros; bit-equal to the plain version (timed once by the host clock:
+    thousands of launches), timed beside batched f32 ``torch.matmul``
+    (the port never calls it).  The bytes bound counts the operands at
+    the path's dtypes (the bf16 buffer and expert stack read once, the
+    f32 output written once: the kernel's f32 operands are the port's
+    own widening), the ops bound the filled rows' products (an empty
+    slot's are 0)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.kernel_timing import empty_slots
+    from repro_torch.kernels.log_matmul.ops import (log_matmul,
+                                                    log_matmul_plain)
+    from repro_torch.kernels.spec import resolve_spec
+    from repro_torch.models.moe import capacity
+
+    for arch in MOE_ARCHS:
+        cfg = get_config(arch)
+        E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+        for tokens in (DECODE_M, CHUNK_M, PREFILL_M):
+            m = capacity(tokens, cfg)
+            for site, k, n, act in (("w1", d, f, "silu"), ("w3", d, f, None),
+                                    ("w2", f, d, None)):
+                x = torch.randn((E, m, k), generator=g, device=dev).to(
+                    torch.bfloat16).float()
+                mask = empty_slots(torch, E, m,
+                                   tokens * cfg.experts_per_token, dev)
+                x[mask] = 0.0
+                empty = int(mask.sum())
+                w = (torch.randn((E, k, n), generator=g, device=dev)
+                     * k ** -0.5).to(torch.bfloat16).float()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ref = log_matmul_plain(x, w, "rapid10", activation=act)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                depth = resolve_spec("log_matmul", (m, n, k)).depth
+                got = log_matmul(x, w, "rapid10", activation=act)
+                torch.cuda.synchronize()
+                ulps = ulp_max(got, ref)
+                exact_ms = timer(lambda: torch.matmul(x, w), 3)
+                lib = {} if act else {
+                    "library_ms": exact_ms,
+                    "library": "torch.matmul, batched f32 with TF32 off "
+                               "(exact, no RAPID; never called by the port)"}
+                filled = (E * m - empty) * n * k
+                record("log_matmul" if depth == 1 else "log_matmul_pipelined",
+                       f"{arch} {site} E={E} M={m} ({tokens} tokens, "
+                       f"{empty} empty) K={k} N={n}"
+                       + (f" {act}" if act else "") + f" depth={depth}",
+                       abs_max(got, ref), ulps,
+                       ulps == 0 and same_bits(got, ref),
+                       timer(lambda: log_matmul(x, w, "rapid10",
+                                                activation=act), 3),
+                       plain_ms, E * (2 * (m * k + k * n) + 4 * m * n),
+                       filled * INT32_OPS_PER_PRODUCT, INT32_OPS_PER_S,
+                       {"exact_matmul_ms": exact_ms, "products": filled,
+                        "empty_slots": empty, "depth": depth,
+                        "experts": E, "tokens": tokens, **lib})
+                del x, w, ref, got
 
 
 def integer_and_batched_cases(torch, dev, timer, g, record, at):
@@ -1312,10 +1447,10 @@ def drain(engine, prompts, max_new):
     return [outs[r] for r in sorted(outs)], max_queued, first
 
 
-def profiled_step(torch, engine):
-    """One ``engine.step()`` under torch.profiler: its wall time in ms,
-    the profiler's averages of the kernels the card ran in it, and the
-    launch counts before and after it."""
+def profiled_step(torch, run):
+    """One ``run()`` (an engine step) under torch.profiler: its wall time
+    in ms, the profiler's averages of the kernels the card ran in it,
+    and the launch counts before and after it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1325,15 +1460,20 @@ def profiled_step(torch, engine):
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
         # warm-up step: the tracer runs, its events are dropped
-        torch.ones(1, device=engine.device).add_(1)
+        torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
         prof.step()
-        # the window opens here; a tick started at once now and then
-        # lost its first kernels to the profiler, one started after a
-        # wait did not (PERF.md §6)
+        # the window opens here; a step started at once now and then
+        # lost its first kernels to the profiler, and so did a graph
+        # replay started after a wait (PERF.md §6): torch's own kernels
+        # go first, then the wait (they add ~0.1 ms to kernel time)
+        pad = torch.ones(1, device="cuda")
+        for _ in range(PROFILE_PAD_KERNELS):
+            pad.add_(1)
+        torch.cuda.synchronize()
         time.sleep(PROFILE_SETTLE_S)
         t0 = time.perf_counter()
-        engine.step()
+        run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         time.sleep(PROFILE_SETTLE_S)
@@ -1346,17 +1486,64 @@ def profiled_step(torch, engine):
     return wall, kern, before, after
 
 
+def profiled(torch, label: str, run) -> dict:
+    """``run()`` (one engine step) under torch.profiler: wall time, the
+    device time of its kernels, the device's busy share (kernel time /
+    wall; one stream, so kernels never overlap), the kernels that take
+    most of it, and the device time of two groups: the batched K1
+    launches (the MoE experts' contractions; the kernel's ``BATCHED``
+    template argument) and the copy kernels (dtype casts: on an MoE
+    step the expert stacks' two casts a contraction, f32 -> bf16 ->
+    f32, beside the activations' small ones).  The port's kernels the
+    profiler saw must number the launches its counters gained (on the
+    graph route, the launches the capture recorded, which each replay
+    adds): proof that a replay ran them."""
+    wall, kern, before, after = profiled_step(torch, run)
+    seen = {}
+    for wrappers, names in PROFILED_KERNELS.items():
+        pat = re.compile(r"(?<!\w)(%s)\b" % "|".join(names))
+        seen[wrappers] = (
+            sum(after[w] - before[w] for w in wrappers),
+            sum(e.count for e in kern if pat.search(e.key)))
+    if any(c != r for c, r in seen.values()) or not seen[
+            ("log_matmul",)][1]:
+        raise AssertionError(
+            f"profiled {label}: launches counted vs kernels the profiler "
+            f"saw: {seen}")
+    dev = sum(e.self_device_time_total for e in kern) / 1e3
+    k1 = [e for e in kern if K1_NAMES.search(e.key)]
+    # the batched instances, where the profiler names template arguments
+    expert = (sum(e.self_device_time_total for e in k1
+                  if BATCHED_K1.search(e.key)) / 1e3
+              if any("<" in e.key for e in k1) else None)
+    casts = sum(e.self_device_time_total for e in kern
+                if "copy" in e.key) / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:3]
+    res = {"wall_ms": wall, "kernel_ms": dev,
+           "busy": dev / wall if dev else None,
+           "expert_k1_ms": expert, "copy_kernels_ms": casts,
+           "launches_vs_profiled": {
+               "+".join(w): list(v) for w, v in seen.items()},
+           "top": [(e.key[:70], e.count, e.self_device_time_total / 1e3)
+                   for e in top]}
+    busy = (f"busy {dev / wall:.1%}" if dev else
+            "device time not measured (the profiler saw no kernels)")
+    share = ("batched K1 not measured (no template arguments in the "
+             "profiler's names)" if expert is None else
+             f"batched K1 {expert:.2f} ms ({expert / wall:.1%} of wall)")
+    log(f"profile {label}: wall {wall:.1f} ms, kernels {dev:.1f} ms, "
+        f"{busy}; {share}; copy kernels {casts:.2f} ms "
+        f"({casts / wall:.1%}); launches counted = kernels profiled "
+        f"{ {'+'.join(w): v[0] for w, v in seen.items()} }; top " + "; ".join(
+            f"{k} x{n} {t:.1f} ms" for k, n, t in res["top"]))
+    return res
+
+
 def profile_ticks(torch, model, params, cuda_graphs: bool = True):
     """A prefill tick (the first 64-token chunk of a 128-token prompt, no
     slot decoding) and a decode-only tick (one slot) under torch.profiler,
     on a warm process and, on the graph route, on graphs already captured
-    (a 2-token request drains first): for each, wall time, the device
-    time of its kernels, the device's busy share (kernel time / wall; one
-    stream, so kernels never overlap) and the kernels that take most of
-    it.  The port's kernels the profiler saw in each tick must number
-    the launches its counters gained (on the graph route, the launches
-    the capture recorded, which each replay adds): proof that a replay
-    ran them."""
+    (a 2-token request drains first), each through :func:`profiled`."""
     from repro_torch.serve.scheduler import ContinuousServeEngine
 
     engine = ContinuousServeEngine(model, params, n_slots=4, max_len=256,
@@ -1375,34 +1562,7 @@ def profile_ticks(torch, model, params, cuda_graphs: bool = True):
         if tick == "mixed":
             engine.step()
             continue
-        wall, kern, before, after = profiled_step(torch, engine)
-        # the counters' gain (on the graph route: the capture's record,
-        # added per replay) against the kernels the card ran
-        seen = {}
-        for wrappers, names in PROFILED_KERNELS.items():
-            pat = re.compile(r"(?<!\w)(%s)\b" % "|".join(names))
-            seen[wrappers] = (
-                sum(after[w] - before[w] for w in wrappers),
-                sum(e.count for e in kern if pat.search(e.key)))
-        if any(c != r for c, r in seen.values()) or not seen[
-                ("log_matmul",)][1]:
-            raise AssertionError(
-                f"profiled {route} {tick} tick: launches counted vs kernels "
-                f"the profiler saw: {seen}")
-        dev = sum(e.self_device_time_total for e in kern) / 1e3
-        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:3]
-        out[tick] = {"wall_ms": wall, "kernel_ms": dev,
-                     "busy": dev / wall if dev else None,
-                     "launches_vs_profiled": {
-                         "+".join(w): list(v) for w, v in seen.items()},
-                     "top": [(e.key[:70], e.count,
-                              e.self_device_time_total / 1e3) for e in top]}
-        busy = (f"busy {dev / wall:.1%}" if dev else
-                "device time not measured (the profiler saw no kernels)")
-        log(f"profile {route} {tick} tick: wall {wall:.1f} ms, kernels "
-            f"{dev:.1f} ms, {busy}; launches counted = kernels profiled "
-            f"{ {'+'.join(w): v[0] for w, v in seen.items()} }; top " + "; ".join(
-                f"{k} x{n} {t:.1f} ms" for k, n, t in out[tick]["top"]))
+        out[tick] = profiled(torch, f"{route} {tick} tick", engine.step)
     engine.cancel(rid)
     if engine.trace_counts != {"decode": 1, "prefill": 1}:
         raise AssertionError(f"profiled engine traced {engine.trace_counts}")
@@ -1645,131 +1805,16 @@ def long_prefill_phase(torch, dev, cfg, params):
             "launches": counts, "tokens": out, "blockwise_k5_vs_plain": diff}
 
 
-def starcoder2_phase(torch, dev):
-    """Full-width starcoder2_7b (32 layers, d_model 4608, 36 heads over 4
-    KV heads of 128, d_ff 18432, LN, the ungated gelu MLP; RAPID rapid10
-    / rapid9, f32 params from a seed, bf16 activations and KV) on the
-    graph route: the lockstep engine (4 requests of 96-128 prompt tokens,
-    8 greedy tokens, cache_n 256) and the continuous engine (the same 4
-    through 4 slots, page 16, chunk 64), each with its launches counted
-    from 0 and its peak memory; then a 2-layer full-width copy through
-    both engines at the same load, kernels (graph route) vs plain
-    (eager): the greedy tokens must agree."""
-    from repro_torch.configs.base import RAPID, get_config
+def kernels_vs_plain(torch, label: str, engines: dict, prompts,
+                     max_new: int) -> dict:
+    """Each engine of ``engines`` (path -> (make(graphs), the kernels it
+    must launch, those it must not)) on ``prompts``, through the kernels
+    (graph route) and through the plain versions (eager): the greedy
+    tokens must agree, the first run must launch the path's kernels and
+    the second none."""
     from repro_torch.kernels import plain_versions, reset_launch_counts
-    from repro_torch.models.model import Model
-    from repro_torch.serve.engine import ServeEngine
-    from repro_torch.serve.scheduler import ContinuousServeEngine
 
-    cfg = get_config("starcoder2_7b").with_(approx=RAPID)
-    model = Model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(0, dev)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in _leaves(params))
-    log(f"starcoder2: {cfg.n_layers} layers d_model={cfg.d_model} heads "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd} d_ff={cfg.d_ff} "
-        f"act={cfg.act} norm={cfg.norm}, params {n_params / 1e9:.3f}e9 f32 "
-        f"({n_params * 4 / 2**30:.2f} GiB, init "
-        f"{time.perf_counter() - t0:.1f}s)")
-    prompts = prompts_for(cfg.vocab_size)
-    max_new = 8
-    rec = {"params": n_params}
-
-    engine = ServeEngine(model, params, cache_n=256)
-    timed = TimedEngine(torch, engine)
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    out = engine.generate(prompts, max_new=max_new)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = counts_now()
-    dec = step_stats(timed.decode_s)
-    n_tok = sum(len(o) for o in out) - len(out)
-    rec["lockstep"] = {
-        "wall_s": wall, "prefill_ms": timed.prefill_s[0] * 1e3,
-        "decode": dec, "decode_tokens_per_s": n_tok / sum(timed.decode_s),
-        "decode_tokens_per_s_replays": (n_tok - len(out))
-        / sum(timed.decode_s[1:]),
-        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "launches": counts, "trace_counts": dict(engine.trace_counts),
-        "tokens": out}
-    r = rec["lockstep"]
-    log(f"starcoder2 lockstep: prompts {[len(p) for p in prompts]}, prefill "
-        f"{r['prefill_ms']:.1f} ms, decode {dec['n']} steps (the first, "
-        f"warm-up and capture, {dec['first_ms']:.1f} ms; the replays mean "
-        f"{dec['rest_mean_ms']:.2f} ms = "
-        f"{r['decode_tokens_per_s_replays']:.1f} tokens/s; all "
-        f"{r['decode_tokens_per_s']:.1f} tokens/s), wall {wall:.2f}s, peak "
-        f"{r['peak_gib']:.2f} GiB; traces {engine.trace_counts}; kernels "
-        f"{json.dumps(counts)}")
-    for i, o in enumerate(out):
-        log(f"sreq{i}: {o}")
-    if any(len(o) != max_new for o in out) or any(
-            not 0 <= t < cfg.padded_vocab for o in out for t in o):
-        raise AssertionError(f"starcoder2 lockstep tokens: {out}")
-    require_launches("starcoder2 lockstep", counts, LOCKSTEP_KERNELS)
-    if engine.trace_counts != {"decode": 1, "prefill": 1}:
-        raise AssertionError(f"starcoder2 lockstep traced "
-                             f"{engine.trace_counts}")
-    del engine, timed
-
-    engine = ContinuousServeEngine(model, params, n_slots=4, max_len=256,
-                                   page_size=16, prefill_chunk=64)
-    timed = TimedEngine(torch, engine)
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    cout, max_queued, ttft = drain(engine, prompts, max_new)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = counts_now()
-    pf = step_stats(timed.prefill_tick_s)
-    dc = step_stats(timed.decode_tick_s)
-    n_gen = sum(len(o) for o in cout)
-    rec["continuous"] = {
-        "wall_s": wall, "tokens_per_s": n_gen / wall, "ttft_s": ttft,
-        "prefill_tick": pf, "decode_tick": dc,
-        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "launches": counts, "trace_counts": dict(engine.trace_counts),
-        "tokens": cout}
-    r = rec["continuous"]
-    log(f"starcoder2 continuous: 4 slots, page 16, chunk 64; {pf['n']} "
-        f"prefill ticks (the first {pf['first_ms']:.1f} ms, the replays mean "
-        f"{pf['rest_mean_ms']:.1f}), {dc['n']} decode ticks (the first "
-        f"{dc['first_ms']:.1f} ms, the replays mean {dc['rest_mean_ms']:.2f})"
-        f"; first token after {ttft * 1e3:.1f} ms; {n_gen} tokens in "
-        f"{wall:.2f}s = {n_gen / wall:.2f} tokens/s; peak "
-        f"{r['peak_gib']:.2f} GiB; traces {engine.trace_counts}; kernels "
-        f"{json.dumps(counts)}")
-    if any(len(o) != max_new for o in cout) or any(
-            not 0 <= t < cfg.padded_vocab for o in cout for t in o):
-        raise AssertionError(f"starcoder2 continuous tokens: {cout}")
-    require_launches("starcoder2 continuous", counts, CONTINUOUS_KERNELS,
-                     ("softmax_div",))
-    if engine.trace_counts != {"decode": 1, "prefill": 1}:
-        raise AssertionError(f"starcoder2 continuous traced "
-                             f"{engine.trace_counts}")
-    if engine.alloc.n_free != engine.geom.usable_pages:
-        raise AssertionError("starcoder2 continuous: page leak")
-    del engine, timed
-
-    # the 2-layer full-width copy at the main path's load (the same 4
-    # prompts, 8 greedy tokens), kernels (graph route) vs plain (eager),
-    # through both engines as the main path runs them
-    cfg2 = cfg.with_(n_layers=2)
-    params2 = dict(params, blocks=params["blocks"][:2])
-    engines = {
-        "lockstep": (lambda graphs: ServeEngine(Model(cfg2), params2,
-                                                cache_n=256,
-                                                cuda_graphs=graphs),
-                     LOCKSTEP_KERNELS, ()),
-        "continuous": (lambda graphs: ContinuousServeEngine(
-                           Model(cfg2), params2, n_slots=4, max_len=256,
-                           page_size=16, prefill_chunk=64,
-                           cuda_graphs=graphs),
-                       CONTINUOUS_KERNELS, ("softmax_div",))}
+    rec = {}
     for path, (make, must, must_not) in engines.items():
         runs = {}
         for route in ("kernels", "plain"):
@@ -1789,25 +1834,311 @@ def starcoder2_phase(torch, dev):
             del eng2
         (k_tok, t_k, k_counts), (p_tok, t_p, p_counts) = (runs["kernels"],
                                                           runs["plain"])
-        require_launches(f"starcoder2 2-layer {path} kernel run", k_counts,
+        require_launches(f"{label} 2-layer {path} kernel run", k_counts,
                          must, must_not)
-        require_launches(f"starcoder2 2-layer {path} plain run", p_counts,
+        require_launches(f"{label} 2-layer {path} plain run", p_counts,
                          (), p_counts)
         agree = sum(a == b for x, y in zip(k_tok, p_tok)
                     for a, b in zip(x, y))
-        log(f"starcoder2 e2e 2-layer {path}: prompts "
+        log(f"{label} e2e 2-layer {path}: prompts "
             f"{[len(p) for p in prompts]}; kernels {t_k:.2f}s "
             f"{json.dumps(k_counts)}, plain {t_p:.2f}s; greedy tokens equal "
             f"{agree}/{sum(len(o) for o in p_tok)}")
         if k_tok != p_tok:
-            raise AssertionError(f"starcoder2 2-layer {path} greedy tokens "
+            raise AssertionError(f"{label} 2-layer {path} greedy tokens "
                                  f"differ:\n{k_tok}\n{p_tok}")
         rec[f"e2e_2layer_{path}"] = {"kernels_s": t_k, "plain_s": t_p,
                                      "launches": k_counts, "tokens": k_tok}
+    return rec
+
+
+def engine_makers(model, params) -> dict:
+    """The two engines as the full-width phases serve them, by path:
+    ``make(graphs)`` builds the lockstep engine (cache_n 256) or the
+    continuous one (4 slots, page 16, chunk 64) on the graph route
+    (``graphs`` true) or the eager one."""
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import ContinuousServeEngine
+
+    return {
+        "lockstep": lambda graphs: ServeEngine(model, params, cache_n=256,
+                                               cuda_graphs=graphs),
+        "continuous": lambda graphs: ContinuousServeEngine(
+            model, params, n_slots=4, max_len=256, page_size=16,
+            prefill_chunk=64, cuda_graphs=graphs)}
+
+
+def path_kernels(cfg, path: str):
+    """The kernels a serve path of ``cfg`` must launch, and those it must
+    not: K3 serves the lockstep prefill's attention, and in the
+    continuous engine only an MoE router's gates."""
+    if path == "lockstep":
+        return LOCKSTEP_KERNELS, ()
+    if cfg.n_experts:
+        return CONTINUOUS_KERNELS + ("softmax_div",), ()
+    return CONTINUOUS_KERNELS, ("softmax_div",)
+
+
+def serve_paths(torch, name: str, cfg, make: dict, prompts, max_new: int,
+                routes=("graph",), profile=None) -> dict:
+    """Each engine of ``make`` (path -> make(graphs), as
+    :func:`engine_makers`) serving ``prompts`` to ``max_new`` greedy
+    tokens on each of ``routes`` ("graph", the main path, then "eager"),
+    its launches counted from 0 and its peak memory read: every token
+    inside the vocabulary, ``trace_counts`` {"decode": 1, "prefill": 1},
+    the page free list whole after a continuous drain, the path's
+    kernels launched (:func:`path_kernels`), and the routes equal in
+    tokens and launch counts.  ``profile(path, engine)``, where given,
+    runs after the graph route's run.  Returns {path: {route: run}}."""
+    from repro_torch.kernels import reset_launch_counts
+
+    rec = {}
+    for path, mk in make.items():
+        runs = rec[path] = {}
+        for route in routes:
+            gc.collect()
+            torch.cuda.empty_cache()
+            engine = mk(route == "graph")
+            timed = TimedEngine(torch, engine)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            if path == "lockstep":
+                out, ttft = engine.generate(prompts, max_new=max_new), None
+                pf, dc = timed.prefill_s, timed.decode_s
+            else:
+                out, _, ttft = drain(engine, prompts, max_new)
+                pf, dc = timed.prefill_tick_s, timed.decode_tick_s
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_gen = sum(len(o) for o in out)
+            r = runs[route] = {
+                "wall_s": wall, "tokens_per_s": n_gen / wall,
+                "ttft_s": ttft, "prefill": step_stats(pf),
+                "decode": step_stats(dc),
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "launches": counts_now(),
+                "trace_counts": dict(engine.trace_counts), "tokens": out,
+                "steps": len(pf) + len(dc)}
+            log(f"{name} {path} {route}: prompts {[len(p) for p in prompts]}"
+                f", {len(pf)} prefill steps (the first {pf[0] * 1e3:.1f} ms, "
+                f"the rest mean {r['prefill']['rest_mean_ms']:.1f}), "
+                f"{len(dc)} decode steps (the first {dc[0] * 1e3:.1f} ms, the "
+                f"rest mean {r['decode']['rest_mean_ms']:.2f}); {n_gen} tokens"
+                f" in {wall:.2f}s = {n_gen / wall:.2f} tokens/s; peak "
+                f"{r['peak_gib']:.2f} GiB; traces {engine.trace_counts}; "
+                f"kernels {json.dumps(r['launches'])}")
+            if path == "continuous" and \
+                    engine.alloc.n_free != engine.geom.usable_pages:
+                raise AssertionError(f"{name} continuous: page leak")
+            if route == "graph" and profile is not None:
+                r["profile"] = profile(path, engine)
+            del engine, timed
+        first = runs[routes[0]]
+        for i, o in enumerate(first["tokens"]):
+            log(f"{name} {path} req{i}: {o}")
+        if any(len(o) != max_new for o in first["tokens"]) or any(
+                not 0 <= t < cfg.padded_vocab for o in first["tokens"]
+                for t in o):
+            raise AssertionError(f"{name} {path} tokens: {first['tokens']}")
+        for route, r in runs.items():
+            if r["trace_counts"] != {"decode": 1, "prefill": 1}:
+                raise AssertionError(f"{name} {path} {route} traced "
+                                     f"{r['trace_counts']}")
+            if r["tokens"] != first["tokens"] or \
+                    r["launches"] != first["launches"]:
+                raise AssertionError(
+                    f"{name} {path}: {routes[0]} vs {route} route, tokens "
+                    f"{first['tokens']} vs {r['tokens']}, launches "
+                    f"{first['launches']} vs {r['launches']}")
+        require_launches(f"{name} {path}", first["launches"],
+                         *path_kernels(cfg, path))
+    return rec
+
+
+def starcoder2_phase(torch, dev):
+    """Full-width starcoder2_7b (32 layers, d_model 4608, 36 heads over 4
+    KV heads of 128, d_ff 18432, LN, the ungated gelu MLP; RAPID rapid10
+    / rapid9, f32 params from a seed, bf16 activations and KV) on the
+    graph route through both engines (:func:`serve_paths`: 4 requests of
+    96-128 prompt tokens, 8 greedy tokens); then a 2-layer full-width
+    copy through both engines at the same load, kernels (graph route) vs
+    plain (eager): the greedy tokens must agree."""
+    from repro_torch.configs.base import RAPID, get_config
+    from repro_torch.models.model import Model
+
+    cfg = get_config("starcoder2_7b").with_(approx=RAPID)
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"starcoder2: {cfg.n_layers} layers d_model={cfg.d_model} heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd} d_ff={cfg.d_ff} "
+        f"act={cfg.act} norm={cfg.norm}, params {n_params / 1e9:.3f}e9 f32 "
+        f"({n_params * 4 / 2**30:.2f} GiB, init "
+        f"{time.perf_counter() - t0:.1f}s)")
+    prompts = prompts_for(cfg.vocab_size)
+    max_new = 8
+    rec = {"params": n_params}
+    rec.update(serve_paths(torch, "starcoder2", cfg,
+                           engine_makers(model, params), prompts, max_new))
+
+    # the 2-layer full-width copy at the main path's load (the same 4
+    # prompts, 8 greedy tokens), kernels (graph route) vs plain (eager),
+    # through both engines as the main path runs them
+    cfg2 = cfg.with_(n_layers=2)
+    params2 = dict(params, blocks=params["blocks"][:2])
+    make2 = engine_makers(Model(cfg2), params2)
+    rec.update(kernels_vs_plain(torch, "starcoder2", {
+        p: (mk, *path_kernels(cfg2, p)) for p, mk in make2.items()},
+        prompts, max_new))
     rec["e2e_2layer_equal"] = True
-    del params, params2
+    del params, params2, make2
     torch.cuda.empty_cache()
     return rec
+
+
+def moe_phase(torch, dev, arch: str, plain_paths=("lockstep",)):
+    """Full-width MoE serving, the depth cut to MOE_LAYERS layers (RAPID
+    rapid10 / rapid9, f32 params from a seed, bf16 activations and KV):
+    both engines (:func:`serve_paths`: 4 requests of 96-128 prompt
+    tokens, 8 greedy tokens) on the graph route (the main path) and then
+    on the eager route.  K1 must launch as many times as the model's
+    steps call it (the attention projections and the experts' three
+    batched contractions, with the shared expert's three where the
+    config has one), the router's softmax divide once a layer a step.
+    On graphs, one lockstep decode step (a replay) and prefill, and one
+    continuous prefill and decode tick, run under torch.profiler
+    (:func:`profiled`: busy share, batched K1 and the casts).  Then a
+    2-layer full-width copy, kernels (graph route) vs plain (eager)
+    through the engines of ``plain_paths`` at the same load (equal
+    greedy tokens), and one MoE layer on the card kernels vs plain at
+    the lockstep prefill's 4 x 128 tokens and a decode step's 4: the
+    same bits."""
+    from repro_torch.configs.base import RAPID, get_config
+    from repro_torch.kernels import plain_versions, reset_launch_counts
+    from repro_torch.models.model import Model
+    from repro_torch.models.moe import capacity, moe_ffn
+
+    full = get_config(arch)
+    cfg = full.with_(approx=RAPID, n_layers=MOE_LAYERS)
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    name = arch.split("_")[0]
+    caps = {m: capacity(m, cfg) for m in (DECODE_M, CHUNK_M, PREFILL_M)}
+    log(f"{name}: {cfg.n_layers} of {full.n_layers} layers, d_model="
+        f"{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd}, "
+        f"{cfg.n_experts} experts top-{cfg.experts_per_token} of d_ff "
+        f"{cfg.d_ff}, shared expert {cfg.shared_expert}, capacity "
+        f"{caps} (tokens: slots), params {n_params / 1e9:.3f}e9 f32 "
+        f"({n_params * 4 / 2**30:.2f} GiB, init "
+        f"{time.perf_counter() - t0:.1f}s)")
+    prompts = prompts_for(cfg.vocab_size)
+    max_new = 8
+    # K1 launches a layer a step: wq, wk, wv, wo, the experts' w1, w3,
+    # w2, and the shared expert's
+    k1_a_layer = 7 + 3 * cfg.shared_expert
+
+    def profile(path, engine):
+        if path == "lockstep":
+            return profile_lockstep(torch, name, engine, model, params,
+                                    prompts)
+        return profile_ticks(torch, model, params)
+
+    rec = {"params": n_params, "layers": cfg.n_layers,
+           "full_layers": full.n_layers, "capacity": caps}
+    runs = serve_paths(torch, name, cfg, engine_makers(model, params),
+                       prompts, max_new, ("graph", "eager"), profile)
+    for path, r in runs.items():
+        g, e = r["graph"], r["eager"]
+        counts = g["launches"]
+        # every step calls K1 k1_a_layer times a layer (the experts'
+        # batched contractions among them) and the router's divide once
+        steps = g["steps"] * cfg.n_layers
+        gates = counts["softmax_div"] - (cfg.n_layers if path == "lockstep"
+                                         else 0)  # + prefill attention
+        if counts["log_matmul"] != steps * k1_a_layer or gates != steps:
+            raise AssertionError(
+                f"{name} {path}: {g['steps']} steps of {cfg.n_layers} layers "
+                f"launched K1 {counts['log_matmul']} times (expected "
+                f"{steps * k1_a_layer}) and the router's divide {gates} "
+                f"(expected {steps})")
+        log(f"{name} {path} graph vs eager: decode step "
+            f"{g['decode']['rest_mean_ms']:.2f} vs "
+            f"{e['decode']['rest_mean_ms']:.2f} ms, prefill "
+            f"{g['prefill']['rest_mean_ms']:.1f} vs "
+            f"{e['prefill']['rest_mean_ms']:.1f} ms; tokens and launches "
+            f"equal (K1 {counts['log_matmul']} = {g['steps']} steps x "
+            f"{cfg.n_layers} layers x {k1_a_layer}), trace_counts "
+            f"{g['trace_counts']}")
+    rec.update(runs)
+
+    # the 2-layer full-width copy at the main path's load, kernels vs plain
+    cfg2 = cfg.with_(n_layers=2)
+    params2 = dict(params, blocks=params["blocks"][:2])
+    make2 = engine_makers(Model(cfg2), params2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec.update(kernels_vs_plain(torch, name, {
+        p: (make2[p], *path_kernels(cfg2, p)) for p in plain_paths},
+        prompts, max_new))
+
+    # one MoE layer, kernels vs plain on the card: bit-equal (every
+    # kernel is, and the combine is a fixed-order sum)
+    g = torch.Generator(device=dev).manual_seed(7)
+    layer = params["blocks"][0]["ffn"]
+    rec["layer_bits"] = {}
+    for label, (b, s) in (("lockstep prefill", (4, 128)),
+                          ("decode", (DECODE_M, 1))):
+        x = torch.randn((b, s, cfg.d_model), generator=g,
+                        device=dev).to(torch.bfloat16)
+        reset_launch_counts()
+        got = moe_ffn(x, layer, cfg)
+        k_counts = counts_now()
+        with plain_versions():
+            ref = moe_ffn(x, layer, cfg)
+        torch.cuda.synchronize()
+        ok = same_bits(got.float(), ref.float())
+        log(f"{name} MoE layer kernels vs plain at {label} ({b} x {s} "
+            f"tokens, capacity {capacity(b * s, cfg)}): bit-equal {ok}, max "
+            f"abs {abs_max(got, ref)!r}; kernels {json.dumps(k_counts)}")
+        require_launches(f"{name} MoE layer {label}", k_counts,
+                         ("log_matmul", "softmax_div"))
+        if not ok or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name} MoE layer at {label}: kernels and "
+                                 "plain differ, or not finite")
+        rec["layer_bits"][label] = True
+    rec["e2e_2layer_equal"] = True
+    del params, params2, make2, layer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def profile_lockstep(torch, name, engine, model, params, prompts):
+    """After a run on the graph route: the lockstep engine's decode step
+    (a replay of its captured graph) and its prefill of ``prompts``
+    (eager, as the engine runs it), each through :func:`profiled`."""
+    toks = np.zeros((len(prompts), max(map(len, prompts))), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, toks.shape[1] - len(p):] = p
+    toks = torch.from_numpy(toks).to(engine.device)
+    nxt = torch.zeros(len(prompts), dtype=torch.int32)
+
+    def decode():  # the key is captured: the step replays, fn is unused
+        engine._decode(None, nxt, key=engine.cache_n)
+
+    def prefill():
+        with torch.inference_mode():
+            model.prefill(params, {"tokens": toks}, engine.cache_n)
+
+    return {"decode": profiled(torch, f"{name} lockstep decode step "
+                                      "(graph replay)", decode),
+            "prefill": profiled(torch, f"{name} lockstep prefill", prefill)}
 
 
 # --------------------------------------------------------------------------
@@ -2071,8 +2402,10 @@ def depth_ab_phase(torch, cfg, params):
     in its decode regime; the replays, not the capture), the lockstep
     prefill (4 x 128 tokens) and the continuous prefill tick (64-token
     chunks; K1's chunk regime; the two replays of three ticks); then
-    ``launch/k1_times.py`` at depth 1 and 2 in turns (1, 2, 2, 1), one
-    process each.  Information: nothing here fails on a time."""
+    ``launch/k1_times.py`` at depths 1, 2 and 3 in turns (1, 2, 3, 3, 2,
+    1) shape by shape, one process at the dense paths' shapes and one at
+    the MoE experts' (``--moe``).  Information: nothing here fails on a
+    time."""
     from repro_torch.kernels.spec import deferred_depth
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import ServeEngine
@@ -2115,9 +2448,8 @@ def depth_ab_phase(torch, cfg, params):
             f"{out['depth2'][f'{key}_ms']:.2f} ms "
             f"({out['depth2'][f'{key}_ms'] / base - 1:+.1%})")
 
-    k1 = []
-    for depth in (1, 2, 3, 3, 2, 1):
-        k1 += k1_times(["--depth", str(depth)])
+    depths = ["--depth", *map(str, (1, 2, 3, 3, 2, 1))]
+    k1 = k1_times(depths) + k1_times(["--moe", *depths])
     for site in sorted({(r["site"], r["M"]) for r in k1}):
         by = {d: [r["ms"] for r in k1 if (r["site"], r["M"]) == site
                   and r["depth"] == d] for d in (1, 2, 3)}
@@ -2188,6 +2520,28 @@ def parent_src():
     return dest / "src", full
 
 
+def share_builds(src) -> list:
+    """Lend this tree's kernel libraries to the tree under ``src``: a
+    library is named by the hash of its sources and flags
+    (``kernels/_build.py``), so one the other tree would build under the
+    same name is this one, and it need not run nvcc for it.  Returns the
+    names lent."""
+    from repro_torch.kernels import _build
+
+    dest = Path(src).parent / "build" / "repro_torch"
+    dest.mkdir(parents=True, exist_ok=True)
+    lent = []
+    for so in sorted(_build.BUILD_DIR.glob("*.so")):
+        if ".tmp" in so.name or (dest / so.name).exists():
+            continue
+        try:
+            os.link(so, dest / so.name)
+        except OSError:
+            shutil.copy2(so, dest / so.name)
+        lent.append(so.name)
+    return lent
+
+
 def parent_ab():
     """K1, K4, the dividers and K9/K10 before and after on this card:
     ``k1_times.py`` at each tree's default stage counts, ``k4_times.py``
@@ -2205,7 +2559,8 @@ def parent_ab():
     if src is None:
         log(f"parent A/B: not run -- {parent}")
         return {"parent": None, "why": parent, "runs": []}
-    log(f"parent A/B: parent {parent}")
+    log(f"parent A/B: parent {parent}; kernel libraries shared with this "
+        f"tree: {share_builds(src)}")
     runs = []
     for kernel, script, key in (("K1", "k1_times.py", ("site", "M")),
                                 ("K4", "k4_times.py", ("shape", "C")),
@@ -2432,6 +2787,13 @@ def main() -> int:
     from repro_torch.launch.kernel_timing import card_line
 
     t_start = time.perf_counter()
+    laps = {}
+
+    def lap(name):  # each phase's seconds, logged and recorded
+        laps[name] = time.perf_counter() - t_start - sum(laps.values())
+        log(f"phase {name}: {laps[name]:.1f}s (at "
+            f"{time.perf_counter() - t_start:.1f}s)")
+
     dev = resolve_device("cuda")
     card = card_line()
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -2448,26 +2810,42 @@ def main() -> int:
                 log(f"  {ptxas[-1]}")
     sass = lean_loop_sass(_build)
     sass["int_units"] = int_unit_sass(_build)
+    lap("build")
 
     card_tests()
+    lap("card_tests")
     timer = Timer(torch, dev)
     cases = kernel_phase(torch, dev, timer)
+    lap("kernels")
     cfg, params, serve = serve_phase(torch, dev)
+    lap("lockstep")
     cont = continuous_phase(torch, cfg, params, serve["tokens"])
+    lap("continuous")
     long_ = long_prefill_phase(torch, dev, cfg, params)
+    lap("long_prefill")
     ab = depth_ab_phase(torch, cfg, params)
+    lap("depth_and_parent_ab")
     del params
     # the timed engines sit in reference cycles: collect them, and the
     # graphs' memory pools they hold, before the next phases allocate
     gc.collect()
     torch.cuda.empty_cache()
     sc2 = starcoder2_phase(torch, dev)
+    lap("starcoder2")
     gc.collect()
     torch.cuda.empty_cache()
+    # qwen3 kernels vs plain through both engines, llama4 through the
+    # lockstep engine
+    moe = {arch: moe_phase(torch, dev, arch, paths) for arch, paths in zip(
+        MOE_ARCHS, (("lockstep", "continuous"), ("lockstep",)))}
+    lap("moe")
     ints = integer_units_phase(torch, dev, ab["parent_ab"].get("table3"))
+    lap("integer_units")
     apps = apps_phase(torch, dev)
+    lap("apps")
     tcfg, tparams, train = train_phase(torch, dev)
     train_check = train_check_phase(torch, tcfg, tparams)
+    lap("train")
     del tparams
     torch.cuda.empty_cache()
 
@@ -2507,9 +2885,14 @@ def main() -> int:
                    for path, runs in (("lockstep", serve),
                                       ("continuous", cont),
                                       ("starcoder2_lockstep",
-                                       sc2["lockstep"]),
+                                       sc2["lockstep"]["graph"]),
                                       ("starcoder2_continuous",
-                                       sc2["continuous"]),
+                                       sc2["continuous"]["graph"]),
+                                      *((f"{arch.split('_')[0]}_{path}",
+                                         moe[arch][path]["graph"])
+                                        for arch in MOE_ARCHS
+                                        for path in ("lockstep",
+                                                     "continuous")),
                                       ("integer_units", ints),
                                       ("apps", apps), ("train", train))}
         row = {
@@ -2527,9 +2910,10 @@ def main() -> int:
     record = {"card": card, "ptxas": ptxas, "sass": sass,
               "cases": cases, "serve": serve,
               "continuous": cont, "long_prefill": long_, "depth_ab": ab,
-              "starcoder2": sc2,
+              "starcoder2": sc2, "moe": moe,
               "integer_units": ints, "apps": apps, "train": train,
               "train_2layer": train_check, "kernels": kernels,
+              "phase_seconds": laps,
               "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,11 +1,11 @@
 """Config system of the port: model and approximation configs.
 
-Mirrors ``repro.configs.base`` for the dense serve and train paths.  ``ApproxConfig``
-keeps the reference's ``mul``/``div``/``on_*`` semantics but drops its
-per-site ``backends`` map and the ``RAPID_BACKEND`` environment
-variable: the port has one dispatch path, and the device of the tensor
-decides it (a CPU tensor takes each kernel's plain PyTorch version, a
-CUDA tensor launches the kernel).
+Mirrors ``repro.configs.base`` for the dense and MoE serve and train
+paths.  ``ApproxConfig`` keeps the reference's ``mul``/``div``/``on_*``
+semantics but drops its per-site ``backends`` map and the
+``RAPID_BACKEND`` environment variable: the port has one dispatch path,
+and the device of the tensor decides it (a CPU tensor takes each
+kernel's plain PyTorch version, a CUDA tensor launches the kernel).
 """
 from __future__ import annotations
 
@@ -17,8 +17,9 @@ from typing import Optional
 __all__ = ["ARCH_IDS", "ApproxConfig", "ModelConfig", "EXACT", "RAPID",
            "get_config"]
 
-# the architectures the port has (dense family only)
-ARCH_IDS = ("h2o_danube_1_8b", "yi_6b", "minicpm_2b", "starcoder2_7b")
+# the architectures the port has (the dense and MoE families)
+ARCH_IDS = ("h2o_danube_1_8b", "yi_6b", "minicpm_2b", "starcoder2_7b",
+            "qwen3_moe_235b_a22b", "llama4_scout_17b_a16e")
 
 
 @dataclass(frozen=True)
@@ -58,7 +59,7 @@ RAPID = ApproxConfig(mul_scheme="rapid10", div_scheme="rapid9")
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense (the only family this slice ports)
+    family: str  # dense | moe (the families the port has)
     n_layers: int
     d_model: int
     n_heads: int
@@ -72,6 +73,11 @@ class ModelConfig:
     rope_theta: float = 10000.0
     sliding_window: int = 0  # 0 = full attention
     tie_embeddings: bool = False
+    # MoE (Jamba's moe_every comes with the hybrid family)
+    n_experts: int = 0
+    experts_per_token: int = 0
+    shared_expert: bool = False  # llama4-style always-on expert
+    capacity_factor: float = 1.25
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
     approx: ApproxConfig = field(default_factory=ApproxConfig)
@@ -103,6 +109,9 @@ class ModelConfig:
             vocab_size=512,
             head_dim=32,
             sliding_window=min(self.sliding_window, 16) if self.sliding_window else 0,
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            experts_per_token=min(self.experts_per_token, 2)
+            if self.experts_per_token else 0,
             remat="none",
         )
 

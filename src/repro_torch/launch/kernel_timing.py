@@ -58,3 +58,15 @@ def graph_ms(torch, fn, calls: int, reps: int = 1) -> float:
     b.synchronize()
     del graph
     return a.elapsed_time(b) / (calls * reps)
+
+
+def empty_slots(torch, experts: int, cap: int, pairs: int, device):
+    """The empty slots of an ``[experts, cap]`` MoE capacity buffer that
+    holds ``pairs`` token-expert pairs routed evenly (those past the
+    buffer dropped): each expert's slots fill from 0
+    (``models/moe.py``), so an expert's empty ones are its last.  A
+    boolean ``[experts, cap]`` mask."""
+    pairs = min(pairs, experts * cap)
+    fill = pairs // experts + (torch.arange(experts, device=device)
+                               < pairs % experts)
+    return torch.arange(cap, device=device)[None, :] >= fill[:, None]

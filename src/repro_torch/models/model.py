@@ -1,6 +1,6 @@
-"""Model API of the port, dense decoder family.
+"""Model API of the port, the decoder families dense and moe.
 
-The port of the dense path of ``repro.models.model.Model``:
+The port of the dense and MoE paths of ``repro.models.model.Model``:
 
   * ``param_specs()`` / ``init(seed, device)`` -- one source of truth for
     shapes and init (models/params.py);
@@ -25,7 +25,9 @@ nothing back to the host, so an engine can capture it in a CUDA graph
 The dense family's two block kinds: rms norms with the silu-gated MLP
 (h2o_danube_1_8b, minicpm_2b, yi_6b), and LN (scale and bias) with the
 ungated gelu MLP (starcoder2_7b); ``cfg.norm`` picks the norm of every
-block and of the final norm, ``cfg.act`` the MLP.
+block and of the final norm, ``cfg.act`` the MLP.  The moe family
+(qwen3_moe_235b_a22b, llama4_scout_17b_a16e) has rms blocks whose FFN is
+the single-device MoE layer (``models/moe.py``) on every layer.
 """
 from __future__ import annotations
 
@@ -48,15 +50,17 @@ from repro_torch.models.transformer import (attn_cache_specs, block_apply,
 __all__ = ["Model"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_FAMILIES = ("dense", "moe")
 _ACTS = ("silu", "gelu")
 _NORMS = ("rms", "ln")
 
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "dense":
+        if cfg.family not in _FAMILIES:
             raise NotImplementedError(
-                f"the port serves the dense family; {cfg.name} is {cfg.family}")
+                f"the port has the families {_FAMILIES}; {cfg.name} is "
+                f"{cfg.family}")
         # the dense blocks the port has: rms or LN, the silu-gated or the
         # ungated gelu MLP; anything else would build another model than
         # the reference's

@@ -1,7 +1,11 @@
-"""Decoder transformer block (dense FFN) and its KV-cache decode steps.
+"""Decoder transformer block (dense or MoE FFN) and its KV-cache decode
+steps.
 
-The port of the dense parts of ``repro.models.transformer``.  Every
-function reads the block's norm ("rms" or "ln") from ``cfg.norm``.
+The port of the decoder parts of ``repro.models.transformer``.  Every
+function reads the block's norm ("rms" or "ln") from ``cfg.norm``, and
+its FFN from ``cfg.n_experts``: the MLP, or with experts the MoE FFN
+(:func:`repro_torch.models.moe.moe_ffn`), whose output the residual is
+added to after it (the dense MLP adds it in w2's epilogue).
 Prefill of an rms block always fuses ln2's divide into the
 attention-out matmul's epilogue (``rms_div(wo_out + residual)``, keeping
 the pre-norm residual stream): the reference fuses it whenever the norm
@@ -21,6 +25,7 @@ from repro_torch.models.layers import (_MAXI32, apply_norm, attention,
                                        chunk_cache_attention,
                                        decode_attention, dense, mlp,
                                        mlp_params, norm_params, rope)
+from repro_torch.models.moe import moe_ffn, moe_params
 from repro_torch.models.params import P
 
 __all__ = ["block_params", "block_apply", "block_decode",
@@ -33,8 +38,14 @@ def block_params(cfg: ModelConfig) -> dict:
         "ln1": norm_params(cfg),
         "attn": attention_params(cfg),
         "ln2": norm_params(cfg),
-        "ffn": mlp_params(cfg),
+        "ffn": moe_params(cfg) if cfg.n_experts > 0 else mlp_params(cfg),
     }
+
+
+def _ffn(x, p, cfg: ModelConfig, residual):
+    if cfg.n_experts > 0:
+        return residual + moe_ffn(x, p["ffn"], cfg)
+    return mlp(x, p["ffn"], cfg, residual=residual)
 
 
 def block_apply(x, p, cfg: ModelConfig, positions):
@@ -48,7 +59,7 @@ def block_apply(x, p, cfg: ModelConfig, positions):
     else:
         y = h
         ffn_in = apply_norm(y, p["ln2"], cfg)
-    return mlp(ffn_in, p["ffn"], cfg, residual=y), (k, v)
+    return _ffn(ffn_in, p, cfg, residual=y), (k, v)
 
 
 def cache_len(cfg: ModelConfig, seq_len: int) -> int:
@@ -132,7 +143,7 @@ def block_decode_paged(x, p, cache, page_table, positions, valid, kv_len,
                                          cfg.sliding_window, acfg)
     x = dense(attn_out, p["attn"]["wo"], acfg, "attn_proj", residual=x)
     h2 = apply_norm(x, p["ln2"], cfg)
-    return mlp(h2, p["ffn"], cfg, residual=x), cache
+    return _ffn(h2, p, cfg, residual=x), cache
 
 
 def ring_slot(pos: torch.Tensor, c: int) -> torch.Tensor:
@@ -174,5 +185,5 @@ def block_decode(x, p, cache, slot_positions, pos: torch.Tensor,
     x = dense(attn_out[:, None], p["attn"]["wo"], acfg, "attn_proj",
               residual=x[:, None])[:, 0]
     h2 = apply_norm(x[:, None], p["ln2"], cfg)
-    x = mlp(h2, p["ffn"], cfg, residual=x[:, None])[:, 0]
+    x = _ffn(h2, p, cfg, residual=x[:, None])[:, 0]
     return x, cache

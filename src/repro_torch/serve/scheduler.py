@@ -106,10 +106,10 @@ class ContinuousServeEngine:
                  n_pages: Optional[int] = None, prefill_chunk: int = 16,
                  temperature: float = 0.0, seed: int = 0,
                  cuda_graphs: bool = True):
-        if model.cfg.family != "dense":
+        if model.cfg.family not in ("dense", "moe"):
             raise ValueError(
                 "continuous batching serves decoder-only text families "
-                f"(the port has dense); got {model.cfg.family!r}")
+                f"(dense/moe); got {model.cfg.family!r}")
         self.model = model
         self.params = params
         self.n_slots = n_slots

@@ -1094,6 +1094,13 @@ _ROW_CASES = [
     (2000, 256, None), (2000, 512, None), (40, 256, None),
     # more than 8 slabs a block at every op: one-row slabs past eight waves
     (12000, 20, 1), (9000, 512, 1),
+    # the MoE paths': the router's gate rows (top-8 of qwen3_moe_235b_a22b,
+    # top-1 of llama4_scout_17b_a16e) of a decode step, a continuous
+    # prefill tick and the lockstep prefill, the norms of their 4096- and
+    # 5120-wide rows, and qwen3's 64-token combine (64 heads of 128)
+    (4, 8, None), (64, 8, None), (512, 8, None), (4, 1, None),
+    (512, 1, None), (4, 4096, None), (512, 4096, None), (64, 5120, None),
+    (4096, 128, None),
 ]
 
 
@@ -1116,13 +1123,14 @@ def test_cuda_row_dividers_depths_bit_exact(cuda, depth, rows, n, bm,
     spec = KernelSpec(bm=bm, pipeline=PipelineSpec(depth=depth))
     rng = np.random.default_rng(rows + n + depth)
     x = T(randn(rng, rows, n, scale=2.0)).to(cuda)
-    x.view(-1)[:18] = T(special_sample(rng, 18)).to(cuda)
+    n_sp = min(18, x.numel())
+    x.view(-1)[:n_sp] = T(special_sample(rng, 18)[:n_sp]).to(cuda)
     got, den = fused_rms_div(x, 1e-6, scheme, return_denom=True, spec=spec)
     ref, rden = rms_div_plain(x, 1e-6, scheme, return_denom=True)
     assert_same_bits(den.cpu().numpy(), rden.cpu().numpy())
     assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
     e = torch.exp(x.clamp(-30, 30))
-    e.view(-1)[:18] = x.view(-1)[:18]
+    e.view(-1)[:n_sp] = x.view(-1)[:n_sp]
     if rows > 1:
         e[-1] = -0.0
     srefs = {}
@@ -1437,7 +1445,9 @@ def test_cuda_log_matmul_gelu_within_bound(cuda, m, k, n, depth, with_bias):
 # --------------------------------------------------------------------------
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["h2o_danube_1_8b", "starcoder2_7b"])
+@pytest.mark.parametrize("arch", ["h2o_danube_1_8b", "starcoder2_7b",
+                                  "qwen3_moe_235b_a22b",
+                                  "llama4_scout_17b_a16e"])
 def test_cuda_graph_engines_equal_eager(cuda, arch):
     """Both engines on a reduced RAPID model, graph route against eager
     route: equal greedy tokens, equal launch counts by wrapper and depth
@@ -1563,8 +1573,16 @@ def test_cuda_flash_decode_starcoder2_shapes(cuda, shape, scheme):
     queries (G = 9), bf16 caches; the lockstep step (144 slots, 136
     live) and the continuous tick's 256-slot views (kv_len 131 / 98 /
     201 / 0)."""
-    qf, kc, vc, sp = _flash_rows(43, 4, 144 if shape == "lockstep" else 256,
-                                 KV=4, G=9, hd=128)
+    _decode_shape_bits(cuda, 43, 144, 4, 9, shape, scheme)
+
+
+def _decode_shape_bits(cuda, seed, C, KV, G, shape, scheme):
+    """K4 against its plain version, bit for bit, on bf16 caches with
+    heads of 128: the lockstep step (``C`` slots, 136 live) or the
+    continuous tick's 256-slot views (kv_len 131 / 98 / 201 / 0, the
+    inactive slot's output 0)."""
+    qf, kc, vc, sp = _flash_rows(seed, 4, C if shape == "lockstep" else 256,
+                                 KV=KV, G=G, hd=128)
     if shape == "lockstep":
         sp[:, 136:] = 2**31 - 1
         pos = 135
@@ -1576,3 +1594,143 @@ def test_cuda_flash_decode_starcoder2_shapes(cuda, shape, scheme):
     got = flash_decode_attn(*args, pos, 0, scheme)
     ref = flash_decode_plain(*args, pos, 0, scheme)
     assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
+    if shape == "paged":
+        assert not got[3].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("KV,G", [(4, 16), (8, 5)])  # qwen3_moe, llama4
+@pytest.mark.parametrize("shape", ["lockstep", "paged"])
+@pytest.mark.parametrize("scheme", ["rapid9", None])
+def test_cuda_flash_decode_moe_shapes(cuda, KV, G, shape, scheme):
+    """K4 at the MoE configs' decode shapes, head_dim 128, bf16 caches,
+    full attention: qwen3_moe_235b_a22b's 4 kv heads of 16 queries (K4's
+    widest group) and llama4_scout_17b_a16e's 8 of 5; the lockstep step
+    (cache_n 256, 136 live) and the continuous tick's 256-slot views
+    (kv_len 131 / 98 / 201 / 0)."""
+    _decode_shape_bits(cuda, 47 + G, 256, KV, G, shape, scheme)
+
+
+# --------------------------------------------------------------------------
+# the MoE layer (models/moe.py): batched K1 at expert shapes, the router
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [1, 5, 40])  # decode / chunk regimes
+@pytest.mark.parametrize("site", ["w1", "w3", "w2"])
+def test_cuda_expert_matmuls_bit_exact(cuda, cap, site):
+    """The experts' three contractions as ``_expert_compute`` makes them
+    (bf16 buffer and expert stack, w1 with silu in the epilogue) at an
+    expert-like shape, 16 experts of 512 x 192: batched K1 against its
+    plain version on the card, in one launch."""
+    from repro_torch.core.ops import qmatmul_batched
+    from repro_torch.kernels import launch_counts, plain_versions
+    rng = np.random.default_rng(cap + len(site))
+    D, F = 512, 192
+    k, n = (F, D) if site == "w2" else (D, F)
+    buf = T(randn(rng, 16, cap, k)).to(cuda, torch.bfloat16)
+    w = T(randn(rng, 16, k, n, scale=0.25)).to(cuda).to(torch.bfloat16)
+    act = "silu" if site == "w1" else None
+    before = launch_counts()["log_matmul"]
+    got = qmatmul_batched(buf, w, "rapid10", activation=act)
+    assert launch_counts()["log_matmul"] == before + 1
+    with plain_versions():
+        ref = qmatmul_batched(buf, w, "rapid10", activation=act)
+    assert got.dtype == torch.bfloat16 and got.shape == (16, cap, n)
+    assert_same_bits(got.float().cpu().numpy(), ref.float().cpu().numpy())
+
+
+def _moe_layer(cuda, arch, **over):
+    from repro_torch.configs.base import RAPID, get_config
+    from repro_torch.models.moe import moe_params
+    from repro_torch.models.params import materialize
+    cfg = get_config(arch).reduced().with_(approx=RAPID, **over)
+    return cfg, materialize(moe_params(cfg), 0, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b",
+                                  "llama4_scout_17b_a16e"])
+@pytest.mark.parametrize("tokens", [(4, 1), (1, 64), (4, 24)])
+def test_cuda_moe_ffn_same_bits_twice_and_as_plain(cuda, arch, tokens):
+    """``moe_ffn`` on the card (bf16 tokens, RAPID): the same bits on a
+    second run, and the same bits as with every kernel swapped for its
+    plain version (the combine is a fixed-order sum, not a scatter-add);
+    K1 and the router's softmax divide launch."""
+    from repro_torch.kernels import (launch_counts, plain_versions,
+                                     reset_launch_counts)
+    from repro_torch.models.moe import moe_ffn
+    cfg, p = _moe_layer(cuda, arch)
+    B, S = tokens
+    x = T(randn(np.random.default_rng(B * S), B, S, cfg.d_model)).to(
+        cuda, torch.bfloat16)
+    reset_launch_counts()
+    first = moe_ffn(x, p, cfg)
+    counts = launch_counts()
+    assert counts["log_matmul"] >= 3 and counts["softmax_div"] == 1
+    again = moe_ffn(x, p, cfg)
+    with plain_versions():
+        plain = moe_ffn(x, p, cfg)
+    assert first.shape == x.shape and first.dtype == torch.bfloat16
+    assert bool(torch.isfinite(first).all())
+    assert_same_bits(again.float().cpu().numpy(), first.float().cpu().numpy())
+    assert_same_bits(plain.float().cpu().numpy(), first.float().cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_cuda_tied_router_picks_the_lower_experts(cuda):
+    """Tied router logits on the card: top-k takes the lower expert ids
+    (``jax.lax.top_k``'s rule), the ids the CPU picks; a layer whose
+    experts 1-3 share one router column routes every token to experts 1
+    and 2, and gives the same bits twice."""
+    from repro_torch.models import moe
+    logits = torch.tensor([[0.5, 0.7, 0.7, 0.7]], device=cuda)
+    assert moe._top_k(logits, 2)[1].tolist() == [[1, 2]]
+    many = T(np.random.default_rng(0).integers(0, 3, (512, 128)).astype(
+        np.float32))
+    for k in (1, 8):
+        np.testing.assert_array_equal(moe._top_k(many.to(cuda), k)[1].cpu(),
+                                      moe._top_k(many, k)[1])
+    cfg, p = _moe_layer(cuda, "qwen3_moe_235b_a22b")
+    p["router"][:, 2] = p["router"][:, 3] = p["router"][:, 1]
+    p["router"][:, 0] -= 1.0  # expert 0 below the tied three
+    x = T(np.abs(randn(np.random.default_rng(2), 2, 8, cfg.d_model))).to(
+        cuda)
+    ids = moe._top_k(x.reshape(16, -1) @ p["router"], 2)[1]
+    assert (ids.cpu() == torch.tensor([1, 2])).all()
+    a, b = moe.moe_ffn(x, p, cfg), moe.moe_ffn(x, p, cfg)
+    assert_same_bits(a.cpu().numpy(), b.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b",
+                                  "llama4_scout_17b_a16e"])
+def test_cuda_captured_moe_decode_step_replays_eager_bits(cuda, arch):
+    """A reduced MoE model's decode step captured in a CUDA graph: each
+    replay gives the logits and cache bits of the eager step on a copy
+    of the same cache, over three steps (routing, capacity drops and the
+    combine inside the graph)."""
+    import copy
+
+    from repro_torch.configs.base import RAPID, get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve.compiled import CompiledStep
+
+    model = Model(get_config(arch).reduced().with_(approx=RAPID))
+    params = model.init(0, cuda)
+    toks = torch.tensor(np.random.default_rng(5).integers(
+        0, 512, (4, 7)), dtype=torch.int32, device=cuda)
+    _, cache = model.prefill(params, {"tokens": toks}, 32)
+    eager = copy.deepcopy(cache)
+    step = CompiledStep("decode", {"decode": 0}, cuda)
+    nt = torch.tensor([3, 1, 4, 1], dtype=torch.int32)
+    with torch.inference_mode():
+        for _ in range(3):
+            got = step(lambda t: model.decode_step(params, t, cache)[0],
+                       nt).clone()
+            want = model.decode_step(params, nt.to(cuda), eager)[0]
+            assert_same_bits(got.cpu().numpy(), want.cpu().numpy())
+            nt = want.argmax(-1).to(torch.int32).cpu()
+    assert step.trace_counts == {"decode": 1}
+    for lc, le in zip(cache["layers"], eager["layers"]):
+        assert torch.equal(lc["k"], le["k"]) and torch.equal(lc["v"], le["v"])
