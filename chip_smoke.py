@@ -188,6 +188,8 @@ PREFILL_M, CHUNK_M, DECODE_M = 4 * 128, 64, 4
 # of K1's tanh gelu against the plain version on the card, in ulp
 SC_D, SC_HEADS, SC_HD = 4608, 36, 128
 GELU_ULP = 2
+# jamba_1_5_large_398b's d_model (its rms rows)
+JAMBA_D = 8192
 
 # the MoE configs' widths (qwen3_moe_235b_a22b, llama4_scout_17b_a16e),
 # qwen3's query heads, and the router's gate rows: (top-k, rows) over a
@@ -269,6 +271,9 @@ BATCHED_K1 = re.compile(r"(?<!\w)(log_matmul_kernel|lean_kernel|"
 # the MoE configs served at full width, their depth cut to MOE_LAYERS
 MOE_ARCHS = ("qwen3_moe_235b_a22b", "llama4_scout_17b_a16e")
 MOE_LAYERS = 4
+# the hybrid config served at full width: one superblock (attn_every = 8
+# of its 72 layers), every FFN dense (n_experts = 0)
+JAMBA = "jamba_1_5_large_398b"
 # the wait between opening the profiler's window and the profiled tick,
 # and between the tick's end and closing it
 PROFILE_SETTLE_S = 0.05
@@ -486,6 +491,19 @@ def k1_sites(cfg) -> list:
     experts)."""
     D, F, q, kv = (cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.hd,
                    cfg.n_kv_heads * cfg.hd)
+    if cfg.family == "hybrid":
+        # a superblock's: the attention slot's projections (wo with the
+        # residual in decode), a Mamba slot's in_proj / out_proj, the
+        # dense FFN (w2 with no residual: the slots add it after)
+        d_inner = cfg.ssm_expand * D
+        return [("wq", D, q, None, False, False),
+                ("wk/wv", D, kv, None, False, False),
+                ("wo", q, D, None, True, False),
+                ("in_proj", D, 2 * d_inner, None, False, False),
+                ("out_proj", d_inner, D, None, False, False),
+                ("w1", D, F, cfg.act, False, False),
+                ("w3", D, F, None, False, False),
+                ("w2", F, D, None, False, False)]
     sites = [("wq", D, q, None, False, False),
              ("wk/wv", D, kv, None, False, False),
              ("wo", q, D, None, True, False)]
@@ -498,6 +516,23 @@ def k1_sites(cfg) -> list:
             sites.append((pre + "w3", D, F, None, False, False))
         sites.append((pre + "w2", F, D, None, cfg.n_experts == 0, False))
     return sites
+
+
+def library_k1(torch, timer, x, w, r, epilogue, exact_ms) -> dict:
+    """K1's library yardstick at a site: one PyTorch call of the same
+    function in f32 with TF32 off (exact, no RAPID; never called by the
+    port): ``torch.matmul`` (timed as ``exact_ms``), or with the residual
+    in the epilogue ``torch.addmm(r, x, w)``.  None where the epilogue
+    holds an activation or a norm, which no one call computes."""
+    if epilogue:
+        return {}
+    if r is None:
+        return {"library_ms": exact_ms,
+                "library": "torch.matmul, f32 with TF32 off (exact, no "
+                           "epilogue, no RAPID; never called by the port)"}
+    return {"library_ms": timer(lambda: torch.addmm(r, x, w), 5),
+            "library": "torch.addmm(residual, x, w), f32 with TF32 off "
+                       "(exact, no RAPID; never called by the port)"}
 
 
 def kernel_phase(torch, dev, timer):
@@ -576,6 +611,7 @@ def kernel_phase(torch, dev, timer):
                 torch.cuda.synchronize()
                 plain_ms = (time.perf_counter() - t0) * 1e3
                 exact_ms = timer(lambda: torch.matmul(x, w), 5)
+                lib = library_k1(torch, timer, x, w, r, act or tail, exact_ms)
                 limit = GELU_ULP if act == "gelu" else 0
                 nbytes = 4 * (m * k + k * n + m * n * (1 + res + tail))
                 for depth in DEPTHS:
@@ -583,11 +619,6 @@ def kernel_phase(torch, dev, timer):
                     torch.cuda.synchronize()
                     pairs = list(zip(got, ref)) if tail else [(got, ref)]
                     ulps = max(ulp_max(a, b) for a, b in pairs)
-                    lib = {} if act or res or tail else {
-                        "library_ms": exact_ms,
-                        "library": "torch.matmul, f32 with TF32 off (exact, "
-                                   "no epilogue, no RAPID; never called by "
-                                   "the port)"}
                     record("log_matmul" if depth == 1
                            else "log_matmul_pipelined",
                            f"{prefix}{site} M={m} K={k} N={n}"
@@ -609,6 +640,7 @@ def kernel_phase(torch, dev, timer):
                 del x, w, r, ref
 
     expert_cases(torch, dev, timer, g, record)
+    jamba_k1_cases(torch, dev, timer, g, record)
 
     # K1 / K7 where the ring meets its edges: K not a multiple of BK with
     # N not a multiple of 4 (4 B copies), K % 4 != 0, and K shorter than
@@ -722,9 +754,11 @@ def kernel_phase(torch, dev, timer):
     # count (depth >= 2: K8);
     # tolerance: denominators and quotients bit-equal.  Library: torch's
     # f32 rms_norm, a yardstick with an exact divide and no RAPID one
+    # and jamba's 8192-wide rows at depths 1, 2, 3 (8192 f32 rows fill a
+    # block's shared memory past depth 4)
     rms_norm = torch.nn.functional.rms_norm
     for rows, n in [(r, D) for r in (1, DECODE_M, CHUNK_M, 37, PREFILL_M)] + [
-            (r, d) for d in (SC_D,) + MOE_D
+            (r, d) for d in (SC_D,) + MOE_D + (JAMBA_D,)
             for r in (DECODE_M, CHUNK_M, PREFILL_M)]:
         x = randn(rows, n, std=3.0)
         ref, rden = rms_div_plain(x, 1e-6, "rapid9", return_denom=True)
@@ -733,7 +767,7 @@ def kernel_phase(torch, dev, timer):
                                          100),
                "library": "torch.nn.functional.rms_norm, f32 (exact "
                           "divide, no RAPID; never called by the port)"}
-        for depth in DEPTHS:
+        for depth in (DEPTHS if n != JAMBA_D else (1, 2, 3)):
             got, den = fused_rms_div(x, 1e-6, "rapid9", return_denom=True,
                                      spec=at(depth))
             torch.cuda.synchronize()
@@ -894,7 +928,7 @@ def kernel_phase(torch, dev, timer):
             ("", KV_HEADS, G, HD, window),
             *((a.split("_")[0] + " ", c.n_kv_heads,
                c.n_heads // c.n_kv_heads, c.hd, c.sliding_window)
-              for a in MOE_ARCHS for c in (get_config(a),))):
+              for a in MOE_ARCHS + (JAMBA,) for c in (get_config(a),))):
         qf = randn(B, kv, grp, hd, std=hd ** -0.5)
         geo = f"{kv},{hd}] bf16"
         if prefix:
@@ -905,6 +939,8 @@ def kernel_phase(torch, dev, timer):
                    "live=136", qf, kc, vc, lsp.contiguous(),
                    torch.full((B,), 135, dtype=torch.int32, device=dev), win)
             del kc, vc
+        if prefix.startswith("jamba"):  # lockstep only: no paged cache
+            continue
         pool_k = randn(n_pages, ps, kv, hd).to(torch.bfloat16)
         pool_v = randn(n_pages, ps, kv, hd).to(torch.bfloat16)
         kg = pool_k[table].reshape(B, C, kv, hd)
@@ -1067,6 +1103,58 @@ def expert_cases(torch, dev, timer, g, record):
                         "empty_slots": empty, "depth": depth,
                         "experts": E, "tokens": tokens, **lib})
                 del x, w, ref, got
+
+
+def jamba_k1_cases(torch, dev, timer, g, record):
+    """K1 at jamba_1_5_large_398b's 2-D sites (:func:`k1_sites`: in_proj
+    8192 -> 32768, out_proj 16384 -> 8192, the dense FFN's w1 / w3 8192 ->
+    24576 and w2 24576 -> 8192 with no residual, the attention slot's
+    projections) at M = 4, 64 and 512, at the default stage count,
+    bit-equal to the plain version, timed beside its bound and f32
+    ``torch.matmul``.  At M = 64 and 512 the plain version (one k at a
+    time: its cost follows K x N) checks the first 2048 / 1024 columns:
+    K1 sums in K order per element, so an element's bits do not depend on
+    N; its time is scaled to the whole output."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.log_matmul.ops import (log_matmul,
+                                                    log_matmul_plain)
+    from repro_torch.kernels.spec import resolve_spec
+
+    for m in (DECODE_M, CHUNK_M, PREFILL_M):
+        for site, k, n, act, res, _ in k1_sites(get_config(JAMBA)):
+            x = torch.randn((m, k), generator=g, device=dev)
+            w = torch.randn((k, n), generator=g, device=dev) * k ** -0.5
+            r = (torch.randn((m, n), generator=g, device=dev) if res
+                 else None)
+            cols = n if m == DECODE_M else min(n, 2048 if m == CHUNK_M
+                                               else 1024)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = log_matmul_plain(
+                x, w[:, :cols].contiguous(), "rapid10", activation=act,
+                residual=None if r is None else r[:, :cols].contiguous())
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3 * n / cols
+            depth = resolve_spec("log_matmul", (m, n, k)).depth
+            got = log_matmul(x, w, "rapid10", activation=act, residual=r)
+            torch.cuda.synchronize()
+            got = got[:, :cols]
+            ulps = ulp_max(got, ref)
+            exact_ms = timer(lambda: torch.matmul(x, w), 5)
+            lib = library_k1(torch, timer, x, w, r, act, exact_ms)
+            record("log_matmul" if depth == 1 else "log_matmul_pipelined",
+                   f"jamba {site} M={m} K={k} N={n}"
+                   + (f" {act}" if act else "") + (" +res" if res else "")
+                   + f" depth={depth}"
+                   + ("" if cols == n else f" (plain: {cols} columns)"),
+                   abs_max(got, ref), ulps, ulps == 0 and same_bits(got, ref),
+                   timer(lambda: log_matmul(x, w, "rapid10", activation=act,
+                                            residual=r), 5),
+                   plain_ms, 4 * (m * k + k * n + m * n * (1 + res)),
+                   m * n * k * INT32_OPS_PER_PRODUCT, INT32_OPS_PER_S,
+                   {"exact_matmul_ms": exact_ms, "products": m * n * k,
+                    "depth": depth, "plain_columns": cols, **lib})
+            del x, w, r, ref, got
 
 
 def integer_and_batched_cases(torch, dev, timer, g, record, at):
@@ -1519,8 +1607,9 @@ def profiled(torch, label: str, run) -> dict:
     casts = sum(e.self_device_time_total for e in kern
                 if "copy" in e.key) / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:3]
+    k1_ms = sum(e.self_device_time_total for e in k1) / 1e3
     res = {"wall_ms": wall, "kernel_ms": dev,
-           "busy": dev / wall if dev else None,
+           "busy": dev / wall if dev else None, "k1_ms": k1_ms,
            "expert_k1_ms": expert, "copy_kernels_ms": casts,
            "launches_vs_profiled": {
                "+".join(w): list(v) for w, v in seen.items()},
@@ -1532,7 +1621,8 @@ def profiled(torch, label: str, run) -> dict:
              "profiler's names)" if expert is None else
              f"batched K1 {expert:.2f} ms ({expert / wall:.1%} of wall)")
     log(f"profile {label}: wall {wall:.1f} ms, kernels {dev:.1f} ms, "
-        f"{busy}; {share}; copy kernels {casts:.2f} ms "
+        f"{busy}; K1 {k1_ms:.2f} ms ({k1_ms / wall:.1%} of wall); {share}; "
+        f"copy kernels {casts:.2f} ms "
         f"({casts / wall:.1%}); launches counted = kernels profiled "
         f"{ {'+'.join(w): v[0] for w, v in seen.items()} }; top " + "; ".join(
             f"{k} x{n} {t:.1f} ms" for k, n, t in res["top"]))
@@ -2119,6 +2209,203 @@ def moe_phase(torch, dev, arch: str, plain_paths=("lockstep",)):
     return rec
 
 
+def jamba_phase(torch, dev):
+    """Full-width jamba_1_5_large_398b (d_model 8192, 64 / 8 heads of 128,
+    d_ff 24576, d_inner 16384, state 16, conv 4; RAPID rapid10 / rapid9,
+    f32 params from a seed, bf16 activations and cache), cut to one
+    superblock (8 of 72 layers: slots 0-3 and 5-7 Mamba, slot 4
+    attention) and ``n_experts=0`` (every FFN dense: one MoE slot's
+    experts alone would be 38.7 GB of f32), through the lockstep engine
+    (:func:`serve_paths`: 4 requests of 96-128 prompt tokens, 8 greedy
+    tokens, cache_n 256) on the graph route and then eagerly: equal
+    tokens and launch counts, ``trace_counts`` {"decode": 1, "prefill":
+    1}, K1 launched exactly as often as a step calls it (a Mamba slot's
+    in_proj and out_proj, the attention slot's 4 projections, 3 a dense
+    FFN), K3 in prefill; the continuous engine refuses the family.  On
+    graphs one decode step (a replay) and the prefill run under
+    torch.profiler, and one Mamba mixer's torch ops (everything but its
+    two K1 launches) are profiled apart at both shapes.  Then a 2-slot
+    full-width copy (a Mamba slot and the attention slot) kernels (graph
+    route) vs plain (eager) at a light load (4 requests of 16-22 tokens,
+    4 greedy tokens: equal), and one Mamba slot kernels vs plain at 4 x
+    64 tokens (two scan chunks: the carry) and 4 x 1 (a decode step on
+    that state): the same bits, output and state."""
+    from repro_torch.configs.base import RAPID, get_config
+    from repro_torch.kernels import plain_versions, reset_launch_counts
+    from repro_torch.models.mamba import (mamba, mamba_decode,
+                                          mamba_init_cache)
+    from repro_torch.models.model import Model
+    from repro_torch.serve.scheduler import ContinuousServeEngine
+
+    full = get_config(JAMBA)
+    cfg = full.with_(approx=RAPID, n_layers=full.attn_every, n_experts=0)
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"jamba: {cfg.n_layers} of {full.n_layers} layers (one superblock, "
+        f"attention at slot {cfg.attn_every // 2}), d_model={cfg.d_model} "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd}, d_ff={cfg.d_ff}, "
+        f"d_inner {cfg.ssm_expand * cfg.d_model}, state {cfg.ssm_state}, "
+        f"experts {cfg.n_experts} (of {full.n_experts}), params "
+        f"{n_params / 1e9:.3f}e9 f32 ({n_params * 4 / 2**30:.2f} GiB, init "
+        f"{time.perf_counter() - t0:.1f}s)")
+    try:
+        ContinuousServeEngine(model, params)
+    except ValueError as e:
+        log(f"jamba: ContinuousServeEngine refuses the family: {e}")
+    else:
+        raise AssertionError("ContinuousServeEngine took the hybrid family")
+    prompts = prompts_for(cfg.vocab_size)
+    max_new = 8
+    slots = cfg.attn_every
+    # K1 launches a step: in_proj and out_proj in each Mamba slot, wq /
+    # wk / wv / wo in the attention slot, w1 / w3 / w2 in every slot
+    k1_a_step = 2 * (slots - 1) + 4 + 3 * slots
+    sb = params["blocks"][0]
+
+    def mixer_ops(label, x, decode):
+        """One Mamba mixer (slot 0) at ``x``'s shape, 5 times under
+        torch.profiler: its kernels' device time a call, K1's apart."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        p = sb["slot0"]["mamba"]
+        if decode:
+            cache = mamba_init_cache(cfg, x.shape[0], x.dtype, dev)
+            run = lambda: mamba_decode(x, cache, p, cfg)  # noqa: E731
+        else:
+            run = lambda: mamba(x, p, cfg)  # noqa: E731
+        with torch.inference_mode():
+            run()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    run()
+                torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in kern) / 5e3
+        k1 = sum(e.self_device_time_total for e in kern
+                 if K1_NAMES.search(e.key)) / 5e3
+        top = sorted((e for e in kern if not K1_NAMES.search(e.key)),
+                     key=lambda e: -e.self_device_time_total)[:4]
+        log(f"jamba mixer {label}: kernels {total:.3f} ms a call, K1 "
+            f"{k1:.3f}, the mixer's torch ops {total - k1:.3f}; top "
+            + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 5e3:.3f}"
+                        for e in top))
+        return {"kernel_ms": total, "k1_ms": k1, "ops_ms": total - k1}
+
+    def profile(path, engine):
+        rec = profile_lockstep(torch, "jamba", engine, model, params,
+                               prompts)
+        g = torch.Generator(device=dev).manual_seed(3)
+        plen = max(map(len, prompts))
+        for label, shape, decode in (("decode", (len(prompts), cfg.d_model),
+                                      True),
+                                     ("prefill", (len(prompts), plen,
+                                                  cfg.d_model), False)):
+            x = torch.randn(shape, generator=g, device=dev).to(
+                torch.bfloat16)
+            ops = mixer_ops(label, x, decode)
+            step = rec[label]
+            # the step's Mamba ops: 7 mixers' worth of one mixer's
+            ops["share_of_step"] = (slots - 1) * ops["ops_ms"] / step[
+                "wall_ms"]
+            log(f"jamba {label}: the Mamba mixers' torch ops "
+                f"{(slots - 1) * ops['ops_ms']:.2f} ms = "
+                f"{ops['share_of_step']:.1%} of the profiled step "
+                f"({step['wall_ms']:.1f} ms); K1 {step['k1_ms']:.1f} ms "
+                f"({step['k1_ms'] / step['wall_ms']:.1%}); busy "
+                f"{step['busy']}")
+            step["mamba_ops"] = ops
+        return rec
+
+    rec = {"params": n_params, "layers": cfg.n_layers,
+           "full_layers": full.n_layers, "k1_a_step": k1_a_step}
+    runs = serve_paths(torch, "jamba", cfg,
+                       {"lockstep": engine_makers(model, params)["lockstep"]},
+                       prompts, max_new, ("graph", "eager"), profile)
+    g_run, e_run = runs["lockstep"]["graph"], runs["lockstep"]["eager"]
+    counts = g_run["launches"]
+    n_pf = g_run["prefill"]["n"]
+    if counts["log_matmul"] != g_run["steps"] * k1_a_step or \
+            counts["softmax_div"] != n_pf or \
+            counts["flash_decode"] != g_run["decode"]["n"]:
+        raise AssertionError(
+            f"jamba: {g_run['steps']} steps launched K1 "
+            f"{counts['log_matmul']} times (expected "
+            f"{g_run['steps'] * k1_a_step}), K3 {counts['softmax_div']} "
+            f"(expected {n_pf}), K4 {counts['flash_decode']} (expected "
+            f"{g_run['decode']['n']})")
+    log(f"jamba lockstep graph vs eager: decode step "
+        f"{g_run['decode']['rest_mean_ms']:.2f} vs "
+        f"{e_run['decode']['rest_mean_ms']:.2f} ms, prefill "
+        f"{g_run['prefill']['rest_mean_ms']:.1f} vs "
+        f"{e_run['prefill']['rest_mean_ms']:.1f} ms; tokens and launches "
+        f"equal (K1 {counts['log_matmul']} = {g_run['steps']} steps x "
+        f"{k1_a_step}), peak {g_run['peak_gib']:.2f} GiB")
+    rec.update(runs)
+
+    # the 2-slot full-width copy: slot 0 Mamba, slot 1 the attention slot
+    cfg2 = cfg.with_(attn_every=2, n_layers=2)
+    params2 = dict(params, blocks=[{"slot0": sb["slot0"],
+                                    "slot1": sb[f"slot{slots // 2}"]}])
+    make2 = engine_makers(Model(cfg2), params2)
+    light = [p[:16 + 2 * i] for i, p in enumerate(prompts)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec.update(kernels_vs_plain(torch, "jamba", {
+        "lockstep": (make2["lockstep"], *path_kernels(cfg2, "lockstep"))},
+        light, 4))
+
+    # one Mamba slot, kernels vs plain: the prefill form over two scan
+    # chunks, then a decode step on its state; the same bits
+    g = torch.Generator(device=dev).manual_seed(11)
+    p = sb["slot0"]["mamba"]
+    x = torch.randn((4, 64, cfg.d_model), generator=g,
+                    device=dev).to(torch.bfloat16)
+    xd = torch.randn((4, cfg.d_model), generator=g,
+                     device=dev).to(torch.bfloat16)
+
+    def run():
+        with torch.inference_mode():
+            out, (h, conv) = mamba(x, p, cfg)
+            cache = {"h": h.clone(), "conv": conv.clone()}
+            dec, _ = mamba_decode(xd, cache, p, cfg)
+        return out, h, conv, dec, cache["h"], cache["conv"]
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = run()
+    torch.cuda.synchronize()
+    t_k = time.perf_counter() - t0
+    k_counts = counts_now()
+    t0 = time.perf_counter()
+    with plain_versions():
+        ref = run()
+    torch.cuda.synchronize()
+    t_p = time.perf_counter() - t0
+    names = ("out", "h", "conv", "decode out", "decode h", "decode conv")
+    bad = [n for n, a, b in zip(names, got, ref)
+           if not same_bits(a.float(), b.float())
+           or not bool(torch.isfinite(a).all())]
+    log(f"jamba Mamba slot kernels vs plain (4 x 64 tokens, then 4 x 1): "
+        f"kernels {t_k:.2f}s {json.dumps(k_counts)}, plain {t_p:.2f}s; "
+        f"differ or not finite: {bad}")
+    if bad or k_counts["log_matmul"] != 4:
+        raise AssertionError(f"jamba Mamba slot: {bad} differ, K1 "
+                             f"{k_counts['log_matmul']} launches")
+    rec["mamba_slot_bits"] = {"equal": True, "kernels_s": t_k,
+                              "plain_s": t_p}
+    rec["e2e_2layer_equal"] = True
+    del params, params2, make2, sb, p, got, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def profile_lockstep(torch, name, engine, model, params, prompts):
     """After a run on the graph route: the lockstep engine's decode step
     (a replay of its captured graph) and its prefill of ``prompts``
@@ -2411,6 +2698,7 @@ def depth_ab_phase(torch, cfg, params):
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.scheduler import ContinuousServeEngine
 
+    t0 = time.perf_counter()
     settings = {"default": None, "depth1": 1, "depth2": 2}
     prompts = prompts_for(cfg.vocab_size)
     chunk_prompt = np.random.default_rng(5).integers(
@@ -2448,6 +2736,7 @@ def depth_ab_phase(torch, cfg, params):
             f"{out['depth2'][f'{key}_ms']:.2f} ms "
             f"({out['depth2'][f'{key}_ms'] / base - 1:+.1%})")
 
+    t_engines = time.perf_counter() - t0
     depths = ["--depth", *map(str, (1, 2, 3, 3, 2, 1))]
     k1 = k1_times(depths) + k1_times(["--moe", *depths])
     for site in sorted({(r["site"], r["M"]) for r in k1}):
@@ -2458,7 +2747,12 @@ def depth_ab_phase(torch, cfg, params):
             f"({np.mean(by[2]) / np.mean(by[1]) - 1:+.1%}), depth 3 "
             f"{by[3]} ms ({np.mean(by[3]) / np.mean(by[1]) - 1:+.1%})")
     out["k1_times"] = k1
+    t_k1 = time.perf_counter() - t0 - t_engines
     out["parent_ab"] = parent_ab()
+    out["seconds"] = {"engines": t_engines, "k1_times": t_k1,
+                      "parent_ab": time.perf_counter() - t0 - t_engines
+                      - t_k1}
+    log(f"depth A/B seconds: {out['seconds']}")
     return out
 
 
@@ -2542,6 +2836,21 @@ def share_builds(src) -> list:
     return lent
 
 
+def same_kernel_code(src) -> bool:
+    """True where the ``repro_torch`` under ``src`` holds this tree's
+    kernel code byte for byte: the code the timing scripts run (csrc,
+    kernels, core, device.py)."""
+    def files(root):
+        base = Path(root) / "repro_torch"
+        found = {"device.py": (base / "device.py").read_bytes()}
+        for sub in ("csrc", "kernels", "core"):
+            for f in (base / sub).rglob("*"):
+                if f.is_file() and "__pycache__" not in f.parts:
+                    found[str(f.relative_to(base))] = f.read_bytes()
+        return found
+    return files(src) == files(ROOT / "src")
+
+
 def parent_ab():
     """K1, K4, the dividers and K9/K10 before and after on this card:
     ``k1_times.py`` at each tree's default stage counts, ``k4_times.py``
@@ -2561,6 +2870,13 @@ def parent_ab():
         return {"parent": None, "why": parent, "runs": []}
     log(f"parent A/B: parent {parent}; kernel libraries shared with this "
         f"tree: {share_builds(src)}")
+    if same_kernel_code(src):
+        log("parent A/B: the parent's kernel code (repro_torch's csrc, "
+            "kernels and core, device.py) is this tree's byte for byte: "
+            "no times taken, they would time one build twice")
+        table3 = k1_times(["--table3"], src, "int_times.py")
+        return {"parent": parent, "same_kernel_code": True, "runs": [],
+                "table3": table3}
     runs = []
     for kernel, script, key in (("K1", "k1_times.py", ("site", "M")),
                                 ("K4", "k4_times.py", ("shape", "C")),
@@ -2839,6 +3155,10 @@ def main() -> int:
     moe = {arch: moe_phase(torch, dev, arch, paths) for arch, paths in zip(
         MOE_ARCHS, (("lockstep", "continuous"), ("lockstep",)))}
     lap("moe")
+    jamba = jamba_phase(torch, dev)
+    lap("jamba")
+    gc.collect()
+    torch.cuda.empty_cache()
     ints = integer_units_phase(torch, dev, ab["parent_ab"].get("table3"))
     lap("integer_units")
     apps = apps_phase(torch, dev)
@@ -2893,6 +3213,8 @@ def main() -> int:
                                         for arch in MOE_ARCHS
                                         for path in ("lockstep",
                                                      "continuous")),
+                                      ("jamba_lockstep",
+                                       jamba["lockstep"]["graph"]),
                                       ("integer_units", ints),
                                       ("apps", apps), ("train", train))}
         row = {
@@ -2910,7 +3232,7 @@ def main() -> int:
     record = {"card": card, "ptxas": ptxas, "sass": sass,
               "cases": cases, "serve": serve,
               "continuous": cont, "long_prefill": long_, "depth_ab": ab,
-              "starcoder2": sc2, "moe": moe,
+              "starcoder2": sc2, "moe": moe, "jamba": jamba,
               "integer_units": ints, "apps": apps, "train": train,
               "train_2layer": train_check, "kernels": kernels,
               "phase_seconds": laps,

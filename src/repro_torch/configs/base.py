@@ -1,11 +1,12 @@
 """Config system of the port: model and approximation configs.
 
-Mirrors ``repro.configs.base`` for the dense and MoE serve and train
-paths.  ``ApproxConfig`` keeps the reference's ``mul``/``div``/``on_*``
-semantics but drops its per-site ``backends`` map and the
-``RAPID_BACKEND`` environment variable: the port has one dispatch path,
-and the device of the tensor decides it (a CPU tensor takes each
-kernel's plain PyTorch version, a CUDA tensor launches the kernel).
+Mirrors ``repro.configs.base`` for the dense, MoE and hybrid (Jamba)
+serve and train paths.  ``ApproxConfig`` keeps the reference's
+``mul``/``div``/``on_*`` semantics but drops its per-site ``backends``
+map and the ``RAPID_BACKEND`` environment variable: the port has one
+dispatch path, and the device of the tensor decides it (a CPU tensor
+takes each kernel's plain PyTorch version, a CUDA tensor launches the
+kernel).
 """
 from __future__ import annotations
 
@@ -17,9 +18,10 @@ from typing import Optional
 __all__ = ["ARCH_IDS", "ApproxConfig", "ModelConfig", "EXACT", "RAPID",
            "get_config"]
 
-# the architectures the port has (the dense and MoE families)
+# the architectures the port has (the dense, MoE and hybrid families)
 ARCH_IDS = ("h2o_danube_1_8b", "yi_6b", "minicpm_2b", "starcoder2_7b",
-            "qwen3_moe_235b_a22b", "llama4_scout_17b_a16e")
+            "qwen3_moe_235b_a22b", "llama4_scout_17b_a16e",
+            "jamba_1_5_large_398b")
 
 
 @dataclass(frozen=True)
@@ -59,7 +61,7 @@ RAPID = ApproxConfig(mul_scheme="rapid10", div_scheme="rapid9")
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe (the families the port has)
+    family: str  # dense | moe | hybrid (the families the port has)
     n_layers: int
     d_model: int
     n_heads: int
@@ -73,11 +75,17 @@ class ModelConfig:
     rope_theta: float = 10000.0
     sliding_window: int = 0  # 0 = full attention
     tie_embeddings: bool = False
-    # MoE (Jamba's moe_every comes with the hybrid family)
+    # MoE
     n_experts: int = 0
     experts_per_token: int = 0
+    moe_every: int = 1          # MoE FFN on every k-th layer (jamba: 2)
     shared_expert: bool = False  # llama4-style always-on expert
     capacity_factor: float = 1.25
+    # hybrid (jamba)
+    attn_every: int = 0         # 1 attention layer per this many (jamba: 8)
+    ssm_state: int = 16
+    ssm_conv: int = 4
+    ssm_expand: int = 2
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
     approx: ApproxConfig = field(default_factory=ApproxConfig)
@@ -99,9 +107,10 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def reduced(self) -> "ModelConfig":
-        """Tiny same-family variant for CPU tests (the reference's sizes)."""
+        """Tiny same-family variant for CPU tests (the reference's sizes;
+        a hybrid keeps one full period of ``attn_every`` layers)."""
         return self.with_(
-            n_layers=min(self.n_layers, 2),
+            n_layers=self.attn_every or min(self.n_layers, 2),
             d_model=128,
             n_heads=4,
             n_kv_heads=min(self.n_kv_heads, 2) if self.n_kv_heads < self.n_heads else 4,

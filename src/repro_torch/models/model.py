@@ -1,6 +1,8 @@
-"""Model API of the port, the decoder families dense and moe.
+"""Model API of the port, the decoder families dense and moe and the
+hybrid family (Jamba).
 
-The port of the dense and MoE paths of ``repro.models.model.Model``:
+The port of the dense, MoE and hybrid paths of
+``repro.models.model.Model``:
 
   * ``param_specs()`` / ``init(seed, device)`` -- one source of truth for
     shapes and init (models/params.py);
@@ -17,17 +19,23 @@ The port of the dense and MoE paths of ``repro.models.model.Model``:
     -- the continuous engine's step: a decode tick or a prefill chunk.
 
 Params and caches are dicts; ``blocks``/``layers`` are lists with one
-entry per layer.  ``cache["pos"]`` is a 0-dim int32 tensor on the
-cache's device, which ``decode_step`` advances in place: the step reads
-nothing back to the host, so an engine can capture it in a CUDA graph
-(``serve/compiled.py``).
+entry per layer (the hybrid family: per superblock of ``attn_every``
+layers, each a dict of ``"slot{s}"`` subtrees).  ``cache["pos"]`` is a
+0-dim int32 tensor on the cache's device, which ``decode_step`` advances
+in place: the step reads nothing back to the host, so an engine can
+capture it in a CUDA graph (``serve/compiled.py``).
 
 The dense family's two block kinds: rms norms with the silu-gated MLP
 (h2o_danube_1_8b, minicpm_2b, yi_6b), and LN (scale and bias) with the
 ungated gelu MLP (starcoder2_7b); ``cfg.norm`` picks the norm of every
 block and of the final norm, ``cfg.act`` the MLP.  The moe family
 (qwen3_moe_235b_a22b, llama4_scout_17b_a16e) has rms blocks whose FFN is
-the single-device MoE layer (``models/moe.py``) on every layer.
+the single-device MoE layer (``models/moe.py``) on every layer.  The
+hybrid family (jamba_1_5_large_398b) stacks superblocks of Mamba mixers
+and one attention slot (``models/hybrid.py``, ``models/mamba.py``); its
+decode cache holds each Mamba slot's state beside the attention slot's
+ring, so it serves through the lockstep engine only: ``decode_paged``
+and the paged cache raise ``ValueError``, as the reference's.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.ops import MatmulTape, matmul_tape
 from repro_torch.device import resolve_device
+from repro_torch.models import hybrid as hy
 from repro_torch.models.layers import _MAXI32, apply_norm, dense, norm_params
 from repro_torch.models.params import P, materialize
 from repro_torch.models.transformer import (attn_cache_specs, block_apply,
@@ -50,7 +59,7 @@ from repro_torch.models.transformer import (attn_cache_specs, block_apply,
 __all__ = ["Model"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_FAMILIES = ("dense", "moe")
+_FAMILIES = ("dense", "moe", "hybrid")
 _ACTS = ("silu", "gelu")
 _NORMS = ("rms", "ln")
 
@@ -79,11 +88,15 @@ class Model:
     def param_specs(self) -> dict:
         cfg = self.cfg
         D, V = cfg.d_model, cfg.padded_vocab
+        if cfg.family == "hybrid":
+            blocks = [hy.superblock_params(cfg)
+                      for _ in range(cfg.n_layers // cfg.attn_every)]
+        else:
+            blocks = [block_params(cfg) for _ in range(cfg.n_layers)]
         specs = {
             "embed": P((V, D), "small"),
             "final_norm": norm_params(cfg),
-            "blocks": [block_params(cfg)
-                       for _ in range(cfg.n_layers)],
+            "blocks": blocks,
         }
         if not cfg.tie_embeddings:
             specs["lm_head"] = P((D, V))
@@ -95,16 +108,29 @@ class Model:
 
     def init_cache(self, batch: int, cache_n: int, device=None):
         dev = resolve_device(device)
-        layers = [materialize(attn_cache_specs(self.cfg, batch, cache_n), 0,
-                              dev) for _ in range(self.cfg.n_layers)]
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            layers = [materialize(hy.superblock_cache_specs(cfg, batch,
+                                                            cache_n), 0, dev)
+                      for _ in range(cfg.n_layers // cfg.attn_every)]
+        else:
+            layers = [materialize(attn_cache_specs(cfg, batch, cache_n), 0,
+                                  dev) for _ in range(cfg.n_layers)]
         C = cache_len(self.cfg, cache_n)
         return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
                 "slots": torch.full((batch, C), _MAXI32, dtype=torch.int32,
                                     device=dev),
                 "layers": layers}
 
+    def _paged_family(self, what: str) -> None:
+        if self.cfg.family not in ("dense", "moe"):
+            raise ValueError(
+                f"{what} need pure-attention decode; family "
+                f"{self.cfg.family!r} carries recurrent state")
+
     def paged_cache_specs(self, n_pages: int, page_size: int) -> dict:
         """P-spec tree of the block-paged cache: one pool pair per layer."""
+        self._paged_family("paged KV caches")
         return {"layers": [paged_attn_cache_specs(self.cfg, n_pages, page_size)
                            for _ in range(self.cfg.n_layers)]}
 
@@ -164,8 +190,9 @@ class Model:
         x = self._embed(params, tokens)
         pos = torch.arange(tokens.shape[1], dtype=torch.int32,
                            device=tokens.device)
-        x = self._run_stack(params["blocks"],
-                            partial(_block_body, cfg=cfg, pos=pos), x, remat)
+        body = (_superblock_body if cfg.family == "hybrid" else _block_body)
+        x = self._run_stack(params["blocks"], partial(body, cfg=cfg, pos=pos),
+                            x, remat)
         x = apply_norm(x, params["final_norm"], cfg)
         return self._logits(params, x)
 
@@ -214,6 +241,11 @@ class Model:
         cache = {"pos": torch.tensor(S, dtype=torch.int32, device=dev),
                  "slots": base.expand(B, C).contiguous(), "layers": []}
         for lp in params["blocks"]:
+            if cfg.family == "hybrid":
+                x, lc = hy.superblock_prefill(x, lp, cfg, pos, to_ring,
+                                              self.dtype)
+                cache["layers"].append(lc)
+                continue
             x, (k, v) = block_apply(x, lp, cfg, pos)
             cache["layers"].append({"k": to_ring(k).to(self.dtype),
                                     "v": to_ring(v).to(self.dtype)})
@@ -234,7 +266,11 @@ class Model:
         slots.index_copy_(1, ring_slot(pos, slots.shape[1]),
                           pos.expand(slots.shape[0], 1))
         for lp, lc in zip(params["blocks"], cache["layers"]):
-            x, _ = block_decode(x, lp, lc, slots, pos, cfg)
+            if cfg.family == "hybrid":
+                x, _ = hy.superblock_decode(x, lp, lc, slots, pos, cfg)
+            else:
+                x, _ = block_decode(x, lp, lc, slots, pos, cfg,
+                                    cfg.n_experts > 0)
         pos.add_(1)
         x = apply_norm(x[:, None], params["final_norm"], cfg)
         return self._logits(params, x)[:, 0], cache
@@ -253,7 +289,10 @@ class Model:
         are garbage).  The pools are written in place.
 
         Returns (logits [B, V] f32 at each row's last valid token, cache).
+        The hybrid family raises ``ValueError`` (its Mamba state is not
+        paged), as the reference.
         """
+        self._paged_family("paged decode steps")
         B, S = tokens.shape
         dev = tokens.device
         x = self._embed(params, tokens)
@@ -273,3 +312,8 @@ class Model:
 def _block_body(x, lp, *, cfg: ModelConfig, pos):
     """One block of the full-sequence forward, without its KV."""
     return block_apply(x, lp, cfg, pos)[0]
+
+
+def _superblock_body(x, lp, *, cfg: ModelConfig, pos):
+    """One hybrid superblock of the full-sequence forward."""
+    return hy.superblock_apply(x, lp, cfg, pos)

@@ -5,7 +5,11 @@ The port of the decoder parts of ``repro.models.transformer``.  Every
 function reads the block's norm ("rms" or "ln") from ``cfg.norm``, and
 its FFN from ``cfg.n_experts``: the MLP, or with experts the MoE FFN
 (:func:`repro_torch.models.moe.moe_ffn`), whose output the residual is
-added to after it (the dense MLP adds it in w2's epilogue).
+added to after it (the dense MLP adds it in w2's epilogue).  Only
+``block_decode`` takes the FFN from its ``moe_layer`` argument, as the
+reference: the hybrid family's attention slot decides it per slot
+(``models/hybrid.py``), the dense and moe families pass
+``cfg.n_experts > 0``.
 Prefill of an rms block always fuses ln2's divide into the
 attention-out matmul's epilogue (``rms_div(wo_out + residual)``, keeping
 the pre-norm residual stream): the reference fuses it whenever the norm
@@ -42,8 +46,8 @@ def block_params(cfg: ModelConfig) -> dict:
     }
 
 
-def _ffn(x, p, cfg: ModelConfig, residual):
-    if cfg.n_experts > 0:
+def _ffn(x, p, cfg: ModelConfig, moe_layer: bool, residual):
+    if moe_layer:
         return residual + moe_ffn(x, p["ffn"], cfg)
     return mlp(x, p["ffn"], cfg, residual=residual)
 
@@ -59,7 +63,7 @@ def block_apply(x, p, cfg: ModelConfig, positions):
     else:
         y = h
         ffn_in = apply_norm(y, p["ln2"], cfg)
-    return _ffn(ffn_in, p, cfg, residual=y), (k, v)
+    return _ffn(ffn_in, p, cfg, cfg.n_experts > 0, residual=y), (k, v)
 
 
 def cache_len(cfg: ModelConfig, seq_len: int) -> int:
@@ -143,7 +147,7 @@ def block_decode_paged(x, p, cache, page_table, positions, valid, kv_len,
                                          cfg.sliding_window, acfg)
     x = dense(attn_out, p["attn"]["wo"], acfg, "attn_proj", residual=x)
     h2 = apply_norm(x, p["ln2"], cfg)
-    return _ffn(h2, p, cfg, residual=x), cache
+    return _ffn(h2, p, cfg, cfg.n_experts > 0, residual=x), cache
 
 
 def ring_slot(pos: torch.Tensor, c: int) -> torch.Tensor:
@@ -154,7 +158,7 @@ def ring_slot(pos: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def block_decode(x, p, cache, slot_positions, pos: torch.Tensor,
-                 cfg: ModelConfig):
+                 cfg: ModelConfig, moe_layer: bool):
     """One-token decode. x: [B, D]; cache: {"k", "v"}; pos: the current
     position, a 0-dim int32 tensor on the cache's device.
 
@@ -185,5 +189,5 @@ def block_decode(x, p, cache, slot_positions, pos: torch.Tensor,
     x = dense(attn_out[:, None], p["attn"]["wo"], acfg, "attn_proj",
               residual=x[:, None])[:, 0]
     h2 = apply_norm(x[:, None], p["ln2"], cfg)
-    x = _ffn(h2, p, cfg, residual=x[:, None])[:, 0]
+    x = _ffn(h2, p, cfg, moe_layer, residual=x[:, None])[:, 0]
     return x, cache

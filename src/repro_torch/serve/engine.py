@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import Model
+from repro_torch.models.params import tree_items
 from repro_torch.serve.compiled import CompiledStep
 
 __all__ = ["ServeEngine"]
@@ -54,20 +55,21 @@ class ServeEngine:
         self._caches = {}  # (B, cache_n) -> the decode step's cache
 
     def _decode_cache(self, cache: dict) -> dict:
-        """The persistent cache of ``cache``'s shape, holding a copy of it
-        (made outside inference mode: the graph writes it on every
-        replay)."""
+        """The persistent cache of ``cache``'s shape, holding a copy of
+        every leaf of it (made outside inference mode: the graph writes it
+        on every replay)."""
         B = cache["slots"].shape[0]
         static = self._caches.get((B, self.cache_n))
         if static is None:
             with torch.inference_mode(False):
                 static = self._caches[B, self.cache_n] = self.model.init_cache(
                     B, self.cache_n, self.device)
-        static["pos"].copy_(cache["pos"])
-        static["slots"].copy_(cache["slots"])
-        for dst, src in zip(static["layers"], cache["layers"]):
-            dst["k"].copy_(src["k"])
-            dst["v"].copy_(src["v"])
+        # every leaf: the attention caches, and a hybrid superblock's
+        # Mamba states (h, conv) beside them
+        for (path, dst), (spath, src) in zip(tree_items(static),
+                                             tree_items(cache)):
+            assert path == spath, (path, spath)
+            dst.copy_(src)
         return static
 
     @property

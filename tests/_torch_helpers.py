@@ -1,6 +1,22 @@
 """Shared helpers for the port's tests (``tests/test_torch_*.py``): numpy
-inputs made from a seed, and bit / ulp comparisons of float32 arrays."""
+inputs made from a seed, and bit / ulp comparisons of float32 arrays.
+
+Importing this module on a machine without a CUDA card sets torch to
+one intra-op thread.  The CPU suite runs as several pytest-xdist workers
+on a few cores; with torch's default of one OpenMP thread per core in
+every worker, its many small CPU ops stall at the thread pool's barriers
+(a reduced jamba RAPID forward: 0.8 s alone, 16.5 s beside seven busy
+processes; 2.3 / 2.4 s on one thread).  The card tests run as one
+process and keep the default."""
 import numpy as np
+
+try:
+    import torch
+except ImportError:  # the JAX package's tests run without torch
+    pass
+else:
+    if not torch.cuda.is_available():
+        torch.set_num_threads(1)
 
 
 def bits(a) -> np.ndarray:

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_helpers  # noqa: E402,F401  (torch on one thread)
 import jax.numpy as jnp  # noqa: E402
 
 from repro.apps import harris as jharris  # noqa: E402

@@ -1734,3 +1734,170 @@ def test_cuda_captured_moe_decode_step_replays_eager_bits(cuda, arch):
     assert step.trace_counts == {"decode": 1}
     for lc, le in zip(cache["layers"], eager["layers"]):
         assert torch.equal(lc["k"], le["k"]) and torch.equal(lc["v"], le["v"])
+
+
+# --------------------------------------------------------------------------
+# the hybrid family (jamba_1_5_large_398b): K1 at its widths, the 8192-wide
+# rms rows, K4 at G = 8, the Mamba mixer, the captured decode step
+# --------------------------------------------------------------------------
+
+# jamba's 2-D K1 sites that no other path has: in_proj (8192 -> 32768),
+# out_proj (16384 -> 8192), the dense FFN's w2 (24576 -> 8192, no residual
+# in a Mamba slot), its w1 with the silu epilogue
+_JAMBA_SITES = [(8192, 32768, None), (16384, 8192, None),
+                (24576, 8192, None), (8192, 24576, "silu")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 64])
+@pytest.mark.parametrize("k,n,act", _JAMBA_SITES)
+def test_cuda_log_matmul_jamba_sites(cuda, m, k, n, act):
+    """K1 at jamba's full-width sites at the default stage count, a
+    decode step's rows and a prefill chunk's, against its plain version
+    on the card: the same bits.  At M = 64 the plain version checks the
+    first 2048 columns: K1 sums in K order per element, so an element's
+    bits do not depend on N."""
+    rng = np.random.default_rng(m + k + n)
+    x = T(randn(rng, m, k)).to(cuda)
+    w = T(randn(rng, k, n, scale=k ** -0.5)).to(cuda)
+    got = log_matmul(x, w, "rapid10", activation=act)
+    cols = n if m == 4 else 2048
+    ref = log_matmul_plain(x, w[:, :cols].contiguous(), "rapid10",
+                           activation=act)
+    assert_same_bits(got[:, :cols].cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 2, 3])
+@pytest.mark.parametrize("rows", [4, 64, 512])
+def test_cuda_rms_div_jamba_rows(cuda, rows, depth):
+    """K2 (depth 1) and K8 (depth 2, 3) over jamba's 8192-wide rms rows
+    (ln1 / ln2 / the final norm of a decode step, a 64-token chunk, the
+    lockstep prefill): the same bits as the plain version, denominators
+    included."""
+    from repro_torch.kernels.spec import KernelSpec, PipelineSpec
+    spec = KernelSpec(pipeline=PipelineSpec(depth=depth))
+    x = T(randn(np.random.default_rng(rows + depth), rows, 8192,
+                scale=3.0)).to(cuda)
+    got, den = fused_rms_div(x, 1e-6, "rapid9", return_denom=True,
+                             spec=spec)
+    ref, rden = rms_div_plain(x, 1e-6, "rapid9", return_denom=True)
+    assert_same_bits(den.cpu().numpy(), rden.cpu().numpy())
+    assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["lockstep", "paged"])
+@pytest.mark.parametrize("scheme", ["rapid9", None])
+def test_cuda_flash_decode_jamba_shapes(cuda, shape, scheme):
+    """K4 at jamba's attention slot: 8 kv heads of 8 queries (G = 8),
+    heads of 128, bf16 caches; the lockstep step (cache_n 256, 136 live)
+    and 256-slot views (kv_len 131 / 98 / 201 / 0)."""
+    _decode_shape_bits(cuda, 61, 256, 8, 8, shape, scheme)
+
+
+def _jamba(cuda, **over):
+    from repro_torch.configs.base import RAPID, get_config
+    from repro_torch.models.model import Model
+    cfg = get_config("jamba_1_5_large_398b").reduced().with_(approx=RAPID,
+                                                             **over)
+    model = Model(cfg)
+    return cfg, model, model.init(0, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tokens", [(4, 64), (4, 1), (2, 3)])
+def test_cuda_mamba_same_bits_twice_and_as_plain(cuda, tokens):
+    """One Mamba slot of reduced jamba on the card (bf16 tokens, RAPID):
+    the prefill form over two scan chunks, one token and a short prompt,
+    then a decode step on its state; the same bits on a second run and
+    with every kernel swapped for its plain version, the state included;
+    K1 launches twice a call (in_proj, out_proj)."""
+    from repro_torch.kernels import (launch_counts, plain_versions,
+                                     reset_launch_counts)
+    from repro_torch.models.mamba import mamba, mamba_decode
+    cfg, _, params = _jamba(cuda)
+    p = params["blocks"][0]["slot0"]["mamba"]
+    B, S = tokens
+    rng = np.random.default_rng(B * S)
+    x = T(randn(rng, B, S, cfg.d_model)).to(cuda, torch.bfloat16)
+    xd = T(randn(rng, B, cfg.d_model)).to(cuda, torch.bfloat16)
+
+    def run():
+        out, (h, conv) = mamba(x, p, cfg)
+        cache = {"h": h.clone(), "conv": conv.clone()}
+        dec, _ = mamba_decode(xd, cache, p, cfg)
+        return [t.float().cpu().numpy()
+                for t in (out, h, conv, dec, cache["h"], cache["conv"])]
+
+    reset_launch_counts()
+    first = run()
+    assert launch_counts()["log_matmul"] == 4
+    again = run()
+    with plain_versions():
+        plain = run()
+    for a, b, c in zip(first, again, plain):
+        assert np.isfinite(a).all()
+        assert_same_bits(b, a)
+        assert_same_bits(c, a)
+
+
+@pytest.mark.gpu
+def test_cuda_graph_lockstep_hybrid_equal_eager(cuda):
+    """Reduced jamba (MoE slots on) through the lockstep engine, graph
+    route against eager route: equal greedy tokens and launch counts,
+    one capture; a second ``generate`` of one shape replays without a
+    new capture and gives the same tokens; the continuous engine
+    refuses the family."""
+    from repro_torch.kernels import (launch_counts, launch_counts_by_depth,
+                                     reset_launch_counts)
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import ContinuousServeEngine
+    cfg, model, params = _jamba(cuda)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in (5, 9, 3, 40)]
+    runs = {}
+    for graphs in (True, False):
+        reset_launch_counts()
+        eng = ServeEngine(model, params, cache_n=64, cuda_graphs=graphs)
+        out = [eng.generate(prompts, max_new=6) for _ in range(2)]
+        runs[graphs] = (out, launch_counts(), launch_counts_by_depth(),
+                        dict(eng.trace_counts))
+    assert runs[True] == runs[False]
+    out, counts, _, traces = runs[True]
+    assert out[0] == out[1]
+    assert counts["log_matmul"] > 0 and counts["flash_decode"] > 0
+    assert traces == {"decode": 1, "prefill": 1}
+    with pytest.raises(ValueError):
+        ContinuousServeEngine(model, params)
+
+
+@pytest.mark.gpu
+def test_cuda_captured_hybrid_decode_step_replays_eager_bits(cuda):
+    """Reduced jamba's decode step captured in a CUDA graph: each replay
+    gives the logits bits of the eager step on a copy of the same cache,
+    over three steps, and leaves every cache leaf (the Mamba slots' h and
+    conv, written in place, and the attention slot's k / v) equal to the
+    eager copy's."""
+    import copy
+
+    from repro_torch.models.params import tree_items
+    from repro_torch.serve.compiled import CompiledStep
+    _, model, params = _jamba(cuda)
+    toks = torch.tensor(np.random.default_rng(5).integers(
+        0, 512, (4, 7)), dtype=torch.int32, device=cuda)
+    _, cache = model.prefill(params, {"tokens": toks}, 32)
+    eager = copy.deepcopy(cache)
+    step = CompiledStep("decode", {"decode": 0}, cuda)
+    nt = torch.tensor([3, 1, 4, 1], dtype=torch.int32)
+    with torch.inference_mode():
+        for _ in range(3):
+            got = step(lambda t: model.decode_step(params, t, cache)[0],
+                       nt).clone()
+            want = model.decode_step(params, nt.to(cuda), eager)[0]
+            assert_same_bits(got.cpu().numpy(), want.cpu().numpy())
+            nt = want.argmax(-1).to(torch.int32).cpu()
+    assert step.trace_counts == {"decode": 1}
+    for (path, a), (_, b) in zip(tree_items(cache), tree_items(eager)):
+        assert torch.equal(a, b), path

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_helpers  # noqa: E402,F401  (torch on one thread)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
