@@ -64,7 +64,15 @@ one NVIDIA H100.  It
    share, batched K1's share and the casts'); a 2-layer copy kernels vs
    plain (qwen3 through both engines, llama4 through the lockstep
    engine: equal greedy tokens) and one MoE layer kernels vs plain at 4
-   x 128 and 4 x 1 tokens (the same bits);
+   x 128 and 4 x 1 tokens (the same bits); then full-width
+   jamba_1_5_large_398b cut to one superblock (``jamba_phase``) and
+   full-width, full-depth xlstm_350m (``xlstm_phase``: 24 layers, sLSTM
+   at 5, 13, 21) through the lockstep engine on graphs and eagerly,
+   each kernel launched exactly as often as the steps call it (xlstm:
+   K1, the rms divides, K5 as K8 and K6; no K3, no K4), profiled
+   steps, a 2-layer copy kernels vs plain (equal greedy tokens) and
+   one layer of each mixer kernels vs plain (the same bits, state
+   included);
 7. drives the paper's integer units (K9 ``rapid_mul``, K10
    ``rapid_div``) through their wrappers as Table III does, at 8 bits
    exhaustively and 2^24 random pairs at 16 (16/8) bits, all four
@@ -252,6 +260,7 @@ SOURCES = {
 # path, the one it must not: K3 serves only lockstep prefill)
 LOCKSTEP_KERNELS = ("log_matmul", "rms_div", "softmax_div", "flash_decode")
 CONTINUOUS_KERNELS = ("log_matmul", "rms_div", "flash_decode", "div_rowbcast")
+XLSTM_KERNELS = ("log_matmul", "rms_div", "div_rowbcast", "div")
 # the CUDA kernels each wrapper family launches (one a counted launch),
 # by the names the profiler gives them: a profiled tick's kernel events
 # must number what its launch counters gained
@@ -268,12 +277,24 @@ K1_NAMES = re.compile(r"(?<!\w)(log_matmul_kernel|lean_kernel|decode_kernel)"
                       r"\b")
 BATCHED_K1 = re.compile(r"(?<!\w)(log_matmul_kernel|lean_kernel|"
                         r"decode_kernel)<[^()]*\btrue>")
+# K6 and K5 (K5 at depth 1 is an elementwise_div_kernel instance, as K8
+# the row kernel's OP 2, the row broadcast, where the profiler names
+# template arguments)
+DIV_NAMES = re.compile(r"(?<!\w)(elementwise_div_kernel\b|"
+                       r"row_slab_kernel<\s*2\s*,)")
 # the MoE configs served at full width, their depth cut to MOE_LAYERS
 MOE_ARCHS = ("qwen3_moe_235b_a22b", "llama4_scout_17b_a16e")
 MOE_LAYERS = 4
 # the hybrid config served at full width: one superblock (attn_every = 8
 # of its 72 layers), every FFN dense (n_experts = 0)
 JAMBA = "jamba_1_5_large_398b"
+# the ssm config, served at full width and full depth (24 layers, sLSTM
+# at 5, 13 and 21); its rms rows and its normalisers' rows: a decode
+# step's B x H = 16 mLSTM rows of 512 and a prefill chunk's 16 x 64, the
+# sLSTM's [B, H, 256]
+XLSTM = "xlstm_350m"
+XLSTM_D, XLSTM_ROWS, XLSTM_HD = 1024, (16, 16 * 64), 512
+XLSTM_SLSTM = (4, 4, 256)
 # the wait between opening the profiler's window and the profiled tick,
 # and between the tick's end and closing it
 PROFILE_SETTLE_S = 0.05
@@ -491,6 +512,15 @@ def k1_sites(cfg) -> list:
     experts)."""
     D, F, q, kv = (cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.hd,
                    cfg.n_kv_heads * cfg.hd)
+    if cfg.family == "ssm":
+        # an mLSTM layer's (the 2x up-projected space of 2D) and an sLSTM
+        # layer's; no epilogue at any site (the residual is added after
+        # the mixer); sLSTM's w has up_proj's shape
+        up = 2 * D
+        return [("up_proj / sLSTM w", D, 2 * up, None, False, False),
+                ("wq/wk/wv", up, up, None, False, False),
+                ("mLSTM down_proj", up, D, None, False, False),
+                ("sLSTM down_proj", q, D, None, False, False)]
     if cfg.family == "hybrid":
         # a superblock's: the attention slot's projections (wo with the
         # residual in decode), a Mamba slot's in_proj / out_proj, the
@@ -640,7 +670,8 @@ def kernel_phase(torch, dev, timer):
                 del x, w, r, ref
 
     expert_cases(torch, dev, timer, g, record)
-    jamba_k1_cases(torch, dev, timer, g, record)
+    for arch in (JAMBA, XLSTM):
+        family_k1_cases(torch, dev, timer, g, record, arch)
 
     # K1 / K7 where the ring meets its edges: K not a multiple of BK with
     # N not a multiple of 4 (4 B copies), K % 4 != 0, and K shorter than
@@ -755,10 +786,10 @@ def kernel_phase(torch, dev, timer):
     # tolerance: denominators and quotients bit-equal.  Library: torch's
     # f32 rms_norm, a yardstick with an exact divide and no RAPID one
     # and jamba's 8192-wide rows at depths 1, 2, 3 (8192 f32 rows fill a
-    # block's shared memory past depth 4)
+    # block's shared memory past depth 4), and xlstm_350m's 1024-wide ones
     rms_norm = torch.nn.functional.rms_norm
     for rows, n in [(r, D) for r in (1, DECODE_M, CHUNK_M, 37, PREFILL_M)] + [
-            (r, d) for d in (SC_D,) + MOE_D + (JAMBA_D,)
+            (r, d) for d in (SC_D,) + MOE_D + (JAMBA_D, XLSTM_D)
             for r in (DECODE_M, CHUNK_M, PREFILL_M)]:
         x = randn(rows, n, std=3.0)
         ref, rden = rms_div_plain(x, 1e-6, "rapid9", return_denom=True)
@@ -987,7 +1018,8 @@ def kernel_phase(torch, dev, timer):
         return out
 
     for rows, hd in ((64 * 32, HD), (LONG_PROMPT * 32, HD),
-                     (64 * SC_HEADS, SC_HD), (64 * QWEN3_HEADS, SC_HD)):
+                     (64 * SC_HEADS, SC_HD), (64 * QWEN3_HEADS, SC_HD),
+                     *((r, XLSTM_HD) for r in XLSTM_ROWS)):
         a = with_specials(randn(rows, hd))
         b = with_specials(randn(rows).abs() * 40 + 1)
         ref = div_rowbcast_plain(a, b, "rapid9")
@@ -1033,8 +1065,43 @@ def kernel_phase(torch, dev, timer):
                 "library": "a / b, f32 (exact divide, no RAPID; never "
                            "called by the port)"})
         del a, b, got, ref
+    slstm_div_case(torch, dev, timer, record, with_specials)
     integer_and_batched_cases(torch, dev, timer, g, record, at)
     return cases
+
+
+def slstm_div_case(torch, dev, timer, record, with_specials):
+    """K6 at the sLSTM normaliser, ``c / max(n, 1e-6)`` over [4, 4, 256]
+    (once a layer and step), eagerly and replayed from a captured CUDA
+    graph, as the decode step runs it: the same bits as the plain
+    version, special operands included."""
+    from repro_torch.kernels.fused_div.ops import div_elementwise, div_plain
+
+    g = torch.Generator(device=dev).manual_seed(25)
+    a = with_specials(torch.randn(XLSTM_SLSTM, generator=g, device=dev))
+    b = torch.clamp_min(torch.rand(XLSTM_SLSTM, generator=g, device=dev)
+                        * 3, 1e-6)
+    ref = div_plain(a, b, "rapid9")
+    eager = div_elementwise(a, b, "rapid9")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = div_elementwise(a, b, "rapid9")
+    static.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    ok = same_bits(eager, ref) and same_bits(static, ref)
+    fin = torch.isfinite(ref)
+    k6 = lambda: div_elementwise(a, b, "rapid9")  # noqa: E731
+    n = a.numel()
+    record("div", "a=b=[" + ",".join(map(str, XLSTM_SLSTM))
+           + "] (sLSTM; eager and graph replay)",
+           abs_max(eager[fin], ref[fin]), 0 if ok else -1, ok,
+           timer.graph(k6, 200), timer(lambda: div_plain(a, b, "rapid9"), 3),
+           4 * 3 * n, 3 * n, INT32_OPS_PER_S,
+           {"call_ms": timer(k6, 20), "graph_equal": ok,
+            "library_ms": timer.graph(lambda: a / b, 200),
+            "library": "a / b, f32 (exact divide, no RAPID; never called by "
+                       "the port)"})
 
 
 def expert_cases(torch, dev, timer, g, record):
@@ -1105,11 +1172,13 @@ def expert_cases(torch, dev, timer, g, record):
                 del x, w, ref, got
 
 
-def jamba_k1_cases(torch, dev, timer, g, record):
-    """K1 at jamba_1_5_large_398b's 2-D sites (:func:`k1_sites`: in_proj
-    8192 -> 32768, out_proj 16384 -> 8192, the dense FFN's w1 / w3 8192 ->
-    24576 and w2 24576 -> 8192 with no residual, the attention slot's
-    projections) at M = 4, 64 and 512, at the default stage count,
+def family_k1_cases(torch, dev, timer, g, record, arch):
+    """K1 at the 2-D sites of ``arch`` (:func:`k1_sites`; jamba_1_5_large
+    _398b: in_proj 8192 -> 32768, out_proj 16384 -> 8192, the dense FFN's
+    w1 / w3 8192 -> 24576 and w2 24576 -> 8192 with no residual, the
+    attention slot's projections; xlstm_350m: up_proj / sLSTM's w 1024 ->
+    4096, wq / wk / wv 2048 -> 2048, the down_projs 2048 -> 1024 and 1024
+    -> 1024) at M = 4, 64 and 512, at the default stage count,
     bit-equal to the plain version, timed beside its bound and f32
     ``torch.matmul``.  At M = 64 and 512 the plain version (one k at a
     time: its cost follows K x N) checks the first 2048 / 1024 columns:
@@ -1121,7 +1190,7 @@ def jamba_k1_cases(torch, dev, timer, g, record):
     from repro_torch.kernels.spec import resolve_spec
 
     for m in (DECODE_M, CHUNK_M, PREFILL_M):
-        for site, k, n, act, res, _ in k1_sites(get_config(JAMBA)):
+        for site, k, n, act, res, _ in k1_sites(get_config(arch)):
             x = torch.randn((m, k), generator=g, device=dev)
             w = torch.randn((k, n), generator=g, device=dev) * k ** -0.5
             r = (torch.randn((m, n), generator=g, device=dev) if res
@@ -1143,7 +1212,7 @@ def jamba_k1_cases(torch, dev, timer, g, record):
             exact_ms = timer(lambda: torch.matmul(x, w), 5)
             lib = library_k1(torch, timer, x, w, r, act, exact_ms)
             record("log_matmul" if depth == 1 else "log_matmul_pipelined",
-                   f"jamba {site} M={m} K={k} N={n}"
+                   f"{arch.split('_')[0]} {site} M={m} K={k} N={n}"
                    + (f" {act}" if act else "") + (" +res" if res else "")
                    + f" depth={depth}"
                    + ("" if cols == n else f" (plain: {cols} columns)"),
@@ -1606,11 +1675,16 @@ def profiled(torch, label: str, run) -> dict:
               if any("<" in e.key for e in k1) else None)
     casts = sum(e.self_device_time_total for e in kern
                 if "copy" in e.key) / 1e3
+    divs = (sum(e.self_device_time_total for e in kern
+                if DIV_NAMES.search(e.key)) / 1e3
+            if all("<" in e.key for e in kern if "row_slab_kernel" in e.key)
+            else None)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:3]
     k1_ms = sum(e.self_device_time_total for e in k1) / 1e3
     res = {"wall_ms": wall, "kernel_ms": dev,
            "busy": dev / wall if dev else None, "k1_ms": k1_ms,
            "expert_k1_ms": expert, "copy_kernels_ms": casts,
+           "div_ms": divs,
            "launches_vs_profiled": {
                "+".join(w): list(v) for w, v in seen.items()},
            "top": [(e.key[:70], e.count, e.self_device_time_total / 1e3)
@@ -1961,7 +2035,10 @@ def engine_makers(model, params) -> dict:
 def path_kernels(cfg, path: str):
     """The kernels a serve path of ``cfg`` must launch, and those it must
     not: K3 serves the lockstep prefill's attention, and in the
-    continuous engine only an MoE router's gates."""
+    continuous engine only an MoE router's gates; an xLSTM (lockstep
+    only) has no attention, and its normalisers take K5 and K6."""
+    if cfg.family == "ssm":
+        return XLSTM_KERNELS, ("softmax_div", "flash_decode")
     if path == "lockstep":
         return LOCKSTEP_KERNELS, ()
     if cfg.n_experts:
@@ -2266,36 +2343,16 @@ def jamba_phase(torch, dev):
     sb = params["blocks"][0]
 
     def mixer_ops(label, x, decode):
-        """One Mamba mixer (slot 0) at ``x``'s shape, 5 times under
-        torch.profiler: its kernels' device time a call, K1's apart."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
+        """One Mamba mixer (slot 0) at ``x``'s shape, profiled apart
+        (:func:`mixer_profile`): its kernels' device time a call, K1's
+        apart."""
         p = sb["slot0"]["mamba"]
         if decode:
             cache = mamba_init_cache(cfg, x.shape[0], x.dtype, dev)
             run = lambda: mamba_decode(x, cache, p, cfg)  # noqa: E731
         else:
             run = lambda: mamba(x, p, cfg)  # noqa: E731
-        with torch.inference_mode():
-            run()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
-                    run()
-                torch.cuda.synchronize()
-        kern = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
-        total = sum(e.self_device_time_total for e in kern) / 5e3
-        k1 = sum(e.self_device_time_total for e in kern
-                 if K1_NAMES.search(e.key)) / 5e3
-        top = sorted((e for e in kern if not K1_NAMES.search(e.key)),
-                     key=lambda e: -e.self_device_time_total)[:4]
-        log(f"jamba mixer {label}: kernels {total:.3f} ms a call, K1 "
-            f"{k1:.3f}, the mixer's torch ops {total - k1:.3f}; top "
-            + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 5e3:.3f}"
-                        for e in top))
-        return {"kernel_ms": total, "k1_ms": k1, "ops_ms": total - k1}
+        return mixer_profile(torch, f"jamba mixer {label}", run)
 
     def profile(path, engine):
         rec = profile_lockstep(torch, "jamba", engine, model, params,
@@ -2401,6 +2458,255 @@ def jamba_phase(torch, dev):
                               "plain_s": t_p}
     rec["e2e_2layer_equal"] = True
     del params, params2, make2, sb, p, got, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mixer_profile(torch, label, run, reps=5) -> dict:
+    """``run()`` (one mixer call) ``reps`` times under torch.profiler: its
+    kernels' device time a call, K1's apart, and the top other kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kern) / (reps * 1e3)
+    k1 = sum(e.self_device_time_total for e in kern
+             if K1_NAMES.search(e.key)) / (reps * 1e3)
+    top = sorted((e for e in kern if not K1_NAMES.search(e.key)),
+                 key=lambda e: -e.self_device_time_total)[:4]
+    log(f"{label}: kernels {total:.3f} ms a call, K1 {k1:.3f}, the mixer's "
+        f"torch ops {total - k1:.3f}; top "
+        + "; ".join(f"{e.key[:60]} "
+                    f"{e.self_device_time_total / (reps * 1e3):.3f}"
+                    for e in top))
+    return {"kernel_ms": total, "k1_ms": k1, "ops_ms": total - k1}
+
+
+def xlstm_phase(torch, dev, timer):
+    """Full-width, full-depth xlstm_350m (24 layers, sLSTM at 5, 13 and
+    21, d_model 1024, 4 heads; mLSTM in the 2x up-projected space: heads
+    of 512; RAPID rapid10 / rapid9, f32 params from a seed, bf16
+    activations; no depth cut) through the lockstep engine
+    (:func:`serve_paths`: 4 requests of 96-128 prompt tokens, 16 greedy
+    tokens, cache_n 256) on the graph route and then eagerly: equal
+    tokens and launch counts, ``trace_counts`` {"decode": 1, "prefill":
+    1}, K1, the rms divides, K5 (as K8 at the default depth) and K6
+    launched exactly as often as the steps call them, K3 and K4 never;
+    the continuous engine refuses the family.  On graphs one decode step
+    (a replay) and the prefill run under torch.profiler (the busy share,
+    K1's, K5 + K6's), one mLSTM and one sLSTM layer's torch ops are
+    profiled apart at both shapes, and the in-place mLSTM C update is
+    timed.  Then a 2-layer full-width copy (an mLSTM layer, then an sLSTM
+    layer) kernels (graph route) vs plain (eager) at a light load (4
+    requests of 16-22 tokens, 4 greedy tokens: equal), and one mLSTM and
+    one sLSTM layer kernels vs plain at 4 x 100 tokens (two chunks, the
+    second padded: the carry) and then 4 x 1 on that state: the same
+    bits, output and state."""
+    from repro_torch.configs.base import RAPID, get_config
+    from repro_torch.kernels import plain_versions, reset_launch_counts
+    from repro_torch.models import xlstm as xl
+    from repro_torch.models.model import Model
+    from repro_torch.serve.scheduler import ContinuousServeEngine
+
+    cfg = get_config(XLSTM).with_(approx=RAPID)
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    kinds = model._xlstm_kinds()
+    n_s = kinds.count("slstm")
+    n_m = len(kinds) - n_s
+    up, mhd = xl.mlstm_dims(cfg)
+    log(f"xlstm: {cfg.n_layers} layers ({n_m} mLSTM, sLSTM at "
+        f"{list(cfg.slstm_at)}), d_model={cfg.d_model}, heads {cfg.n_heads}"
+        f" (mLSTM {mhd} wide in {up}, sLSTM {cfg.hd}), vocab "
+        f"{cfg.padded_vocab}, params {n_params / 1e6:.3f}e6 f32 "
+        f"({n_params * 4 / 2**30:.2f} GiB, init "
+        f"{time.perf_counter() - t0:.1f}s)")
+    try:
+        ContinuousServeEngine(model, params)
+    except ValueError as e:
+        log(f"xlstm: ContinuousServeEngine refuses the family: {e}")
+    else:
+        raise AssertionError("ContinuousServeEngine took the ssm family")
+    prompts = prompts_for(cfg.vocab_size)
+    max_new = 16
+    plen = max(map(len, prompts))
+    chunks = -(-plen // 64)
+    # a step's launches: K1 5 an mLSTM layer (up_proj, wq, wk, wv,
+    # down_proj) and 2 an sLSTM layer (w, down_proj); an rms divide a
+    # layer and the final norm; K5 (K8) once an mLSTM layer and chunk;
+    # K6 once an sLSTM layer and time step
+    k1_a_step = 5 * n_m + 2 * n_s
+    rms_a_step = cfg.n_layers + 1
+    blocks = params["blocks"]
+    mp = blocks[kinds.index("mlstm")]["mlstm"]
+    sp = blocks[kinds.index("slstm")]["slstm"]
+
+    def profile(path, engine):
+        rec = profile_lockstep(torch, "xlstm", engine, model, params,
+                               prompts)
+        g = torch.Generator(device=dev).manual_seed(3)
+        B = len(prompts)
+        for label, decode in (("decode", True), ("prefill", False)):
+            shape = (B, cfg.d_model) if decode else (B, plen, cfg.d_model)
+            x = torch.randn(shape, generator=g, device=dev).to(
+                torch.bfloat16)
+            ops = {}
+            for kind, p, n in (("mlstm", mp, n_m), ("slstm", sp, n_s)):
+                if decode:
+                    cache = xl.layer_init_cache(cfg, kind, B, dev)
+                    fn = getattr(xl, f"{kind}_decode")
+                    run = lambda fn=fn, p=p, c=cache: fn(x, c, p, cfg)  # noqa: E731,E501
+                else:
+                    fn = getattr(xl, kind)
+                    run = lambda fn=fn, p=p: fn(x, p, cfg)  # noqa: E731
+                ops[kind] = mixer_profile(
+                    torch, f"xlstm {kind} layer {label}", run,
+                    reps=5 if decode or kind == "mlstm" else 1)
+                ops[kind]["layers"] = n
+            step = rec[label]
+            mixers = sum(o["ops_ms"] * o["layers"] for o in ops.values())
+            step["mixer_ops"] = ops
+            step["mixer_ops_share"] = mixers / step["wall_ms"]
+            log(f"xlstm {label}: the mixers' torch ops {mixers:.2f} ms "
+                f"({n_m} x mLSTM + {n_s} x sLSTM) = "
+                f"{step['mixer_ops_share']:.1%} of the profiled step "
+                f"({step['wall_ms']:.1f} ms); K1 {step['k1_ms']:.2f} ms "
+                f"({step['k1_ms'] / step['wall_ms']:.1%}); K5 + K6 "
+                + ("not measured (no template arguments in the profiler's "
+                   "names)" if step["div_ms"] is None else
+                   f"{step['div_ms']:.3f} ms "
+                   f"({step['div_ms'] / step['wall_ms']:.1%})")
+                + f"; busy {step['busy']}")
+        # the decode step's in-place C update of one mLSTM layer: the
+        # f64 fma over [B, H, 512, 512] and the copy into the cache
+        C = torch.randn((B, cfg.n_heads, mhd, mhd), generator=g,
+                        device=dev)
+        n_ = torch.randn((B, cfg.n_heads, mhd), generator=g, device=dev)
+        kv = [torch.randn((B, cfg.n_heads, mhd), generator=g, device=dev)
+              for _ in range(2)]
+        wf, wi = (torch.rand((B, cfg.n_heads), generator=g, device=dev)
+                  for _ in range(2))
+
+        def update():
+            Cn, nn_ = xl.mlstm_decode_update(wf, C, n_, wi, *kv)
+            C.copy_(Cn)
+            n_.copy_(nn_)
+        ms = timer(update, 10)
+        state_bytes = 2 * 4 * C.numel()  # read once, written once
+        rec["c_update"] = {"ms": ms, "state_mib": 4 * C.numel() / 2**20,
+                           "bound_ms": state_bytes / HBM_BYTES_PER_S * 1e3,
+                           "layers": n_m}
+        log(f"xlstm mLSTM C update (one layer, [{B},{cfg.n_heads},{mhd},"
+            f"{mhd}] f32 = {rec['c_update']['state_mib']:.0f} MiB, f64 fma "
+            f"+ copy): {ms:.3f} ms, bound {rec['c_update']['bound_ms']:.4f}"
+            f" ms (the state read and written once); x {n_m} layers = "
+            f"{ms * n_m:.2f} ms a step")
+        del C, n_, kv
+        return rec
+
+    rec = {"params": n_params, "layers": cfg.n_layers,
+           "slstm_at": list(cfg.slstm_at), "k1_a_step": k1_a_step}
+    runs = serve_paths(torch, "xlstm", cfg,
+                       {"lockstep": engine_makers(model, params)["lockstep"]},
+                       prompts, max_new, ("graph", "eager"), profile)
+    g_run, e_run = runs["lockstep"]["graph"], runs["lockstep"]["eager"]
+    counts = g_run["launches"]
+    n_pf, n_dc = g_run["prefill"]["n"], g_run["decode"]["n"]
+    want = {"log_matmul": g_run["steps"] * k1_a_step,
+            "rms_div": g_run["steps"] * rms_a_step,
+            "div_rowbcast": n_m * (n_dc + n_pf * chunks),
+            "div": n_s * (n_dc + n_pf * plen),
+            "softmax_div": 0, "flash_decode": 0}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"xlstm: {n_pf} prefill and {n_dc} decode "
+                             f"steps launched {got}, expected {want}")
+    log(f"xlstm lockstep graph vs eager: decode step "
+        f"{g_run['decode']['rest_mean_ms']:.2f} vs "
+        f"{e_run['decode']['rest_mean_ms']:.2f} ms, prefill "
+        f"{g_run['prefill']['rest_mean_ms']:.1f} vs "
+        f"{e_run['prefill']['rest_mean_ms']:.1f} ms; tokens and launches "
+        f"equal ({got}: K1 {k1_a_step}, rms {rms_a_step} a step; K5 "
+        f"{n_m} a decode step and {n_m * chunks} a prefill; K6 {n_s} a "
+        f"decode step and {n_s * plen} a prefill), peak "
+        f"{g_run['peak_gib']:.2f} GiB")
+    rec.update(runs)
+    rec["launches_expected"] = want
+
+    # the 2-layer full-width copy: an mLSTM layer, then an sLSTM layer
+    cfg2 = cfg.with_(n_layers=2, slstm_at=(1,))
+    params2 = dict(params, blocks=[{"ln": blocks[0]["ln"], "mlstm": mp},
+                                   {"ln": blocks[cfg.slstm_at[0]]["ln"],
+                                    "slstm": sp}])
+    make2 = engine_makers(Model(cfg2), params2)
+    light = [p[:16 + 2 * i] for i, p in enumerate(prompts)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec.update(kernels_vs_plain(torch, "xlstm", {
+        "lockstep": (make2["lockstep"], *path_kernels(cfg2, "lockstep"))},
+        light, 4))
+
+    # one mLSTM and one sLSTM layer, kernels vs plain: the prefill form
+    # over 4 x 100 tokens (two chunks, the second padded), then a decode
+    # step on its state; the same bits, output and state
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((4, 100, cfg.d_model), generator=g,
+                    device=dev).to(torch.bfloat16)
+    xd = torch.randn((4, cfg.d_model), generator=g,
+                     device=dev).to(torch.bfloat16)
+
+    def run():
+        outs = []
+        with torch.inference_mode():
+            for kind, p in (("mlstm", mp), ("slstm", sp)):
+                out, st = getattr(xl, kind)(x, p, cfg)
+                cache = {k: t.clone() for k, t in st.items()}
+                dec, _ = getattr(xl, f"{kind}_decode")(xd, cache, p, cfg)
+                outs += [(f"{kind} out", out),
+                         *((f"{kind} {k}", t) for k, t in st.items()),
+                         (f"{kind} decode out", dec),
+                         *((f"{kind} decode {k}", t)
+                           for k, t in cache.items())]
+        return outs
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = run()
+    torch.cuda.synchronize()
+    t_k = time.perf_counter() - t0
+    k_counts = counts_now()
+    t0 = time.perf_counter()
+    with plain_versions():
+        ref = run()
+    torch.cuda.synchronize()
+    t_p = time.perf_counter() - t0
+    bad = [n for (n, a), (_, b) in zip(got, ref)
+           if not same_bits(a.float(), b.float())
+           or not bool(torch.isfinite(a).all())]
+    log(f"xlstm layers kernels vs plain (4 x 100 tokens, then 4 x 1): "
+        f"kernels {t_k:.2f}s {json.dumps(k_counts)}, plain {t_p:.2f}s; "
+        f"differ or not finite: {bad}")
+    want = {"log_matmul": 2 * (5 + 2), "div_rowbcast": 2 + 1,
+            "div": 100 + 1}
+    if bad or any(k_counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"xlstm layers: {bad} differ; launches "
+                             f"{k_counts}, expected {want}")
+    rec["layer_bits"] = {"equal": True, "kernels_s": t_k, "plain_s": t_p,
+                         "tensors": [n for n, _ in got]}
+    rec["e2e_2layer_equal"] = True
+    del params, params2, make2, blocks, mp, sp, got, ref
     gc.collect()
     torch.cuda.empty_cache()
     return rec
@@ -3159,6 +3465,10 @@ def main() -> int:
     lap("jamba")
     gc.collect()
     torch.cuda.empty_cache()
+    xlstm = xlstm_phase(torch, dev, timer)
+    lap("xlstm")
+    gc.collect()
+    torch.cuda.empty_cache()
     ints = integer_units_phase(torch, dev, ab["parent_ab"].get("table3"))
     lap("integer_units")
     apps = apps_phase(torch, dev)
@@ -3215,6 +3525,8 @@ def main() -> int:
                                                      "continuous")),
                                       ("jamba_lockstep",
                                        jamba["lockstep"]["graph"]),
+                                      ("xlstm_lockstep",
+                                       xlstm["lockstep"]["graph"]),
                                       ("integer_units", ints),
                                       ("apps", apps), ("train", train))}
         row = {
@@ -3233,6 +3545,7 @@ def main() -> int:
               "cases": cases, "serve": serve,
               "continuous": cont, "long_prefill": long_, "depth_ab": ab,
               "starcoder2": sc2, "moe": moe, "jamba": jamba,
+              "xlstm": xlstm,
               "integer_units": ints, "apps": apps, "train": train,
               "train_2layer": train_check, "kernels": kernels,
               "phase_seconds": laps,

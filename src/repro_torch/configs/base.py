@@ -1,7 +1,7 @@
 """Config system of the port: model and approximation configs.
 
-Mirrors ``repro.configs.base`` for the dense, MoE and hybrid (Jamba)
-serve and train paths.  ``ApproxConfig`` keeps the reference's
+Mirrors ``repro.configs.base`` for the dense, MoE, hybrid (Jamba) and
+ssm (xLSTM) serve and train paths.  ``ApproxConfig`` keeps the reference's
 ``mul``/``div``/``on_*`` semantics but drops its per-site ``backends``
 map and the ``RAPID_BACKEND`` environment variable: the port has one
 dispatch path, and the device of the tensor decides it (a CPU tensor
@@ -13,15 +13,15 @@ from __future__ import annotations
 import dataclasses
 import importlib
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Tuple
 
 __all__ = ["ARCH_IDS", "ApproxConfig", "ModelConfig", "EXACT", "RAPID",
            "get_config"]
 
-# the architectures the port has (the dense, MoE and hybrid families)
+# the architectures the port has (the dense, MoE, hybrid and ssm families)
 ARCH_IDS = ("h2o_danube_1_8b", "yi_6b", "minicpm_2b", "starcoder2_7b",
             "qwen3_moe_235b_a22b", "llama4_scout_17b_a16e",
-            "jamba_1_5_large_398b")
+            "jamba_1_5_large_398b", "xlstm_350m")
 
 
 @dataclass(frozen=True)
@@ -61,7 +61,7 @@ RAPID = ApproxConfig(mul_scheme="rapid10", div_scheme="rapid9")
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | hybrid (the families the port has)
+    family: str  # dense | moe | hybrid | ssm (the families the port has)
     n_layers: int
     d_model: int
     n_heads: int
@@ -86,6 +86,8 @@ class ModelConfig:
     ssm_state: int = 16
     ssm_conv: int = 4
     ssm_expand: int = 2
+    # ssm (xlstm): the layers that are sLSTM blocks, the rest are mLSTM
+    slstm_at: Tuple[int, ...] = ()
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
     approx: ApproxConfig = field(default_factory=ApproxConfig)
@@ -108,7 +110,8 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """Tiny same-family variant for CPU tests (the reference's sizes;
-        a hybrid keeps one full period of ``attn_every`` layers)."""
+        a hybrid keeps one full period of ``attn_every`` layers, an
+        xLSTM the sLSTM blocks among its first two layers)."""
         return self.with_(
             n_layers=self.attn_every or min(self.n_layers, 2),
             d_model=128,
@@ -121,6 +124,7 @@ class ModelConfig:
             n_experts=min(self.n_experts, 4) if self.n_experts else 0,
             experts_per_token=min(self.experts_per_token, 2)
             if self.experts_per_token else 0,
+            slstm_at=tuple(i for i in self.slstm_at if i < 2),
             remat="none",
         )
 

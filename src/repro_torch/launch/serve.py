@@ -3,10 +3,11 @@
 ``python -m repro_torch.launch.serve --arch h2o_danube_1_8b --approx``
 (add ``--continuous`` for the continuous-batching engine: paged KV,
 chunked prefill, slot recycling).  ``--arch`` takes every config of the
-port, starcoder2_7b (LN, the ungated gelu MLP) and the hybrid
-jamba_1_5_large_398b included; the hybrid serves through the lockstep
-engine only (``--continuous`` raises ``ValueError``, as the reference's
-continuous engine does: its Mamba state is not paged).
+port, starcoder2_7b (LN, the ungated gelu MLP), the hybrid
+jamba_1_5_large_398b and the ssm xlstm_350m included; those two serve
+through the lockstep engine only (``--continuous`` raises
+``ValueError``, as the reference's continuous engine does: their
+recurrent state is not paged).
 
 Runs on the card (``--device cuda``, the default) with the CUDA kernels,
 its decode steps (and the continuous engine's prefill ticks) captured

@@ -19,8 +19,9 @@ update and the f32 causal conv are written with :func:`fma` in the
 reference's grouping, so given the same inputs they give its bits (the
 bf16 conv rounds after every op, as XLA does there).  The N = 16
 contractions, ``exp`` and ``log1p`` round differently from XLA's (a few
-ulp; ``tests/test_torch_hybrid.py`` states the bounds); ``silu`` takes
-XLA's steps (:func:`_silu`).
+ulp; ``tests/test_torch_hybrid.py`` states the bounds); ``silu`` and
+``softplus`` take XLA's steps (``models/xla_math.py``, shared with the
+xLSTM mixers).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense
 from repro_torch.models.params import P
+from repro_torch.models.xla_math import fma, silu, softplus
 
 __all__ = ["mamba_params", "mamba", "mamba_decode", "mamba_init_cache",
            "fma", "chunk_scan"]
@@ -60,48 +62,14 @@ def mamba_params(cfg: ModelConfig) -> dict:
     }
 
 
-def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` on f32 tensors, rounded once (a fused multiply-add).
-
-    The product of two f32 values is exact in f64; the f64 sum is rounded
-    to odd (an inexact sum with an even last bit moves one step toward the
-    exact value), and the cast to f32 then gives the correctly rounded
-    result.  The same f64 ops on the CPU and on the card: the same bits.
-    """
-    p = a.double() * b.double()
-    cd = c.double()
-    s = p + cd
-    bb = s - p
-    err = (p - (s - bb)) + (cd - bb)  # the exact sum is s + err (TwoSum)
-    inexact = (err != 0) & ((s.view(torch.int64) & 1) == 0) & s.isfinite()
-    toward = torch.where(err > 0, torch.inf, -torch.inf).double()
-    return torch.where(inexact, torch.nextafter(s, toward), s).float()
-
-
-def _silu(x):
-    """The reference's ``jax.nn.silu`` as XLA computes it: ``x *
-    logistic(x)``.  In bf16 XLA expands the logistic to ``1 / (1 +
-    exp(-x))`` with every op rounded to bf16, and so does this (bit-equal
-    on the CPU); in f32 ``torch.sigmoid`` is within an ulp of XLA's."""
-    if x.dtype == torch.float32:
-        return x * torch.sigmoid(x)
-    return x * (1 / (1 + torch.exp(-x)))
-
-
-def _softplus(x):
-    # the reference's jax.nn.softplus: logaddexp(x, 0) in its own steps
-    out = torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
-    return torch.where(torch.isnan(x), x, out)
-
-
 def _ssm_inputs(x_in, params, cfg: ModelConfig):
     """Common pre-scan computation. x_in: [..., d_inner] (post conv+silu)."""
     _, dt_rank = _dims(cfg)
     N = cfg.ssm_state
     xdbc = torch.matmul(x_in.float(), params["x_proj"].float())
     dt_r, Bm, Cm = torch.split(xdbc, [dt_rank, N, N], dim=-1)
-    dt = _softplus(torch.matmul(dt_r, params["dt_proj"].float())
-                   + params["dt_bias"].float())  # [..., d_inner]
+    dt = softplus(torch.matmul(dt_r, params["dt_proj"].float())
+                  + params["dt_bias"].float())  # [..., d_inner]
     A = -torch.exp(params["a_log"].float())  # [d_inner, N]
     return dt, A, Bm, Cm
 
@@ -177,7 +145,7 @@ def mamba(x, params, cfg: ModelConfig):
     x_in, z = torch.chunk(xz, 2, dim=-1)
     x_in, conv_state = _conv_causal(x_in, params["conv_w"].to(x.dtype),
                                     params["conv_b"].to(x.dtype))
-    x_in = _silu(x_in)
+    x_in = silu(x_in)
 
     dt, A, Bm, Cm = _ssm_inputs(x_in, params, cfg)
     xf = x_in.float()
@@ -200,7 +168,7 @@ def mamba(x, params, cfg: ModelConfig):
     y = torch.cat(ys, dim=1)[:, :S]
 
     y = fma(params["d_skip"].float().expand_as(xf), xf, y)
-    y = (y * _silu(z.float())).to(x.dtype)
+    y = (y * silu(z.float())).to(x.dtype)
     out = dense(y, params["out_proj"], acfg, "mlp")
     return out, (h.contiguous(), conv_state)
 
@@ -227,7 +195,7 @@ def mamba_decode(x, cache: dict, params, cfg: ModelConfig):
     x_in, conv_state = _conv_causal(
         x_in, params["conv_w"].to(x.dtype), params["conv_b"].to(x.dtype),
         state=cache["conv"])
-    x_in = _silu(x_in)[:, 0]  # [B, di]
+    x_in = silu(x_in)[:, 0]  # [B, di]
     z = z[:, 0]
 
     dt, A, Bm, Cm = _ssm_inputs(x_in, params, cfg)
@@ -238,6 +206,6 @@ def mamba_decode(x, cache: dict, params, cfg: ModelConfig):
     cache["conv"].copy_(conv_state)
     y = _contract_state(h, Cm)
     y = fma(params["d_skip"].float().expand_as(xf), xf, y)
-    y = (y * _silu(z.float())).to(x.dtype)
+    y = (y * silu(z.float())).to(x.dtype)
     out = dense(y[:, None, :], params["out_proj"], acfg, "mlp")[:, 0]
     return out, cache

@@ -1,7 +1,7 @@
-"""Model API of the port, the decoder families dense and moe and the
-hybrid family (Jamba).
+"""Model API of the port, the decoder families dense and moe, the
+hybrid family (Jamba) and the ssm family (xLSTM).
 
-The port of the dense, MoE and hybrid paths of
+The port of the dense, MoE, hybrid and ssm paths of
 ``repro.models.model.Model``:
 
   * ``param_specs()`` / ``init(seed, device)`` -- one source of truth for
@@ -20,7 +20,8 @@ The port of the dense, MoE and hybrid paths of
 
 Params and caches are dicts; ``blocks``/``layers`` are lists with one
 entry per layer (the hybrid family: per superblock of ``attn_every``
-layers, each a dict of ``"slot{s}"`` subtrees).  ``cache["pos"]`` is a
+layers, each a dict of ``"slot{s}"`` subtrees; the ssm family: per
+layer ``{"ln", "mlstm" | "slstm"}``).  ``cache["pos"]`` is a
 0-dim int32 tensor on the cache's device, which ``decode_step`` advances
 in place: the step reads nothing back to the host, so an engine can
 capture it in a CUDA graph (``serve/compiled.py``).
@@ -35,7 +36,11 @@ hybrid family (jamba_1_5_large_398b) stacks superblocks of Mamba mixers
 and one attention slot (``models/hybrid.py``, ``models/mamba.py``); its
 decode cache holds each Mamba slot's state beside the attention slot's
 ring, so it serves through the lockstep engine only: ``decode_paged``
-and the paged cache raise ``ValueError``, as the reference's.
+and the paged cache raise ``ValueError``, as the reference's.  So does
+the ssm family (xlstm_350m: mLSTM layers with sLSTM layers at
+``cfg.slstm_at``, ``models/xlstm.py``), each layer ``x + mixer(ln(x))``;
+its cache holds every layer's recurrent state and no slot positions
+(the reference's ``cache_specs`` pops ``slots``).
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.ops import MatmulTape, matmul_tape
 from repro_torch.device import resolve_device
 from repro_torch.models import hybrid as hy
+from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import _MAXI32, apply_norm, dense, norm_params
 from repro_torch.models.params import P, materialize
 from repro_torch.models.transformer import (attn_cache_specs, block_apply,
@@ -59,7 +65,7 @@ from repro_torch.models.transformer import (attn_cache_specs, block_apply,
 __all__ = ["Model"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_FAMILIES = ("dense", "moe", "hybrid")
+_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 _ACTS = ("silu", "gelu")
 _NORMS = ("rms", "ln")
 
@@ -91,6 +97,9 @@ class Model:
         if cfg.family == "hybrid":
             blocks = [hy.superblock_params(cfg)
                       for _ in range(cfg.n_layers // cfg.attn_every)]
+        elif cfg.family == "ssm":
+            blocks = [xl.layer_params(cfg, kind)
+                      for kind in self._xlstm_kinds()]
         else:
             blocks = [block_params(cfg) for _ in range(cfg.n_layers)]
         specs = {
@@ -106,9 +115,20 @@ class Model:
         return materialize(self.param_specs(), seed, resolve_device(device),
                            self.cfg.param_dtype)
 
+    def _xlstm_kinds(self) -> list:
+        """Each layer's mixer: "slstm" at ``cfg.slstm_at``, else "mlstm"."""
+        return ["slstm" if i in self.cfg.slstm_at else "mlstm"
+                for i in range(self.cfg.n_layers)]
+
     def init_cache(self, batch: int, cache_n: int, device=None):
         dev = resolve_device(device)
         cfg = self.cfg
+        if cfg.family == "ssm":
+            # every layer's recurrent state; no slots (nothing is cached
+            # by position, so ``cache_n`` sizes nothing)
+            return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
+                    "layers": [xl.layer_init_cache(cfg, kind, batch, dev)
+                               for kind in self._xlstm_kinds()]}
         if cfg.family == "hybrid":
             layers = [materialize(hy.superblock_cache_specs(cfg, batch,
                                                             cache_n), 0, dev)
@@ -190,7 +210,8 @@ class Model:
         x = self._embed(params, tokens)
         pos = torch.arange(tokens.shape[1], dtype=torch.int32,
                            device=tokens.device)
-        body = (_superblock_body if cfg.family == "hybrid" else _block_body)
+        body = {"hybrid": _superblock_body,
+                "ssm": _xlstm_body}.get(cfg.family, _block_body)
         x = self._run_stack(params["blocks"], partial(body, cfg=cfg, pos=pos),
                             x, remat)
         x = apply_norm(x, params["final_norm"], cfg)
@@ -221,6 +242,8 @@ class Model:
         B, S = tokens.shape
         dev = tokens.device
         x = self._embed(params, tokens)
+        if cfg.family == "ssm":
+            return self._xlstm_prefill(params, x)
         pos = torch.arange(S, dtype=torch.int32, device=dev)
         C = cache_len(cfg, cache_n)
         ring = (torch.arange(C, device=dev) + (S - C)) % C if C < S else None
@@ -252,21 +275,36 @@ class Model:
         x = apply_norm(x[:, -1:], params["final_norm"], cfg)
         return self._logits(params, x)[:, 0], cache
 
+    def _xlstm_prefill(self, params, x):
+        """The ssm family's prefill: each layer's full-sequence mixer, its
+        final state the layer's cache."""
+        cfg = self.cfg
+        cache = {"pos": torch.tensor(x.shape[1], dtype=torch.int32,
+                                     device=x.device), "layers": []}
+        for lp in params["blocks"]:
+            x, state = xl.layer_apply(x, lp, cfg)
+            cache["layers"].append(state)
+        x = apply_norm(x[:, -1:], params["final_norm"], cfg)
+        return self._logits(params, x)[:, 0], cache
+
     def decode_step(self, params, tokens, cache):
         """tokens: [B] integer tensor -> (logits [B, V] f32, cache).
 
-        Updates the cache in place (k/v ring slots, slot positions) and
-        advances the ``cache["pos"]`` tensor in place; reads nothing back
-        to the host.
+        Updates the cache in place (k/v ring slots and slot positions, or
+        the ssm family's recurrent state) and advances the ``cache["pos"]``
+        tensor in place; reads nothing back to the host.
         """
         cfg = self.cfg
         pos = cache["pos"]
         x = self._embed(params, tokens[:, None])[:, 0]
-        slots = cache["slots"]
-        slots.index_copy_(1, ring_slot(pos, slots.shape[1]),
-                          pos.expand(slots.shape[0], 1))
+        slots = cache.get("slots")
+        if slots is not None:
+            slots.index_copy_(1, ring_slot(pos, slots.shape[1]),
+                              pos.expand(slots.shape[0], 1))
         for lp, lc in zip(params["blocks"], cache["layers"]):
-            if cfg.family == "hybrid":
+            if cfg.family == "ssm":
+                x = xl.layer_decode(x, lp, lc, cfg)
+            elif cfg.family == "hybrid":
                 x, _ = hy.superblock_decode(x, lp, lc, slots, pos, cfg)
             else:
                 x, _ = block_decode(x, lp, lc, slots, pos, cfg,
@@ -289,8 +327,8 @@ class Model:
         are garbage).  The pools are written in place.
 
         Returns (logits [B, V] f32 at each row's last valid token, cache).
-        The hybrid family raises ``ValueError`` (its Mamba state is not
-        paged), as the reference.
+        The hybrid and ssm families raise ``ValueError`` (their recurrent
+        state is not paged), as the reference.
         """
         self._paged_family("paged decode steps")
         B, S = tokens.shape
@@ -317,3 +355,8 @@ def _block_body(x, lp, *, cfg: ModelConfig, pos):
 def _superblock_body(x, lp, *, cfg: ModelConfig, pos):
     """One hybrid superblock of the full-sequence forward."""
     return hy.superblock_apply(x, lp, cfg, pos)
+
+
+def _xlstm_body(x, lp, *, cfg: ModelConfig, pos):
+    """One xLSTM layer of the full-sequence forward, without its state."""
+    return xl.layer_apply(x, lp, cfg)[0]

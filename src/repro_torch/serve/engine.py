@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import Model
-from repro_torch.models.params import tree_items
+from repro_torch.models.params import tree_items, tree_leaves
 from repro_torch.serve.compiled import CompiledStep
 
 __all__ = ["ServeEngine"]
@@ -57,15 +57,16 @@ class ServeEngine:
     def _decode_cache(self, cache: dict) -> dict:
         """The persistent cache of ``cache``'s shape, holding a copy of
         every leaf of it (made outside inference mode: the graph writes it
-        on every replay)."""
-        B = cache["slots"].shape[0]
+        on every replay).  B is any layer leaf's first dim: an xLSTM cache
+        has no ``slots``."""
+        B = tree_leaves(cache["layers"])[0].shape[0]
         static = self._caches.get((B, self.cache_n))
         if static is None:
             with torch.inference_mode(False):
                 static = self._caches[B, self.cache_n] = self.model.init_cache(
                     B, self.cache_n, self.device)
-        # every leaf: the attention caches, and a hybrid superblock's
-        # Mamba states (h, conv) beside them
+        # every leaf: the attention caches, a hybrid superblock's Mamba
+        # states (h, conv) beside them, an xLSTM layer's recurrent state
         for (path, dst), (spath, src) in zip(tree_items(static),
                                              tree_items(cache)):
             assert path == spath, (path, spath)

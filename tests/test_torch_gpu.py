@@ -1901,3 +1901,182 @@ def test_cuda_captured_hybrid_decode_step_replays_eager_bits(cuda):
     assert step.trace_counts == {"decode": 1}
     for (path, a), (_, b) in zip(tree_items(cache), tree_items(eager)):
         assert torch.equal(a, b), path
+
+
+# --------------------------------------------------------------------------
+# the ssm family (xlstm_350m): K1 at its widths, K5 over rows of 512, K6
+# inside a CUDA graph, the mLSTM and sLSTM layers, the captured decode step
+# --------------------------------------------------------------------------
+
+# xlstm's 2-D K1 sites: up_proj and sLSTM's w (1024 -> 4096), wq / wk / wv
+# (2048 -> 2048), mLSTM's down_proj (2048 -> 1024), sLSTM's (1024 -> 1024)
+_XLSTM_SITES = [(1024, 4096), (2048, 2048), (2048, 1024), (1024, 1024)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 64])
+@pytest.mark.parametrize("k,n", _XLSTM_SITES)
+def test_cuda_log_matmul_xlstm_sites(cuda, m, k, n):
+    """K1 at xlstm's full-width sites (no epilogue) at the default stage
+    count, a decode step's rows and a prefill chunk's, against its plain
+    version on the card: the same bits."""
+    rng = np.random.default_rng(m + k + n)
+    x = T(randn(rng, m, k)).to(cuda)
+    w = T(randn(rng, k, n, scale=k ** -0.5)).to(cuda)
+    got = log_matmul(x, w, "rapid10")
+    assert_same_bits(got.cpu().numpy(),
+                     log_matmul_plain(x, w, "rapid10").cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 2, 3])
+@pytest.mark.parametrize("rows", [16, 1024])
+def test_cuda_div_rowbcast_xlstm_rows(cuda, rows, depth):
+    """K5 (depth 1) and K8 (depth 2, 3) at the mLSTM normaliser: B x H =
+    16 rows of 512 a decode step, 16 x 64 a prefill chunk, special
+    operands included: the same bits as the plain version."""
+    from repro_torch.kernels.spec import KernelSpec, PipelineSpec
+    rng = np.random.default_rng(rows + depth)
+    a = special_sample(rng, rows * 512).reshape(rows, 512)
+    b = np.abs(randn(rng, rows)) * 40 + 1e-3
+    a, b = T(a).to(cuda), T(b).to(cuda)
+    got = div_rowbcast(a, b, "rapid9",
+                       spec=KernelSpec(pipeline=PipelineSpec(depth=depth)))
+    assert_same_bits(got.cpu().numpy(),
+                     div_rowbcast_plain(a, b, "rapid9").cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_cuda_div_elementwise_in_a_graph(cuda):
+    """K6 at the sLSTM normaliser (c / max(n, 1e-6) over [4, 4, 256])
+    captured in a CUDA graph: each replay gives the eager call's bits and
+    the plain version's, on new operands copied into the captured ones."""
+    rng = np.random.default_rng(9)
+    a = T(special_sample(rng, 4096).reshape(4, 4, 256)).to(cuda)
+    b = T(np.maximum(randn(rng, 4, 4, 256), 1e-6)).to(cuda)
+    div_elementwise(a, b, "rapid9")  # builds and stages the LUT
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = div_elementwise(a, b, "rapid9")
+    for seed in (1, 2):
+        rng = np.random.default_rng(seed)
+        a.copy_(T(randn(rng, 4, 4, 256, scale=3.0)))
+        b.copy_(T(np.maximum(randn(rng, 4, 4, 256), 1e-6)))
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = div_elementwise(a, b, "rapid9")
+        assert_same_bits(out.cpu().numpy(), eager.cpu().numpy())
+        assert_same_bits(out.cpu().numpy(),
+                         div_plain(a, b, "rapid9").cpu().numpy())
+
+
+def _xlstm(cuda, **over):
+    from repro_torch.configs.base import RAPID, get_config
+    from repro_torch.models.model import Model
+    cfg = get_config("xlstm_350m").reduced().with_(
+        approx=RAPID, n_layers=3, slstm_at=(1,), **over)
+    model = Model(cfg)
+    return cfg, model, model.init(0, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tokens", [(4, 100), (2, 3)])
+def test_cuda_xlstm_layers_same_bits_twice_and_as_plain(cuda, tokens):
+    """One mLSTM and one sLSTM layer of reduced xlstm on the card (bf16
+    tokens, RAPID): the prefill form (100 tokens: two chunks, the second
+    padded; 3 tokens: one short chunk), then a decode step on its state;
+    the same bits on a second run and with every kernel swapped for its
+    plain version, the state included; K1 5 and 2 launches a call, K5
+    (K8) once an mLSTM chunk and step, K6 once an sLSTM step."""
+    from repro_torch.kernels import (launch_counts, plain_versions,
+                                     reset_launch_counts)
+    from repro_torch.models import xlstm as xl
+    cfg, _, params = _xlstm(cuda)
+    B, S = tokens
+    rng = np.random.default_rng(B * S)
+    x = T(randn(rng, B, S, cfg.d_model)).to(cuda, torch.bfloat16)
+    xd = T(randn(rng, B, cfg.d_model)).to(cuda, torch.bfloat16)
+
+    def run():
+        outs = []
+        for kind, i in (("mlstm", 0), ("slstm", 1)):
+            p = params["blocks"][i][kind]
+            out, st = getattr(xl, kind)(x, p, cfg)
+            cache = {k: t.clone() for k, t in st.items()}
+            dec, _ = getattr(xl, f"{kind}_decode")(xd, cache, p, cfg)
+            outs += [out, *st.values(), dec, *cache.values()]
+        return [t.float().cpu().numpy() for t in outs]
+
+    reset_launch_counts()
+    first = run()
+    counts = launch_counts()
+    assert counts["log_matmul"] == 14
+    assert counts["div_rowbcast"] == -(-S // 64) + 1
+    assert counts["div"] == S + 1
+    again = run()
+    with plain_versions():
+        plain = run()
+    for a, b, c in zip(first, again, plain):
+        assert np.isfinite(a).all()
+        assert_same_bits(b, a)
+        assert_same_bits(c, a)
+
+
+@pytest.mark.gpu
+def test_cuda_graph_lockstep_xlstm_equal_eager(cuda):
+    """Reduced xlstm (mLSTM, sLSTM, mLSTM) through the lockstep engine,
+    graph route against eager route: equal greedy tokens and launch
+    counts, one capture, no K3 or K4; the continuous engine refuses the
+    family."""
+    from repro_torch.kernels import (launch_counts, launch_counts_by_depth,
+                                     reset_launch_counts)
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import ContinuousServeEngine
+    cfg, model, params = _xlstm(cuda)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in (5, 9, 3, 70)]
+    runs = {}
+    for graphs in (True, False):
+        reset_launch_counts()
+        eng = ServeEngine(model, params, cache_n=96, cuda_graphs=graphs)
+        out = [eng.generate(prompts, max_new=6) for _ in range(2)]
+        runs[graphs] = (out, launch_counts(), launch_counts_by_depth(),
+                        dict(eng.trace_counts))
+    assert runs[True] == runs[False]
+    out, counts, _, traces = runs[True]
+    assert out[0] == out[1]
+    assert counts["div"] > 0 and counts["div_rowbcast"] > 0
+    assert counts["softmax_div"] == counts["flash_decode"] == 0
+    assert traces == {"decode": 1, "prefill": 1}
+    with pytest.raises(ValueError):
+        ContinuousServeEngine(model, params)
+
+
+@pytest.mark.gpu
+def test_cuda_captured_xlstm_decode_step_replays_eager_bits(cuda):
+    """Reduced xlstm's decode step captured in a CUDA graph: each replay
+    gives the logits bits of the eager step on a copy of the same cache,
+    over three steps, and leaves every state leaf (C / n / m, c / n / m /
+    h, written in place) equal to the eager copy's."""
+    import copy
+
+    from repro_torch.models.params import tree_items
+    from repro_torch.serve.compiled import CompiledStep
+    _, model, params = _xlstm(cuda)
+    toks = torch.tensor(np.random.default_rng(5).integers(
+        0, 512, (4, 70)), dtype=torch.int32, device=cuda)
+    _, cache = model.prefill(params, {"tokens": toks}, 96)
+    eager = copy.deepcopy(cache)
+    step = CompiledStep("decode", {"decode": 0}, cuda)
+    nt = torch.tensor([3, 1, 4, 1], dtype=torch.int32)
+    with torch.inference_mode():
+        for _ in range(3):
+            got = step(lambda t: model.decode_step(params, t, cache)[0],
+                       nt).clone()
+            want = model.decode_step(params, nt.to(cuda), eager)[0]
+            assert_same_bits(got.cpu().numpy(), want.cpu().numpy())
+            nt = want.argmax(-1).to(torch.int32).cpu()
+    assert step.trace_counts == {"decode": 1}
+    for (path, a), (_, b) in zip(tree_items(cache), tree_items(eager)):
+        assert torch.equal(a, b), path

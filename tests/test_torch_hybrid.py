@@ -14,7 +14,7 @@ x top-2 / 4 experts slots an expert, as many as the tokens, so nothing
 is dropped (the drop rule is held by ``tests/test_torch_moe.py``).  The
 bf16 cases also run the card's configuration, every FFN dense
 (``n_experts=0``), with the reference compiled with XLA's excess
-precision off (:func:`_strict`).
+precision off (``_torch_helpers._strict``).
 
 Tolerances (measured worst cases in brackets):
 
@@ -61,7 +61,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_helpers import assert_same_bits  # noqa: E402
+from _torch_helpers import _strict, assert_same_bits  # noqa: E402
 from repro.configs.base import RAPID as JRAPID  # noqa: E402
 from repro.configs.base import get_config as jget  # noqa: E402
 from repro.core import ops as jops  # noqa: E402
@@ -384,22 +384,6 @@ def test_mamba_bf16_matches_reference(approx):
 # --------------------------------------------------------------------------
 # the model and the engine
 # --------------------------------------------------------------------------
-
-def _strict(jitted):
-    """``jitted`` compiled once per input structure with XLA's excess
-    precision off: XLA then rounds every bf16 value where the reference's
-    code rounds it (by default it may keep a fused intermediate in f32,
-    which no torch rounding can follow).  f32 values are unaffected."""
-    done = {}
-
-    def call(*args):
-        key = str(jax.tree.map(lambda a: (a.shape, a.dtype), args))
-        if key not in done:
-            done[key] = jitted.lower(*args).compile(
-                {"xla_allow_excess_precision": False})
-        return done[key](*args)
-    return call
-
 
 @lru_cache(maxsize=None)
 def _reference_run(approx, dtype, dense):
