@@ -1,12 +1,12 @@
 """Config system of the port: model and approximation configs.
 
-Mirrors ``repro.configs.base`` for the dense, MoE, hybrid (Jamba) and
-ssm (xLSTM) serve and train paths.  ``ApproxConfig`` keeps the reference's
-``mul``/``div``/``on_*`` semantics but drops its per-site ``backends``
-map and the ``RAPID_BACKEND`` environment variable: the port has one
-dispatch path, and the device of the tensor decides it (a CPU tensor
-takes each kernel's plain PyTorch version, a CUDA tensor launches the
-kernel).
+Mirrors ``repro.configs.base`` for the dense, MoE, hybrid (Jamba), ssm
+(xLSTM) and encdec (Whisper) serve and train paths.  ``ApproxConfig``
+keeps the reference's ``mul``/``div``/``on_*`` semantics but drops its
+per-site ``backends`` map and the ``RAPID_BACKEND`` environment
+variable: the port has one dispatch path, and the device of the tensor
+decides it (a CPU tensor takes each kernel's plain PyTorch version, a
+CUDA tensor launches the kernel).
 """
 from __future__ import annotations
 
@@ -18,10 +18,11 @@ from typing import Optional, Tuple
 __all__ = ["ARCH_IDS", "ApproxConfig", "ModelConfig", "EXACT", "RAPID",
            "get_config"]
 
-# the architectures the port has (the dense, MoE, hybrid and ssm families)
+# the architectures the port has (the dense, MoE, hybrid, ssm and encdec
+# families)
 ARCH_IDS = ("h2o_danube_1_8b", "yi_6b", "minicpm_2b", "starcoder2_7b",
             "qwen3_moe_235b_a22b", "llama4_scout_17b_a16e",
-            "jamba_1_5_large_398b", "xlstm_350m")
+            "jamba_1_5_large_398b", "xlstm_350m", "whisper_medium")
 
 
 @dataclass(frozen=True)
@@ -61,7 +62,7 @@ RAPID = ApproxConfig(mul_scheme="rapid10", div_scheme="rapid9")
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | hybrid | ssm (the families the port has)
+    family: str  # dense | moe | hybrid | ssm | encdec (the port's families)
     n_layers: int
     d_model: int
     n_heads: int
@@ -88,6 +89,10 @@ class ModelConfig:
     ssm_expand: int = 2
     # ssm (xlstm): the layers that are sLSTM blocks, the rest are mLSTM
     slstm_at: Tuple[int, ...] = ()
+    # encdec (whisper): the encoder's layers over precomputed frontend
+    # embeddings (the frontend itself is a stub, as the reference's)
+    n_encoder_layers: int = 0
+    frontend_seq: int = 0       # encoder frames
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
     approx: ApproxConfig = field(default_factory=ApproxConfig)
@@ -111,7 +116,8 @@ class ModelConfig:
     def reduced(self) -> "ModelConfig":
         """Tiny same-family variant for CPU tests (the reference's sizes;
         a hybrid keeps one full period of ``attn_every`` layers, an
-        xLSTM the sLSTM blocks among its first two layers)."""
+        xLSTM the sLSTM blocks among its first two layers, an encoder 8
+        frames and at most 2 layers)."""
         return self.with_(
             n_layers=self.attn_every or min(self.n_layers, 2),
             d_model=128,
@@ -125,6 +131,8 @@ class ModelConfig:
             experts_per_token=min(self.experts_per_token, 2)
             if self.experts_per_token else 0,
             slstm_at=tuple(i for i in self.slstm_at if i < 2),
+            frontend_seq=min(self.frontend_seq, 8) if self.frontend_seq else 0,
+            n_encoder_layers=min(self.n_encoder_layers, 2),
             remat="none",
         )
 

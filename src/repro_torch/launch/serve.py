@@ -7,7 +7,10 @@ port, starcoder2_7b (LN, the ungated gelu MLP), the hybrid
 jamba_1_5_large_398b and the ssm xlstm_350m included; those two serve
 through the lockstep engine only (``--continuous`` raises
 ``ValueError``, as the reference's continuous engine does: their
-recurrent state is not paged).
+recurrent state is not paged).  The encdec family (whisper_medium) is
+refused, as the reference's launcher refuses it: its batches carry the
+frontend's embeddings, which no engine passes (drive ``Model.prefill``
+and ``Model.decode_step`` instead).
 
 Runs on the card (``--device cuda``, the default) with the CUDA kernels,
 its decode steps (and the continuous engine's prefill ticks) captured
@@ -26,6 +29,15 @@ from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.scheduler import ContinuousServeEngine
+
+
+def check_servable(cfg) -> None:
+    """The engines serve token prompts: refuse the families whose batches
+    need a frontend's embeddings (encdec, vlm), as the reference's
+    launcher does."""
+    if cfg.family in ("encdec", "vlm"):
+        raise ValueError("serve demo targets pure-text archs (frontend "
+                         f"stubs need batches); {cfg.name} is {cfg.family}")
 
 
 def main(argv=None):
@@ -48,6 +60,7 @@ def main(argv=None):
         cfg = cfg.reduced()
     if args.approx:
         cfg = cfg.with_(approx=RAPID)
+    check_servable(cfg)
     dev = resolve_device(args.device)
     model = Model(cfg)
     params = model.init(0, dev)

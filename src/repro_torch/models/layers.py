@@ -1,6 +1,6 @@
-"""Core NN layers of the dense serve and train paths: norms (rms and
-LN), RoPE, GQA/SWA attention, the SwiGLU and the ungated (gelu) MLP --
-RAPID-aware.
+"""Core NN layers of the serve and train paths: norms (rms and LN),
+RoPE, GQA/SWA attention (causal, bidirectional, and cross-attention for
+the encdec family), the SwiGLU and the ungated (gelu) MLP -- RAPID-aware.
 
 The port of ``repro.models.layers`` (unsharded).  Every weight matmul
 goes through :func:`repro_torch.core.ops.qmatmul` (kernel K1 under a
@@ -195,7 +195,10 @@ def _attn_plain(q, k, v, q_pos, kv_pos, window: int, causal: bool,
                 acfg: ApproxConfig):
     """Masked attention over q chunks of ``_Q_CHUNK`` rows.
 
-    q: [B,S,H,hd]; k,v: [B,T,H,hd] (kv heads already repeated to H).
+    q: [B,S,H,hd]; k,v: [B,T,H,hd] (kv heads already repeated to H).  The
+    last chunk holds only the rows left: the reference pads it to a whole
+    chunk at position 0, which changes no row (a row's mask and softmax
+    are its own).
     """
     qs = q.float() * _attn_scale(q.shape[-1])
     outs = [_attn_qchunk_core(qs[:, c0:c0 + _Q_CHUNK], k, v,
@@ -212,31 +215,44 @@ _BLOCKWISE_CHUNK = 1024
 
 
 def attention(x, params, cfg: ModelConfig, positions, residual=None,
-              tail_norm: bool = False):
-    """Full-sequence (prefill) causal GQA self-attention.
+              tail_norm: bool = False, kv_x=None, kv_positions=None,
+              causal: bool = True):
+    """Full-sequence (prefill) GQA attention.
 
     Returns (out [B,S,D], k [B,T,KV,hd], v).  ``residual`` rides the
     output projection's epilogue; ``tail_norm=True`` also fuses the next
     rms norm's divide into it, and ``out`` becomes the pair
     ``(y, y_rms_div)``: the residual stream and its scale-free norm.
+
+    ``kv_x`` [B, T, D] switches to cross-attention (the whisper
+    decoder): k and v come from ``kv_x`` at ``kv_positions``, neither q
+    nor k is rotated, and no window or causal mask applies.  ``causal``
+    False makes self-attention bidirectional (the encoder).  The plain /
+    blockwise switch is on T, the KV length, as the reference's.
     """
     acfg = cfg.approx
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    src = x if kv_x is None else kv_x
+    T = src.shape[1]
+    kv_positions = positions if kv_positions is None else kv_positions
     q = dense(x, params["wq"], acfg, "attn_proj").reshape(B, S, H, hd)
-    k = dense(x, params["wk"], acfg, "attn_proj").reshape(B, S, KV, hd)
-    v = dense(x, params["wv"], acfg, "attn_proj").reshape(B, S, KV, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    k = dense(src, params["wk"], acfg, "attn_proj").reshape(B, T, KV, hd)
+    v = dense(src, params["wv"], acfg, "attn_proj").reshape(B, T, KV, hd)
+    if kv_x is None:  # self-attention: rotary
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, kv_positions, cfg.rope_theta)
 
     G = H // KV
-    if S <= _PLAIN_ATTN_MAX_T:
+    window = cfg.sliding_window if kv_x is None else 0
+    is_causal = causal and kv_x is None
+    if T <= _PLAIN_ATTN_MAX_T:
         out = _attn_plain(q, k.repeat_interleave(G, dim=2),
                           v.repeat_interleave(G, dim=2), positions,
-                          positions, cfg.sliding_window, True, acfg)
+                          kv_positions, window, is_causal, acfg)
     else:  # GQA heads not repeated
         out = _attn_blockwise(q.reshape(B, S, KV, G, hd), k, v, positions,
-                              positions, cfg.sliding_window, True, acfg,
+                              kv_positions, window, is_causal, acfg,
                               _BLOCKWISE_CHUNK)
     out = out.reshape(B, S, H * hd)
     if tail_norm:

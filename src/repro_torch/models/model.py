@@ -1,7 +1,8 @@
-"""Model API of the port, the decoder families dense and moe, the
-hybrid family (Jamba) and the ssm family (xLSTM).
+"""Model API of the port: the decoder families dense and moe, the
+hybrid family (Jamba), the ssm family (xLSTM) and the encdec family
+(the Whisper backbone).
 
-The port of the dense, MoE, hybrid and ssm paths of
+The port of the dense, MoE, hybrid, ssm and encdec paths of
 ``repro.models.model.Model``:
 
   * ``param_specs()`` / ``init(seed, device)`` -- one source of truth for
@@ -40,7 +41,19 @@ and the paged cache raise ``ValueError``, as the reference's.  So does
 the ssm family (xlstm_350m: mLSTM layers with sLSTM layers at
 ``cfg.slstm_at``, ``models/xlstm.py``), each layer ``x + mixer(ln(x))``;
 its cache holds every layer's recurrent state and no slot positions
-(the reference's ``cache_specs`` pops ``slots``).
+(the reference's ``cache_specs`` pops ``slots``).  The encdec family
+(whisper_medium) runs a bidirectional encoder over the batch's
+precomputed frame embeddings (``batch["enc_embeds"]`` [B, frontend_seq,
+1024]; the audio frontend is a stub, as the reference's): an exact f32
+adapter product plus ``enc_pos``, ``n_encoder_layers`` LN blocks,
+``enc_final_norm``.  Its decoder blocks add a cross-attention slot over
+the encoder's output, and its decode cache holds each layer's cross k/v
+(``ck`` / ``cv``, every frame) beside the self-attention ring; prefill
+keeps the cross k/v its cross-attention computed (the reference projects
+``enc_out`` a second time: the same product, the same bits).  It serves
+through neither engine (no engine carries ``enc_embeds``, as the
+reference's): callers drive ``prefill`` and ``decode_step`` themselves;
+the paged routes raise ``ValueError``, as the reference's.
 """
 from __future__ import annotations
 
@@ -50,7 +63,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.ops import MatmulTape, matmul_tape
+from repro_torch.core.ops import MatmulTape, exact_einsum, matmul_tape
 from repro_torch.device import resolve_device
 from repro_torch.models import hybrid as hy
 from repro_torch.models import xlstm as xl
@@ -59,13 +72,16 @@ from repro_torch.models.params import P, materialize
 from repro_torch.models.transformer import (attn_cache_specs, block_apply,
                                             block_decode, block_decode_paged,
                                             block_params, cache_len,
+                                            cross_positions,
                                             paged_attn_cache_specs,
                                             ring_slot)
 
 __all__ = ["Model"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_FAMILIES = ("dense", "moe", "hybrid", "ssm")
+_FAMILIES = ("dense", "moe", "hybrid", "ssm", "encdec")
+# the stub frontend's embedding width (the reference's ``_VIS_DIM``)
+_VIS_DIM = 1024
 _ACTS = ("silu", "gelu")
 _NORMS = ("rms", "ln")
 
@@ -101,7 +117,8 @@ class Model:
             blocks = [xl.layer_params(cfg, kind)
                       for kind in self._xlstm_kinds()]
         else:
-            blocks = [block_params(cfg) for _ in range(cfg.n_layers)]
+            blocks = [block_params(cfg, cross=cfg.family == "encdec")
+                      for _ in range(cfg.n_layers)]
         specs = {
             "embed": P((V, D), "small"),
             "final_norm": norm_params(cfg),
@@ -109,6 +126,12 @@ class Model:
         }
         if not cfg.tie_embeddings:
             specs["lm_head"] = P((D, V))
+        if cfg.family == "encdec":
+            specs["adapter"] = P((_VIS_DIM, D))
+            specs["enc_pos"] = P((cfg.frontend_seq, D), "small")
+            specs["enc_final_norm"] = norm_params(cfg)
+            specs["enc_blocks"] = [block_params(cfg)
+                                   for _ in range(cfg.n_encoder_layers)]
         return specs
 
     def init(self, seed: int = 0, device=None):
@@ -134,8 +157,10 @@ class Model:
                                                             cache_n), 0, dev)
                       for _ in range(cfg.n_layers // cfg.attn_every)]
         else:
-            layers = [materialize(attn_cache_specs(cfg, batch, cache_n), 0,
-                                  dev) for _ in range(cfg.n_layers)]
+            cross = cfg.frontend_seq if cfg.family == "encdec" else 0
+            layers = [materialize(attn_cache_specs(cfg, batch, cache_n,
+                                                   cross), 0, dev)
+                      for _ in range(cfg.n_layers)]
         C = cache_len(self.cfg, cache_n)
         return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
                 "slots": torch.full((batch, C), _MAXI32, dtype=torch.int32,
@@ -143,10 +168,12 @@ class Model:
                 "layers": layers}
 
     def _paged_family(self, what: str) -> None:
-        if self.cfg.family not in ("dense", "moe"):
+        fam = self.cfg.family
+        if fam not in ("dense", "moe"):
+            state = "cross" if fam == "encdec" else "recurrent"
             raise ValueError(
-                f"{what} need pure-attention decode; family "
-                f"{self.cfg.family!r} carries recurrent state")
+                f"{what} need pure-attention decode; family {fam!r} "
+                f"carries {state} state")
 
     def paged_cache_specs(self, n_pages: int, page_size: int) -> dict:
         """P-spec tree of the block-paged cache: one pool pair per layer."""
@@ -203,8 +230,32 @@ class Model:
             x = checkpoint(body, x, lp, use_reentrant=False, **kw)
         return x
 
+    def _encode(self, params, enc_embeds, remat=None):
+        """The encdec family's encoder over precomputed frame embeddings
+        [B, frontend_seq, 1024]: the exact f32 adapter product plus
+        ``enc_pos`` in the config dtype, the bidirectional blocks (rope
+        on the frames' positions), ``enc_final_norm``."""
+        cfg = self.cfg
+        x = exact_einsum("bse,ed->bsd", enc_embeds, params["adapter"])
+        x = (x + params["enc_pos"].float()[None]).to(self.dtype)
+        pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        x = self._run_stack(params["enc_blocks"],
+                            partial(_block_body, cfg=cfg, pos=pos,
+                                    causal=False), x, remat)
+        return apply_norm(x, params["enc_final_norm"], cfg)
+
+    def _cross(self, params, batch, remat=None) -> dict:
+        """The encdec family's cross-attention inputs for the decoder
+        blocks (``enc_out`` and its frame positions); none otherwise."""
+        if self.cfg.family != "encdec":
+            return {}
+        enc_out = self._encode(params, batch["enc_embeds"], remat)
+        return {"enc_out": enc_out, "enc_positions": torch.arange(
+            enc_out.shape[1], dtype=torch.int32, device=enc_out.device)}
+
     def forward(self, params, batch, remat=None):
-        """Logits [B, S, V] f32 at every position of ``batch["tokens"]``."""
+        """Logits [B, S, V] f32 at every position of ``batch["tokens"]``
+        (an encdec batch also carries ``enc_embeds``)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = self._embed(params, tokens)
@@ -212,7 +263,9 @@ class Model:
                            device=tokens.device)
         body = {"hybrid": _superblock_body,
                 "ssm": _xlstm_body}.get(cfg.family, _block_body)
-        x = self._run_stack(params["blocks"], partial(body, cfg=cfg, pos=pos),
+        x = self._run_stack(params["blocks"],
+                            partial(body, cfg=cfg, pos=pos,
+                                    **self._cross(params, batch, remat)),
                             x, remat)
         x = apply_norm(x, params["final_norm"], cfg)
         return self._logits(params, x)
@@ -234,8 +287,10 @@ class Model:
     def prefill(self, params, batch, cache_n: int):
         """Full-sequence forward that also fills a decode cache.
 
-        ``batch["tokens"]``: [B, S] integer tensor.  Returns (last-position
-        logits [B, V] f32, cache); k/v land in (ring) cache buffers.
+        ``batch["tokens"]``: [B, S] integer tensor (an encdec batch also
+        carries ``enc_embeds``).  Returns (last-position logits [B, V] f32,
+        cache); k/v land in (ring) cache buffers, an encdec layer's cross
+        k/v whole in ``ck`` / ``cv``.
         """
         cfg = self.cfg
         tokens = batch["tokens"]
@@ -263,15 +318,20 @@ class Model:
             base[ring] = torch.arange(S - C, S, dtype=torch.int32, device=dev)
         cache = {"pos": torch.tensor(S, dtype=torch.int32, device=dev),
                  "slots": base.expand(B, C).contiguous(), "layers": []}
+        cross = self._cross(params, batch, "none")
         for lp in params["blocks"]:
             if cfg.family == "hybrid":
                 x, lc = hy.superblock_prefill(x, lp, cfg, pos, to_ring,
                                               self.dtype)
                 cache["layers"].append(lc)
                 continue
-            x, (k, v) = block_apply(x, lp, cfg, pos)
-            cache["layers"].append({"k": to_ring(k).to(self.dtype),
-                                    "v": to_ring(v).to(self.dtype)})
+            x, kv = block_apply(x, lp, cfg, pos, **cross)
+            lc = {"k": to_ring(kv[0]).to(self.dtype),
+                  "v": to_ring(kv[1]).to(self.dtype)}
+            if cross:  # the cross k/v of every frame, as computed
+                lc["ck"], lc["cv"] = kv[2].to(self.dtype), kv[3].to(
+                    self.dtype)
+            cache["layers"].append(lc)
         x = apply_norm(x[:, -1:], params["final_norm"], cfg)
         return self._logits(params, x)[:, 0], cache
 
@@ -301,6 +361,10 @@ class Model:
         if slots is not None:
             slots.index_copy_(1, ring_slot(pos, slots.shape[1]),
                               pos.expand(slots.shape[0], 1))
+        xpos = None
+        if cfg.family == "encdec":  # one set for every layer's cross slot
+            xpos = cross_positions(x.shape[0],
+                                   cache["layers"][0]["ck"].shape[1], x.device)
         for lp, lc in zip(params["blocks"], cache["layers"]):
             if cfg.family == "ssm":
                 x = xl.layer_decode(x, lp, lc, cfg)
@@ -308,7 +372,7 @@ class Model:
                 x, _ = hy.superblock_decode(x, lp, lc, slots, pos, cfg)
             else:
                 x, _ = block_decode(x, lp, lc, slots, pos, cfg,
-                                    cfg.n_experts > 0)
+                                    cfg.n_experts > 0, xpos)
         pos.add_(1)
         x = apply_norm(x[:, None], params["final_norm"], cfg)
         return self._logits(params, x)[:, 0], cache
@@ -327,8 +391,8 @@ class Model:
         are garbage).  The pools are written in place.
 
         Returns (logits [B, V] f32 at each row's last valid token, cache).
-        The hybrid and ssm families raise ``ValueError`` (their recurrent
-        state is not paged), as the reference.
+        The hybrid, ssm and encdec families raise ``ValueError`` (their
+        recurrent or cross state is not paged), as the reference.
         """
         self._paged_family("paged decode steps")
         B, S = tokens.shape
@@ -347,9 +411,11 @@ class Model:
         return self._logits(params, xl)[:, 0], cache
 
 
-def _block_body(x, lp, *, cfg: ModelConfig, pos):
-    """One block of the full-sequence forward, without its KV."""
-    return block_apply(x, lp, cfg, pos)[0]
+def _block_body(x, lp, *, cfg: ModelConfig, pos, **kw):
+    """One block of the full-sequence forward, without its KV (``kw``:
+    an encdec block's ``enc_out`` / ``enc_positions``, an encoder
+    block's ``causal=False``)."""
+    return block_apply(x, lp, cfg, pos, **kw)[0]
 
 
 def _superblock_body(x, lp, *, cfg: ModelConfig, pos):

@@ -9,7 +9,8 @@ fill value.  The two frameworks draw different numbers from one seed;
 tests that compare against the reference carry its params over with
 :func:`load_jax_params` instead.
 
-Layout: ``blocks`` is a list of per-layer dicts.  The reference keeps
+Layout: ``blocks`` (and an encdec model's ``enc_blocks``) is a list of
+per-layer dicts.  The reference keeps
 either a stacked tree (``scan_layers=True``: a leading layer dim on
 every leaf) or one ``"l{i}"`` subtree per layer; the loader takes both.
 """
@@ -110,17 +111,22 @@ def _rebuild(tree, values: dict, path=()):
     return values[path]
 
 
+# the subtrees that hold one entry per layer
+_LAYER_LISTS = ("blocks", "enc_blocks")
+
+
 def load_jax_params(tree, device=None):
     """A tree of the reference's (nested dicts of numpy arrays) -> the
     port's.
 
-    Every ``"blocks"`` subtree may be stacked (every leaf ``[L, ...]``)
-    or keyed ``"l0"``, ``"l1"``, ...; either becomes a list of per-layer
-    dicts.  That covers params and every tree shaped like them: the
-    reference's gradients and its optimizer state (``{"m": params,
-    "v": params}``).  Arrays keep their dtype (f32 params stay f32).
-    ``device`` goes through :func:`repro_torch.device.resolve_device`
-    (``cuda`` unless the caller asks for the CPU).
+    Every ``"blocks"`` and ``"enc_blocks"`` subtree may be stacked
+    (every leaf ``[L, ...]``) or keyed ``"l0"``, ``"l1"``, ...; either
+    becomes a list of per-layer dicts.  That covers params and every tree
+    shaped like them: the reference's gradients and its optimizer state
+    (``{"m": params, "v": params}``).  Arrays keep their dtype (f32
+    params stay f32).  ``device`` goes through
+    :func:`repro_torch.device.resolve_device` (``cuda`` unless the
+    caller asks for the CPU).
     """
     device = resolve_device(device)
 
@@ -135,7 +141,7 @@ def load_jax_params(tree, device=None):
 
     def convert(t):
         if isinstance(t, dict):
-            return {k: blocks(v) if k == "blocks" else convert(v)
+            return {k: blocks(v) if k in _LAYER_LISTS else convert(v)
                     for k, v in t.items()}
         return tree_map(to_t, t)
 

@@ -1,23 +1,25 @@
-"""Decoder transformer block (dense or MoE FFN) and its KV-cache decode
-steps.
+"""Transformer block (dense or MoE FFN; with a cross-attention slot in
+an encdec decoder) and its KV-cache decode steps.
 
-The port of the decoder parts of ``repro.models.transformer``.  Every
-function reads the block's norm ("rms" or "ln") from ``cfg.norm``, and
-its FFN from ``cfg.n_experts``: the MLP, or with experts the MoE FFN
+The port of ``repro.models.transformer``.  Every function reads the
+block's norm ("rms" or "ln") from ``cfg.norm``, and its FFN from
+``cfg.n_experts``: the MLP, or with experts the MoE FFN
 (:func:`repro_torch.models.moe.moe_ffn`), whose output the residual is
 added to after it (the dense MLP adds it in w2's epilogue).  Only
 ``block_decode`` takes the FFN from its ``moe_layer`` argument, as the
 reference: the hybrid family's attention slot decides it per slot
 (``models/hybrid.py``), the dense and moe families pass
 ``cfg.n_experts > 0``.
-Prefill of an rms block always fuses ln2's divide into the
-attention-out matmul's epilogue (``rms_div(wo_out + residual)``, keeping
-the pre-norm residual stream): the reference fuses it whenever the norm
-and attn_proj sites share a backend, and the port has one dispatch path.
-An LN block runs :func:`apply_norm` on the unfused ``wo + residual``
-output, as the reference.  The decode steps (``block_decode`` on a ring
-cache, ``block_decode_paged`` on a block-paged pool) do not fuse ln2:
-they call :func:`apply_norm`, as the reference.
+Prefill of an rms block without a cross slot always fuses ln2's divide
+into the attention-out matmul's epilogue
+(``rms_div(wo_out + residual)``, keeping the pre-norm residual stream):
+the reference fuses it whenever the norm and attn_proj sites share a
+backend, and the port has one dispatch path.  An LN block, or a block
+with a cross slot, runs :func:`apply_norm` on the unfused
+``wo + residual`` output, as the reference.  The decode steps
+(``block_decode`` on a ring cache, ``block_decode_paged`` on a
+block-paged pool) do not fuse ln2: they call :func:`apply_norm`, as the
+reference.
 """
 from __future__ import annotations
 
@@ -33,17 +35,23 @@ from repro_torch.models.moe import moe_ffn, moe_params
 from repro_torch.models.params import P
 
 __all__ = ["block_params", "block_apply", "block_decode",
-           "block_decode_paged", "cache_len", "ring_slot", "attn_cache_specs",
-           "paged_attn_cache_specs"]
+           "block_decode_paged", "cache_len", "cross_positions", "ring_slot",
+           "attn_cache_specs", "paged_attn_cache_specs"]
 
 
-def block_params(cfg: ModelConfig) -> dict:
-    return {
+def block_params(cfg: ModelConfig, cross: bool = False) -> dict:
+    """One block's params; ``cross`` adds the cross-attention slot (its
+    norm ``lnx`` and projections ``xattn``) of an encdec decoder block."""
+    p = {
         "ln1": norm_params(cfg),
         "attn": attention_params(cfg),
         "ln2": norm_params(cfg),
-        "ffn": moe_params(cfg) if cfg.n_experts > 0 else mlp_params(cfg),
     }
+    if cross:
+        p["lnx"] = norm_params(cfg)
+        p["xattn"] = attention_params(cfg)
+    p["ffn"] = moe_params(cfg) if cfg.n_experts > 0 else mlp_params(cfg)
+    return p
 
 
 def _ffn(x, p, cfg: ModelConfig, moe_layer: bool, residual):
@@ -52,29 +60,52 @@ def _ffn(x, p, cfg: ModelConfig, moe_layer: bool, residual):
     return mlp(x, p["ffn"], cfg, residual=residual)
 
 
-def block_apply(x, p, cfg: ModelConfig, positions):
-    """Full-sequence block.  Returns (x, (k, v)) for the decode cache."""
-    fuse_ln2 = cfg.norm == "rms"
-    h, k, v = attention(apply_norm(x, p["ln1"], cfg), p["attn"],
-                        cfg, positions, residual=x, tail_norm=fuse_ln2)
+def block_apply(x, p, cfg: ModelConfig, positions, enc_out=None,
+                enc_positions=None, causal: bool = True):
+    """Full-sequence block.  Returns (x, kv) for the decode cache: kv is
+    (k, v), or with ``enc_out`` (an encdec decoder block: the
+    cross-attention slot between self-attention and ln2, over the
+    encoder's output at ``enc_positions``) (k, v, ck, cv), the cross
+    k/v the slot computed.  ``causal`` False makes the self-attention
+    bidirectional (the encoder's blocks).  ln2's divide fuses into the
+    attention-out matmul only in an rms block without a cross slot, as
+    the reference's."""
+    fuse_ln2 = cfg.norm == "rms" and enc_out is None
+    h, k, v = attention(apply_norm(x, p["ln1"], cfg), p["attn"], cfg,
+                        positions, residual=x, tail_norm=fuse_ln2,
+                        causal=causal)
+    kv = (k, v)
     if fuse_ln2:
         y, ydiv = h
         ffn_in = (ydiv.float() * p["ln2"]["scale"].float()).to(y.dtype)
     else:
         y = h
+        if enc_out is not None:
+            y, ck, cv = attention(apply_norm(y, p["lnx"], cfg), p["xattn"],
+                                  cfg, positions, residual=y, kv_x=enc_out,
+                                  kv_positions=enc_positions, causal=False)
+            kv = (k, v, ck, cv)
         ffn_in = apply_norm(y, p["ln2"], cfg)
-    return _ffn(ffn_in, p, cfg, cfg.n_experts > 0, residual=y), (k, v)
+    return _ffn(ffn_in, p, cfg, cfg.n_experts > 0, residual=y), kv
 
 
 def cache_len(cfg: ModelConfig, seq_len: int) -> int:
     return min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
 
 
-def attn_cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
-    """P-spec tree for one layer's attention cache (in the config dtype)."""
+def attn_cache_specs(cfg: ModelConfig, batch: int, seq_len: int,
+                     cross_len: int = 0) -> dict:
+    """P-spec tree for one layer's attention cache (in the config dtype);
+    ``cross_len`` adds the cross-attention cache ``ck`` / ``cv`` of that
+    many encoder frames (an encdec decoder layer)."""
     shape = (batch, cache_len(cfg, seq_len), cfg.n_kv_heads, cfg.hd)
-    return {"k": P(shape, "zeros", dtype=cfg.dtype),
-            "v": P(shape, "zeros", dtype=cfg.dtype)}
+    p = {"k": P(shape, "zeros", dtype=cfg.dtype),
+         "v": P(shape, "zeros", dtype=cfg.dtype)}
+    if cross_len:
+        xshape = (batch, cross_len, cfg.n_kv_heads, cfg.hd)
+        p["ck"] = P(xshape, "zeros", dtype=cfg.dtype)
+        p["cv"] = P(xshape, "zeros", dtype=cfg.dtype)
+    return p
 
 
 def paged_attn_cache_specs(cfg: ModelConfig, n_pages: int,
@@ -150,6 +181,11 @@ def block_decode_paged(x, p, cache, page_table, positions, valid, kv_len,
     return _ffn(h2, p, cfg, cfg.n_experts > 0, residual=x), cache
 
 
+# the cross slot's query position: past every encoder frame, as the
+# reference's ``jnp.int32(2**30)``
+_CROSS_POS = 2**30
+
+
 def ring_slot(pos: torch.Tensor, c: int) -> torch.Tensor:
     """The ring index ``pos % c`` of a 0-dim int32 position, as the
     ``[1]`` int64 index of an ``index_copy_`` along the slot dim: a
@@ -157,15 +193,30 @@ def ring_slot(pos: torch.Tensor, c: int) -> torch.Tensor:
     return (pos % c).long().reshape(1)
 
 
+def cross_positions(batch: int, frames: int, device):
+    """The cross slot's K4 positions for a decode step, made on the
+    device once a step and shared by every layer: the frames' slot
+    positions ``arange(frames)`` [B, frames] and the query position
+    2**30 [B], both int32, contiguous."""
+    f = torch.arange(frames, dtype=torch.int32, device=device)
+    return (f.expand(batch, frames).contiguous(),
+            torch.full((batch,), _CROSS_POS, dtype=torch.int32,
+                       device=device))
+
+
 def block_decode(x, p, cache, slot_positions, pos: torch.Tensor,
-                 cfg: ModelConfig, moe_layer: bool):
-    """One-token decode. x: [B, D]; cache: {"k", "v"}; pos: the current
-    position, a 0-dim int32 tensor on the cache's device.
+                 cfg: ModelConfig, moe_layer: bool, cross_pos=None):
+    """One-token decode. x: [B, D]; cache: {"k", "v"[, "ck", "cv"]}; pos:
+    the current position, a 0-dim int32 tensor on the cache's device.
 
     Writes this token's k/v into the ring slot ``pos % C`` of the cache
     tensors in place (the reference returns updated copies) and returns
-    (x, cache).  Nothing here reads ``pos`` back to the host, so the
-    step can be captured in a CUDA graph.
+    (x, cache).  With ``ck`` / ``cv`` in the cache (an encdec decoder
+    layer) the cross-attention slot follows self-attention: K4 over every
+    encoder frame at ``cross_pos`` (:func:`cross_positions`: slot
+    positions ``arange(Tc)``, query position 2**30; no window), as the
+    reference.  Nothing here reads ``pos`` back to the host, so the step
+    can be captured in a CUDA graph.
     """
     acfg = cfg.approx
     B, _ = x.shape
@@ -188,6 +239,13 @@ def block_decode(x, p, cache, slot_positions, pos: torch.Tensor,
     # the residual adds ride the projection epilogues (fused block tail)
     x = dense(attn_out[:, None], p["attn"]["wo"], acfg, "attn_proj",
               residual=x[:, None])[:, 0]
+    if "ck" in cache:  # cross-attention (encdec decode)
+        hx = apply_norm(x[:, None], p["lnx"], cfg)
+        qx = dense(hx, p["xattn"]["wq"], acfg, "attn_proj").reshape(B, H, hd)
+        xo = decode_attention(qx, cache["ck"], cache["cv"], *cross_pos, 0,
+                              acfg)
+        x = dense(xo[:, None], p["xattn"]["wo"], acfg, "attn_proj",
+                  residual=x[:, None])[:, 0]
     h2 = apply_norm(x[:, None], p["ln2"], cfg)
     x = _ffn(h2, p, cfg, moe_layer, residual=x[:, None])[:, 0]
     return x, cache

@@ -2080,3 +2080,182 @@ def test_cuda_captured_xlstm_decode_step_replays_eager_bits(cuda):
     assert step.trace_counts == {"decode": 1}
     for (path, a), (_, b) in zip(tree_items(cache), tree_items(eager)):
         assert torch.equal(a, b), path
+
+
+# --------------------------------------------------------------------------
+# the encdec family (whisper_medium): K4 at heads of 64 over the 1500-frame
+# cross cache, K3 on rows of 1500, K1 at its widths up to the encoder's
+# M = 4 x 1500, the captured decode step, a full-width copy vs plain
+# --------------------------------------------------------------------------
+
+# whisper_medium's 2-D K1 sites: wq / wk / wv / wo (1024 -> 1024), w1 with
+# the tanh gelu epilogue (1024 -> 4096), w2 with the residual (4096 -> 1024)
+_WHISPER_SITES = [(1024, 1024, None), (1024, 4096, "gelu"),
+                  (4096, 1024, "residual")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", ["cross", "self"])
+@pytest.mark.parametrize("scheme", ["rapid9", None])
+def test_cuda_flash_decode_whisper_shapes(cuda, cache, scheme):
+    """K4 at whisper_medium's decode step: q [4, 16, 1, 64] (16 kv heads
+    of one query, heads of 64), bf16 caches; the cross cache of 1500
+    frames, all live, slot positions ``arange(1500)`` and ``pos`` 2**30
+    (1500 is no whole number of chunks), and the 64-slot self cache with
+    23 live: the same bits as the plain version."""
+    C = 1500 if cache == "cross" else 64
+    qf, kc, vc, sp = _flash_rows(61 + C, 4, C, KV=16, G=1, hd=64)
+    if cache == "cross":
+        pos = 2**30
+    else:
+        sp[:, 23:] = 2**31 - 1
+        pos = 22
+    args = _on(cuda, torch.bfloat16, qf, kc, vc, sp)
+    got = flash_decode_attn(*args, pos, 0, scheme)
+    assert got.shape == (4, 16, 1, 64)
+    assert_same_bits(got.cpu().numpy(),
+                     flash_decode_plain(*args, pos, 0, scheme).cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 2, 3])
+@pytest.mark.parametrize("rows", [4, 2048])
+def test_cuda_softmax_div_whisper_rows(cuda, rows, depth):
+    """K3 (depth 1) and K8 (depth 2, 3) on rows of 1500, the encoder's and
+    the cross-attention's score rows (6000 B a row), special operands
+    heading the first row: the same bits, denominators included, as the
+    plain version."""
+    from repro_torch.kernels.spec import KernelSpec, PipelineSpec
+    rng = np.random.default_rng(rows + depth)
+    e = np.exp(randn(rng, rows, 1500))
+    e[0, :64] = np.abs(special_sample(rng, 64))
+    et = T(e).to(cuda)
+    spec = KernelSpec(pipeline=PipelineSpec(depth=depth))
+    got, den = fused_softmax_div(et, "rapid9", return_denom=True, spec=spec)
+    ref, rden = softmax_div_plain(et, "rapid9", return_denom=True)
+    assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
+    assert_same_bits(den.cpu().numpy(), rden.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 512, 6000])
+@pytest.mark.parametrize("k,n,tail", _WHISPER_SITES)
+def test_cuda_log_matmul_whisper_sites(cuda, m, k, n, tail):
+    """K1 at whisper_medium's sites at the default stage count: a decode
+    step's 4 rows, a prefill's 512 and the encoder's 4 x 1500, against
+    the plain version on the card (at M 6000 on the first 256 columns:
+    the same products in the same K order): the same bits, the tanh gelu
+    within GELU_ULP."""
+    rng = np.random.default_rng(m + k + n)
+    x = T(randn(rng, m, k)).to(cuda)
+    w = T(randn(rng, k, n, scale=k ** -0.5)).to(cuda)
+    res = T(randn(rng, m, n)).to(cuda) if tail == "residual" else None
+    act = "gelu" if tail == "gelu" else None
+    got = log_matmul(x, w, "rapid10", activation=act, residual=res)
+    cols = slice(0, 256 if m == 6000 else n)
+    ref = log_matmul_plain(x, w[:, cols].contiguous(), "rapid10",
+                           activation=act,
+                           residual=None if res is None else
+                           res[:, cols].contiguous())
+    got = got[:, cols].cpu().numpy()
+    if act:
+        assert ulp_diff(got, ref.cpu().numpy()).max() <= GELU_ULP
+    else:
+        assert_same_bits(got, ref.cpu().numpy())
+
+
+def _whisper(cuda, **over):
+    from repro_torch.configs.base import RAPID, get_config
+    from repro_torch.models.model import Model
+    cfg = get_config("whisper_medium").reduced().with_(approx=RAPID, **over)
+    model = Model(cfg)
+    return cfg, model, model.init(0, cuda)
+
+
+def _whisper_batch(cuda, cfg, B, S, seed):
+    rng = np.random.default_rng(seed)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                        dtype=torch.int32, device=cuda)
+    emb = T(0.1 * randn(rng, B, cfg.frontend_seq, 1024)).to(cuda)
+    return {"tokens": toks, "enc_embeds": emb}
+
+
+@pytest.mark.gpu
+def test_cuda_captured_whisper_decode_step_replays_eager_bits(cuda):
+    """Reduced whisper (2 + 2 layers, 200 frames) prefilled, then its
+    decode step captured in a CUDA graph and run eagerly on a copy of the
+    cache, greedy on each side's own logits: over 6 steps the same
+    tokens, the same logits bits and the same launch counts a step (K1 8
+    a layer, the LN divides, K4 twice a layer: self and cross), one
+    capture; every cache leaf equal after."""
+    import copy
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.params import tree_items
+    from repro_torch.serve.compiled import CompiledStep
+    cfg, model, params = _whisper(cuda, frontend_seq=200)
+    with torch.inference_mode():
+        _, cache = model.prefill(params, _whisper_batch(cuda, cfg, 4, 9, 5),
+                                 32)
+    eager = copy.deepcopy(cache)
+    step = CompiledStep("decode", {"decode": 0}, cuda)
+    g_tok = e_tok = torch.tensor([3, 1, 4, 1], dtype=torch.int32)
+    with torch.inference_mode():
+        for i in range(6):
+            reset_launch_counts()
+            got = step(lambda t: model.decode_step(params, t, cache)[0],
+                       g_tok).clone()
+            g_counts = launch_counts()
+            reset_launch_counts()
+            want = model.decode_step(params, e_tok.to(cuda), eager)[0]
+            assert launch_counts() == g_counts, i
+            assert_same_bits(got.cpu().numpy(), want.cpu().numpy())
+            g_tok = got.argmax(-1).to(torch.int32).cpu()
+            e_tok = want.argmax(-1).to(torch.int32).cpu()
+            assert torch.equal(g_tok, e_tok)
+    assert g_counts["log_matmul"] == 8 * cfg.n_layers
+    assert g_counts["flash_decode"] == 2 * cfg.n_layers
+    assert g_counts["rms_div"] == 3 * cfg.n_layers + 1
+    assert step.trace_counts == {"decode": 1}
+    for (path, a), (_, b) in zip(tree_items(cache), tree_items(eager)):
+        assert torch.equal(a, b), path
+
+
+@pytest.mark.gpu
+def test_cuda_whisper_full_width_copy_kernels_vs_plain(cuda):
+    """A full-width whisper_medium copy cut to 2 encoder + 2 decoder layers
+    (d_model 1024, 16 heads of 64, d_ff 4096; 300 frames, 2 requests of
+    12 tokens, bf16): prefill and 4 greedy decode steps through the
+    kernels and through the plain versions: the same greedy tokens, the
+    kernels launched in the first run and none in the second."""
+    from repro_torch.configs.base import RAPID, get_config
+    from repro_torch.kernels import (launch_counts, plain_versions,
+                                     reset_launch_counts)
+    from repro_torch.models.model import Model
+    cfg = get_config("whisper_medium").with_(
+        approx=RAPID, n_layers=2, n_encoder_layers=2, frontend_seq=300)
+    model = Model(cfg)
+    params = model.init(0, cuda)
+    batch = _whisper_batch(cuda, cfg, 2, 12, 9)
+
+    def run():
+        with torch.inference_mode():
+            logits, cache = model.prefill(params, batch, 32)
+            toks = [logits.argmax(-1)]
+            for _ in range(4):
+                logits = model.decode_step(params, toks[-1].to(torch.int32),
+                                           cache)[0]
+                assert bool(torch.isfinite(logits).all())
+                toks.append(logits.argmax(-1))
+        return torch.stack(toks).cpu()
+
+    reset_launch_counts()
+    got = run()
+    k_counts = launch_counts()
+    reset_launch_counts()
+    with plain_versions():
+        ref = run()
+    assert not any(launch_counts().values())
+    assert all(k_counts[k] > 0 for k in ("log_matmul", "rms_div",
+                                         "softmax_div", "flash_decode"))
+    assert torch.equal(got, ref)
