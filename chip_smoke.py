@@ -6,7 +6,8 @@ one NVIDIA H100.  It
 
 1. builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
    sm_90a), prints the card's name and power limit, and runs the repo's
-   card tests (``tests/test_torch_gpu.py``, special operands included);
+   card tests (``tests/test_torch_gpu.py``, special operands included)
+   in four processes at once;
 2. holds each kernel against its plain PyTorch version on the card at
    the shapes of the main paths, timing both with CUDA events, and raises
    on a breach of the stated tolerance (K5/K6: bit-equal, special
@@ -50,7 +51,7 @@ one NVIDIA H100.  It
    params from a seed) on the graph route through both engines (4
    requests of 96-128 prompt tokens, 8 greedy tokens; 4 slots, page 16,
    chunk 64), launches counted from 0 and peak memory read, and a
-   2-layer copy kernels vs plain through both engines at that load
+   1-layer copy kernels vs plain through both engines at that load
    (equal greedy tokens); then serves the MoE family at full width, its
    depth cut to 4 layers (qwen3_moe_235b_a22b: 4 of 94 layers, 128
    experts top-8; llama4_scout_17b_a16e: 4 of 48, 16 experts top-1 and
@@ -61,7 +62,7 @@ one NVIDIA H100.  It
    layer a step for each projection and expert contraction, the
    router's softmax divide once a layer a step; one step of each kind
    profiled on graphs (the kernels seen = the counters' gain; busy
-   share, batched K1's share and the casts'); a 2-layer copy kernels vs
+   share, batched K1's share and the casts'); a 1-layer copy kernels vs
    plain (qwen3 through both engines, llama4 through the lockstep
    engine: equal greedy tokens) and one MoE layer kernels vs plain at 4
    x 128 and 4 x 1 tokens (the same bits); then full-width
@@ -80,7 +81,16 @@ one NVIDIA H100.  It
    ``CompiledStep`` and eagerly: equal tokens and launch counts, each
    kernel launched exactly as the steps call it (K1, the LN divides, K3
    in prefill, K4 twice a decoder layer a step), a profiled decode step
-   and prefill, a 2 + 2 layer copy kernels vs plain (equal tokens);
+   and prefill, a 2 + 2 layer copy kernels vs plain (equal tokens); then
+   full-width llava_next_34b cut to 4 of 60 layers (``llava_phase``:
+   7168 wide, 56 / 8 heads of 128, d_ff 20480; 4 requests of 576 patch
+   embeddings ahead of 32 prompt tokens, 32 greedy tokens, ``cache_n``
+   1024) through the same function (``frontend_generate``: no engine
+   carries the patches), graph, eager and warm graph: equal tokens and
+   launch counts, each kernel launched as the steps call it (K1 7 a
+   layer, the rms divides, K3 in prefill, K4 at G 7), the projector's
+   exact f32 products held against f64 (TF32 off), a profiled decode
+   step and prefill, a 1-layer copy kernels vs plain (equal tokens);
 7. drives the paper's integer units (K9 ``rapid_mul``, K10
    ``rapid_div``) through their wrappers as Table III does, at 8 bits
    exhaustively and 2^24 random pairs at 16 (16/8) bits, all four
@@ -133,13 +143,17 @@ batched f32 ``torch.matmul``, the router's gate rows (4 / 64 / 512 rows
 of 8, 4 / 512 of 1), the MoE configs' rms rows (4096 and 5120 wide)
 and qwen3's 64-token combine (K5, 64 heads of 128), whisper_medium's
 wq, w1 (gelu) and w2 (+ residual) at M 4, 512 and 6000, its encoder's
-LN rows (6000 of 1024) and its softmax rows of 1500 frames.  It holds K4 bit-equal to its plain version, both arms, at h2o's
+LN rows (6000 of 1024) and its softmax rows of 1500 frames,
+llava_next_34b's wq, wk / wv, w1 (silu) and w2 (+ residual) at M 4, 512
+and 2432, its rms rows of 7168 and its prefill's softmax rows of 608.  It holds K4 bit-equal to its plain version, both arms, at h2o's
 lockstep step (512 slots, 136 live), the full 4096-slot window and the
 continuous tick's paged views, and at the MoE configs' lockstep step
 (256 slots, 136 live) and paged views (qwen3: 4 KV heads of 16
 queries, llama4: 8 of 5, heads of 128), at whisper_medium's (16 KV
 heads of one query, heads of 64: its 1500-frame cross cache at pos
-2**30 and its 64-slot self cache), and times beside each the library's
+2**30 and its 64-slot self cache), at llava_next_34b's (8 KV heads of 7
+queries, heads of 128, 640 of 1024 slots live), and times beside each
+the library's
 ``scaled_dot_product_attention`` on the exact arm as a yardstick (the
 port never calls it).  It also holds K9/K10 bit-equal to their plain
 versions (special operands included; 2^24 pairs also from offsets of
@@ -167,7 +181,8 @@ when it is run outside a checkout of the repository.  Its last line is
 ``{"ok": true, "device": {...}}``; the line before holds the per-kernel
 record (launches, error, times, bound; K7 and K8 as rows of their own,
 counting the launches at depth >= 2).  The whole record also goes to
-``chiprun_out/chip_smoke.json``.
+``chiprun_out/chip_smoke.json``, and the whole log, each line with its
+seconds since the start, to ``chiprun_out/chip_smoke.log``.
 """
 from __future__ import annotations
 
@@ -237,6 +252,9 @@ PAPER_DIV = {("mitchell", 4): (3.90, 13.0), ("mitchell", 8): (4.11, 13.0),
              ("rapid5", 4): (0.79, 4.34), ("rapid5", 8): (0.79, 4.34),
              ("rapid9", 4): (0.58, 3.48), ("rapid9", 8): (0.58, 3.48)}
 
+# the card tests run in this many processes at once (they share the
+# card; most of their time is the host's)
+CARD_TEST_SHARDS = 4
 # stage counts held against the plain versions (K1 compiles 1-4 and 8;
 # at depth >= 2 K1 is K7 and K2/K3/K5 are K8)
 DEPTHS = (1, 2, 3, 4, 8)
@@ -296,6 +314,10 @@ DIV_NAMES = re.compile(r"(?<!\w)(elementwise_div_kernel\b|"
 # the MoE configs served at full width, their depth cut to MOE_LAYERS
 MOE_ARCHS = ("qwen3_moe_235b_a22b", "llama4_scout_17b_a16e")
 MOE_LAYERS = 4
+# the depth of the full-width copies that the starcoder2 and MoE phases
+# serve kernels vs plain at the main path's load (the plain K1 on a
+# lockstep prefill's ~450 rows takes 16-25 s a layer at these widths)
+COPY_LAYERS = 1
 # the hybrid config served at full width: one superblock (attn_every = 8
 # of its 72 layers), every FFN dense (n_experts = 0)
 JAMBA = "jamba_1_5_large_398b"
@@ -318,6 +340,25 @@ WHISPER_B, WHISPER_PROMPT, WHISPER_NEW, WHISPER_CACHE = 4, 16, 48, 64
 WHISPER_KERNELS = ("log_matmul", "rms_div", "softmax_div", "flash_decode")
 WHISPER_FRAMES, WHISPER_HEADS, WHISPER_HD = 1500, 16, 64
 WHISPER_M = WHISPER_B * WHISPER_FRAMES
+# the vlm config, served at full width with its depth cut to LLAVA_LAYERS
+# of 60 (7168 wide, 56 / 8 heads of 128: K4 at G 7; d_ff 20480): 4
+# requests of one image's 576 patch embeddings (x 0.1) ahead of a 32-token
+# prompt, 32 greedy tokens into a 1024-slot cache (patches + prompt + new
+# tokens); K1's prefill rows M = 4 x 608, K3's score rows of 608; the
+# kernels-vs-plain copy: 1 layer, 1 request of 64 patches and 8 tokens,
+# 3 greedy tokens (the plain K1 takes ~3 s a full-width layer a step)
+LLAVA = "llava_next_34b"
+LLAVA_LAYERS = 4
+LLAVA_B, LLAVA_PROMPT, LLAVA_NEW, LLAVA_CACHE = 4, 32, 32, 1024
+LLAVA_KERNELS = ("log_matmul", "rms_div", "softmax_div", "flash_decode")
+LLAVA_PATCHES, LLAVA_D, LLAVA_HEADS, LLAVA_KV, LLAVA_HD = (576, 7168, 56, 8,
+                                                           128)
+LLAVA_S = LLAVA_PATCHES + LLAVA_PROMPT
+LLAVA_M = LLAVA_B * LLAVA_S
+LLAVA_COPY = dict(patches=64, prompt=8, new=3, cache_n=128)
+# the f32 projector against its f64 product: TF32 (10 mantissa bits)
+# would miss by ~5e-4 of the largest magnitude, f32 by ~1e-6
+PROJ_F64_RTOL = 1e-4
 # the wait between opening the profiler's window and the profiled tick,
 # and between the tick's end and closing it
 PROFILE_SETTLE_S = 0.05
@@ -328,8 +369,18 @@ PROFILE_PAD_KERNELS = 64
 LONG_PROMPT = 8320
 
 
+# the run's whole log with each line's seconds since the start
+# (chiprun_out/chip_smoke.log), opened by main: the end of the standard
+# output is all a caller may get back
+_LOG = None
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    if _LOG is not None:
+        _LOG.write(f"[{time.perf_counter() - _T0:7.1f}s] {msg}\n")
+        _LOG.flush()
 
 
 # --------------------------------------------------------------------------
@@ -375,11 +426,17 @@ class Timer:
 
 
 def ulp_max(a, b) -> int:
-    ia = a.detach().float().cpu().numpy().view(np.int32).astype(np.int64)
-    ib = b.detach().float().cpu().numpy().view(np.int32).astype(np.int64)
-    ia = np.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
-    ib = np.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
-    return int(np.abs(ia - ib).max()) if ia.size else 0
+    """Largest distance in float32 ulp between two tensors, on ``a``'s
+    device (each float's bits mapped to a signed line of int64)."""
+    import torch
+
+    def line(t):
+        i = t.detach().float().contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    if not a.numel():
+        return 0
+    return int((line(a) - line(b.to(a.device))).abs().max())
 
 
 def abs_max(a, b) -> float:
@@ -392,7 +449,17 @@ def _host(a) -> np.ndarray:
 
 def same_bits(a, b) -> bool:
     """float32 tensors (or arrays) bit-equal, NaN payloads aside: NaN in
-    the same places, every other element the same bit pattern."""
+    the same places, every other element the same bit pattern.  Two
+    tensors are compared on ``a``'s device."""
+    if hasattr(a, "detach") and hasattr(b, "detach"):
+        import torch
+        if a.shape != b.shape:
+            return False
+        ta = a.detach().contiguous()
+        tb = b.detach().to(ta.device).contiguous()
+        nan_a = torch.isnan(ta)
+        return bool(torch.equal(nan_a, torch.isnan(tb)) and (
+            (ta.view(torch.int32) == tb.view(torch.int32)) | nan_a).all())
     ga, gb = _host(a), _host(b)
     if ga.shape != gb.shape:
         return False
@@ -417,19 +484,57 @@ def same_uint32(a, b) -> bool:
 def card_tests() -> None:
     """The repo's card tests (``tests/test_torch_gpu.py``: each kernel
     against its plain version at small ragged shapes and on special
-    operands -- 0, -0, inf, NaN, subnormals, the overflow edge), in a
-    child process; every test must pass and none may skip."""
+    operands -- 0, -0, inf, NaN, subnormals, the overflow edge), in
+    CARD_TEST_SHARDS child processes started together, each taking every
+    CARD_TEST_SHARDS-th test (:func:`pytest_collection_modifyitems`) and
+    its share of the cores for torch's and numpy's CPU threads (more
+    threads than cores thrash); every test must pass and none may
+    skip."""
     t0 = time.perf_counter()
-    out = subprocess.run(
+    threads = str(max(1, len(os.sched_getaffinity(0)) // CARD_TEST_SHARDS))
+    procs = [subprocess.Popen(
         [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
-         "-m", "gpu", "tests/test_torch_gpu.py"], cwd=ROOT,
-        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
-        capture_output=True, text=True, timeout=600)
-    tail = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ""
-    log(f"card tests: {tail} ({time.perf_counter() - t0:.1f}s)")
-    if out.returncode != 0 or "skipped" in tail or "passed" not in tail:
-        print(out.stdout[-6000:], out.stderr[-3000:], file=sys.stderr)
-        raise AssertionError(f"card tests failed: {tail}")
+         "-p", "chip_smoke", "--durations=8", "-m", "gpu",
+         "tests/test_torch_gpu.py"], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": f"{ROOT / 'src'}{os.pathsep}{ROOT}",
+             "CHIP_SMOKE_SHARD": f"{i}/{CARD_TEST_SHARDS}",
+             "OMP_NUM_THREADS": threads, "MKL_NUM_THREADS": threads},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(CARD_TEST_SHARDS)]
+    try:
+        outs = [p.communicate(timeout=600) + (p.returncode,) for p in procs]
+    finally:  # on a timeout, no shard outlives the script
+        for p in procs:
+            p.kill()
+    passed, failed = 0, []
+    for i, (stdout, stderr, rc) in enumerate(outs):
+        lines = stdout.strip().splitlines()
+        tail = lines[-1] if lines else ""
+        slow = [ln for ln in lines if re.match(r"\d+\.\d+s (call|setup)", ln)]
+        log(f"card tests shard {i}/{CARD_TEST_SHARDS}: {tail}; slowest "
+            f"{slow[:4]}")
+        m = re.search(r"(\d+) passed", tail)
+        passed += int(m.group(1)) if m else 0
+        if rc != 0 or "skipped" in tail or not m:
+            print(stdout[-6000:], stderr[-3000:], file=sys.stderr)
+            failed.append(f"shard {i}: {tail}")
+    log(f"card tests: {passed} passed in {CARD_TEST_SHARDS} shards of "
+        f"{threads} CPU threads ({time.perf_counter() - t0:.1f}s)")
+    if failed:
+        raise AssertionError(f"card tests failed: {failed}")
+
+
+def pytest_collection_modifyitems(config, items):
+    """pytest hook, where ``-p chip_smoke`` loads this file as a plugin:
+    with CHIP_SMOKE_SHARD="i/n" set, keep the tests at indices i, i + n,
+    ... of the collected list and deselect the rest."""
+    shard = os.environ.get("CHIP_SMOKE_SHARD")
+    if not shard:
+        return
+    i, n = map(int, shard.split("/"))
+    config.hook.pytest_deselected(
+        items=[t for j, t in enumerate(items) if j % n != i])
+    items[:] = items[i::n]
 
 
 def _sass(build, lib: str, wanted: dict) -> dict:
@@ -697,6 +802,9 @@ def kernel_phase(torch, dev, timer):
         family_k1_cases(torch, dev, timer, g, record, arch)
     family_k1_cases(torch, dev, timer, g, record, WHISPER,
                     (DECODE_M, PREFILL_M, WHISPER_M), ("wq", "w1", "w2"))
+    family_k1_cases(torch, dev, timer, g, record, LLAVA,
+                    (DECODE_M, PREFILL_M, LLAVA_M),
+                    ("wq", "wk/wv", "w1", "w2"))
 
     # K1 / K7 where the ring meets its edges: K not a multiple of BK with
     # N not a multiple of 4 (4 B copies), K % 4 != 0, and K shorter than
@@ -811,12 +919,15 @@ def kernel_phase(torch, dev, timer):
     # tolerance: denominators and quotients bit-equal.  Library: torch's
     # f32 rms_norm, a yardstick with an exact divide and no RAPID one
     # and jamba's 8192-wide rows at depths 1, 2, 3 (8192 f32 rows fill a
-    # block's shared memory past depth 4), xlstm_350m's 1024-wide ones and
-    # whisper_medium's encoder LN divides (4 x 1500 rows of 1024)
+    # block's shared memory past depth 4), xlstm_350m's 1024-wide ones,
+    # whisper_medium's encoder LN divides (4 x 1500 rows of 1024) and
+    # llava_next_34b's rms rows of 7168 (a decode step's 4, 512, its
+    # prefill's 4 x 608)
     rms_norm = torch.nn.functional.rms_norm
     for rows, n in [(r, D) for r in (1, DECODE_M, CHUNK_M, 37, PREFILL_M)] + [
             (r, d) for d in (SC_D,) + MOE_D + (JAMBA_D, XLSTM_D)
-            for r in (DECODE_M, CHUNK_M, PREFILL_M)] + [(WHISPER_M, XLSTM_D)]:
+            for r in (DECODE_M, CHUNK_M, PREFILL_M)] + [(WHISPER_M, XLSTM_D)] + [
+            (r, LLAVA_D) for r in (DECODE_M, PREFILL_M, LLAVA_M)]:
         x = randn(rows, n, std=3.0)
         ref, rden = rms_div_plain(x, 1e-6, "rapid9", return_denom=True)
         plain_ms = timer(lambda: rms_div_plain(x, 1e-6, "rapid9"), 3)
@@ -841,9 +952,10 @@ def kernel_phase(torch, dev, timer):
     # ragged 33 x 130 (n % 4 != 0: 4 B copies), the MoE router's gates
     # (top-8 rows of qwen3_moe_235b_a22b, top-1 of llama4_scout_17b_a16e,
     # over a decode step's 4 tokens, a prefill chunk's 64 and the lockstep
-    # prefill's 512), and whisper_medium's rows of 1500 frames (an encoder
+    # prefill's 512), whisper_medium's rows of 1500 frames (an encoder
     # layer's 1024-query chunk, 4 x 16 heads x 1024 rows, and the
-    # cross-attention prefill's 4 x 16 x 16); every stage count.
+    # cross-attention prefill's 4 x 16 x 16) and llava_next_34b's prefill
+    # scores (4 x 56 heads x 608 rows of 608); every stage count.
     # Library: F.normalize(e, p=1, eps=floor), e / max(sum e, floor) for
     # e >= 0 with an exact divide
     from repro_torch.kernels.fused_div.ref import SOFTMAX_FLOOR
@@ -858,13 +970,14 @@ def kernel_phase(torch, dev, timer):
         t = randn(rows, n, std=2.0)
         return torch.exp(t - t.amax(dim=-1, keepdim=True))
 
-    whisper_rows = ((WHISPER_B * WHISPER_HEADS * 1024, WHISPER_FRAMES),
+    score_rows = ((WHISPER_B * WHISPER_HEADS * 1024, WHISPER_FRAMES),
                     (WHISPER_B * WHISPER_HEADS * WHISPER_PROMPT,
-                     WHISPER_FRAMES))
+                     WHISPER_FRAMES), (LLAVA_B * LLAVA_HEADS * LLAVA_S,
+                                       LLAVA_S))
     for e in (torch.exp(s - s.amax(dim=-1, keepdim=True)),
               torch.exp(randn(33, 130))) + tuple(
                   gates(rows, k) for k, rows in ROUTER_ROWS) + tuple(
-                  scores(rows, n) for rows, n in whisper_rows):
+                  scores(rows, n) for rows, n in score_rows):
         ref, rden = softmax_div_plain(e, "rapid9", return_denom=True)
         plain_ms = timer(lambda: softmax_div_plain(e, "rapid9"), 3)
         lib = {"library_ms": timer.graph(
@@ -1037,6 +1150,22 @@ def kernel_phase(torch, dev, timer):
                qf, kc, vc, wsp.contiguous(),
                torch.full((B,), pos, dtype=torch.int32, device=dev), 0)
         del kc, vc
+
+    # K4 at llava_next_34b's decode step: 8 kv heads of 7 queries (G 7,
+    # 224 threads a block), heads of 128, bf16; a 1024-slot cache with 640
+    # live (576 patches + 32 prompt + 32 new tokens)
+    lq = randn(B, LLAVA_KV, LLAVA_HEADS // LLAVA_KV, LLAVA_HD,
+               std=LLAVA_HD ** -0.5)
+    kc = randn(B, LLAVA_CACHE, LLAVA_KV, LLAVA_HD).to(torch.bfloat16)
+    vc = randn(B, LLAVA_CACHE, LLAVA_KV, LLAVA_HD).to(torch.bfloat16)
+    live = LLAVA_S + LLAVA_NEW
+    base = torch.arange(LLAVA_CACHE, dtype=torch.int32, device=dev)
+    lsp = torch.where(base < live, base, 2**31 - 1).expand(B, LLAVA_CACHE)
+    k4_row(f"llava q=[4,{LLAVA_KV},{LLAVA_HEADS // LLAVA_KV},{LLAVA_HD}] "
+           f"cache=[4,{LLAVA_CACHE},{LLAVA_KV},{LLAVA_HD}] bf16 live={live}",
+           lq, kc, vc, lsp.contiguous(),
+           torch.full((B,), live - 1, dtype=torch.int32, device=dev), 0)
+    del kc, vc, lq
 
     # K5: the online-softmax combine acc / l of a 64-token prefill chunk
     # (64 x 32 heads rows of head_dim 80; starcoder2_7b's: 64 x 36 heads
@@ -1235,9 +1364,11 @@ def family_k1_cases(torch, dev, timer, g, record, arch,
     xlstm_350m: up_proj / sLSTM's w 1024 -> 4096, wq / wk / wv 2048 ->
     2048, the down_projs 2048 -> 1024 and 1024 -> 1024; whisper_medium:
     wq 1024 -> 1024, w1 1024 -> 4096 with the tanh gelu, w2 4096 -> 1024
-    with the residual) at the rows
-    ``ms`` (M = 4, 64 and 512; whisper: 4, 512 and the encoder's 4 x
-    1500), at the default stage count, bit-equal to the plain version
+    with the residual; llava_next_34b: wq 7168 -> 7168, wk / wv 7168 ->
+    1024, w1 7168 -> 20480 with silu, w2 20480 -> 7168 with the residual)
+    at the rows ``ms`` (M = 4, 64 and 512; whisper: 4, 512 and the
+    encoder's 4 x 1500; llava: 4, 512 and the prefill's 4 x 608), at the
+    default stage count, bit-equal to the plain version
     (the gelu epilogue within GELU_ULP), timed beside its bound and f32
     ``torch.matmul``.  Past M = 4 the plain version (one k at a time: its
     cost follows K x N) checks the first 2048 / 1024 columns (256 past M
@@ -2041,12 +2172,12 @@ def long_prefill_phase(torch, dev, cfg, params):
 
 
 def kernels_vs_plain(torch, label: str, engines: dict, prompts,
-                     max_new: int) -> dict:
+                     max_new: int, layers: int = 2) -> dict:
     """Each engine of ``engines`` (path -> (make(graphs), the kernels it
-    must launch, those it must not)) on ``prompts``, through the kernels
-    (graph route) and through the plain versions (eager): the greedy
-    tokens must agree, the first run must launch the path's kernels and
-    the second none."""
+    must launch, those it must not)) of a ``layers``-layer copy on
+    ``prompts``, through the kernels (graph route) and through the plain
+    versions (eager): the greedy tokens must agree, the first run must
+    launch the path's kernels and the second none."""
     from repro_torch.kernels import plain_versions, reset_launch_counts
 
     rec = {}
@@ -2069,20 +2200,21 @@ def kernels_vs_plain(torch, label: str, engines: dict, prompts,
             del eng2
         (k_tok, t_k, k_counts), (p_tok, t_p, p_counts) = (runs["kernels"],
                                                           runs["plain"])
-        require_launches(f"{label} 2-layer {path} kernel run", k_counts,
+        copy = f"{layers}-layer"
+        require_launches(f"{label} {copy} {path} kernel run", k_counts,
                          must, must_not)
-        require_launches(f"{label} 2-layer {path} plain run", p_counts,
+        require_launches(f"{label} {copy} {path} plain run", p_counts,
                          (), p_counts)
         agree = sum(a == b for x, y in zip(k_tok, p_tok)
                     for a, b in zip(x, y))
-        log(f"{label} e2e 2-layer {path}: prompts "
+        log(f"{label} e2e {copy} {path}: prompts "
             f"{[len(p) for p in prompts]}; kernels {t_k:.2f}s "
             f"{json.dumps(k_counts)}, plain {t_p:.2f}s; greedy tokens equal "
             f"{agree}/{sum(len(o) for o in p_tok)}")
         if k_tok != p_tok:
-            raise AssertionError(f"{label} 2-layer {path} greedy tokens "
+            raise AssertionError(f"{label} {copy} {path} greedy tokens "
                                  f"differ:\n{k_tok}\n{p_tok}")
-        rec[f"e2e_2layer_{path}"] = {"kernels_s": t_k, "plain_s": t_p,
+        rec[f"e2e_{layers}layer_{path}"] = {"kernels_s": t_k, "plain_s": t_p,
                                      "launches": k_counts, "tokens": k_tok}
     return rec
 
@@ -2199,9 +2331,9 @@ def starcoder2_phase(torch, dev):
     KV heads of 128, d_ff 18432, LN, the ungated gelu MLP; RAPID rapid10
     / rapid9, f32 params from a seed, bf16 activations and KV) on the
     graph route through both engines (:func:`serve_paths`: 4 requests of
-    96-128 prompt tokens, 8 greedy tokens); then a 2-layer full-width
-    copy through both engines at the same load, kernels (graph route) vs
-    plain (eager): the greedy tokens must agree."""
+    96-128 prompt tokens, 8 greedy tokens); then a COPY_LAYERS-layer
+    full-width copy through both engines at the same load, kernels (graph
+    route) vs plain (eager): the greedy tokens must agree."""
     from repro_torch.configs.base import RAPID, get_config
     from repro_torch.models.model import Model
 
@@ -2222,16 +2354,16 @@ def starcoder2_phase(torch, dev):
     rec.update(serve_paths(torch, "starcoder2", cfg,
                            engine_makers(model, params), prompts, max_new))
 
-    # the 2-layer full-width copy at the main path's load (the same 4
-    # prompts, 8 greedy tokens), kernels (graph route) vs plain (eager),
-    # through both engines as the main path runs them
-    cfg2 = cfg.with_(n_layers=2)
-    params2 = dict(params, blocks=params["blocks"][:2])
+    # the full-width copy at the main path's load (the same 4 prompts, 8
+    # greedy tokens), kernels (graph route) vs plain (eager), through
+    # both engines as the main path runs them
+    cfg2 = cfg.with_(n_layers=COPY_LAYERS)
+    params2 = dict(params, blocks=params["blocks"][:COPY_LAYERS])
     make2 = engine_makers(Model(cfg2), params2)
     rec.update(kernels_vs_plain(torch, "starcoder2", {
         p: (mk, *path_kernels(cfg2, p)) for p, mk in make2.items()},
-        prompts, max_new))
-    rec["e2e_2layer_equal"] = True
+        prompts, max_new, COPY_LAYERS))
+    rec["e2e_copy_equal"] = True
     del params, params2, make2
     torch.cuda.empty_cache()
     return rec
@@ -2249,7 +2381,7 @@ def moe_phase(torch, dev, arch: str, plain_paths=("lockstep",)):
     On graphs, one lockstep decode step (a replay) and prefill, and one
     continuous prefill and decode tick, run under torch.profiler
     (:func:`profiled`: busy share, batched K1 and the casts).  Then a
-    2-layer full-width copy, kernels (graph route) vs plain (eager)
+    COPY_LAYERS-layer full-width copy, kernels (graph route) vs plain (eager)
     through the engines of ``plain_paths`` at the same load (equal
     greedy tokens), and one MoE layer on the card kernels vs plain at
     the lockstep prefill's 4 x 128 tokens and a decode step's 4: the
@@ -2315,15 +2447,15 @@ def moe_phase(torch, dev, arch: str, plain_paths=("lockstep",)):
             f"{g['trace_counts']}")
     rec.update(runs)
 
-    # the 2-layer full-width copy at the main path's load, kernels vs plain
-    cfg2 = cfg.with_(n_layers=2)
-    params2 = dict(params, blocks=params["blocks"][:2])
+    # the full-width copy at the main path's load, kernels vs plain
+    cfg2 = cfg.with_(n_layers=COPY_LAYERS)
+    params2 = dict(params, blocks=params["blocks"][:COPY_LAYERS])
     make2 = engine_makers(Model(cfg2), params2)
     gc.collect()
     torch.cuda.empty_cache()
     rec.update(kernels_vs_plain(torch, name, {
         p: (make2[p], *path_kernels(cfg2, p)) for p in plain_paths},
-        prompts, max_new))
+        prompts, max_new, COPY_LAYERS))
 
     # one MoE layer, kernels vs plain on the card: bit-equal (every
     # kernel is, and the combine is a fixed-order sum)
@@ -2350,7 +2482,7 @@ def moe_phase(torch, dev, arch: str, plain_paths=("lockstep",)):
             raise AssertionError(f"{name} MoE layer at {label}: kernels and "
                                  "plain differ, or not finite")
         rec["layer_bits"][label] = True
-    rec["e2e_2layer_equal"] = True
+    rec["e2e_copy_equal"] = True
     del params, params2, make2, layer
     gc.collect()
     torch.cuda.empty_cache()
@@ -2783,29 +2915,33 @@ def xlstm_phase(torch, dev, timer):
     return rec
 
 
-def whisper_batch(torch, dev, cfg, B: int, seed: int = 7) -> dict:
-    """``B`` requests for the encdec family: frame embeddings [B, frames,
-    1024] (x 0.1, as the reference's tests scale them) and prompts of
-    WHISPER_PROMPT tokens (the decoder's task tokens and a short previous
-    text), from a seed; the first requests do not change with ``B``."""
+def frontend_batch(torch, dev, cfg, B: int, prompt: int, extra: str,
+                   seed: int = 7) -> dict:
+    """``B`` requests for a frontend family: ``extra`` (encdec:
+    ``enc_embeds``, the frames; vlm: ``patches``, an image's patch
+    embeddings) [B, frontend_seq, 1024] (x 0.1, as the reference's tests
+    scale them) and prompts of ``prompt`` tokens, from a seed; the first
+    requests do not change with ``B``."""
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab_size, (8, WHISPER_PROMPT))[:B]
+    toks = rng.integers(0, cfg.vocab_size, (8, prompt))[:B]
     emb = 0.1 * rng.standard_normal((B, cfg.frontend_seq, 1024))
     return {"tokens": torch.tensor(toks, dtype=torch.int32, device=dev),
-            "enc_embeds": torch.tensor(emb, dtype=torch.float32, device=dev)}
+            extra: torch.tensor(emb, dtype=torch.float32, device=dev)}
 
 
-def whisper_generate(torch, model, params, batch, max_new: int,
-                     graphs: bool) -> dict:
-    """Greedy generation the way a caller drives the encdec family (no
-    engine carries ``enc_embeds``): ``Model.prefill`` through an eager
-    ``CompiledStep`` (counted as the engine's prefill is), then ``max_new
-    - 1`` ``Model.decode_step`` calls through a ``CompiledStep``: one CUDA
-    graph on the graph route (warm-up and capture on the first step,
-    replays after), eager with ``graphs`` False.  Each step is timed by
-    the host clock between syncs; every logits row must be finite.
-    Returns the tokens, times, trace counts and a ``replay`` of one more
-    decode step (for the profiler)."""
+def frontend_generate(torch, model, params, batch, extra: str, cache_n: int,
+                      max_new: int, graphs: bool) -> dict:
+    """Greedy generation the way a caller drives a frontend family (no
+    engine carries ``batch[extra]``: whisper's ``enc_embeds``, llava's
+    ``patches``): ``Model.prefill`` through an eager ``CompiledStep``
+    (counted as the engine's prefill is), then ``max_new - 1``
+    ``Model.decode_step`` calls through a ``CompiledStep`` keyed by
+    ``cache_n``: one CUDA graph on the graph route (warm-up and capture on
+    the first step, replays after), eager with ``graphs`` False.  Each
+    step is timed by the host clock between syncs; every logits row must
+    be finite.  Returns the tokens, times, trace counts, the cache's
+    final ``pos`` and a ``replay`` of one more decode step (for the
+    profiler)."""
     from repro_torch.serve.compiled import CompiledStep
 
     dev = batch["tokens"].device
@@ -2815,17 +2951,16 @@ def whisper_generate(torch, model, params, batch, max_new: int,
 
     def finite(logits):
         if not bool(torch.isfinite(logits).all()):
-            raise AssertionError("whisper: non-finite logits")
+            raise AssertionError(f"{model.cfg.name}: non-finite logits")
         return logits.argmax(-1).to(torch.int32).cpu()
 
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache = prefill(
-            lambda t, e: model.prefill(params, {"tokens": t,
-                                                "enc_embeds": e},
-                                       WHISPER_CACHE),
-            batch["tokens"], batch["enc_embeds"])
+            lambda t, e: model.prefill(params, {"tokens": t, extra: e},
+                                       cache_n),
+            batch["tokens"], batch[extra])
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
     tok = finite(logits)
@@ -2838,7 +2973,7 @@ def whisper_generate(torch, model, params, batch, max_new: int,
         for _ in range(max_new - 1):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits = decode(fn, tok, key=WHISPER_CACHE)
+            logits = decode(fn, tok, key=cache_n)
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
             tok = finite(logits)
@@ -2846,12 +2981,13 @@ def whisper_generate(torch, model, params, batch, max_new: int,
 
     def replay():
         with torch.inference_mode():
-            decode(fn, tok, key=WHISPER_CACHE)
+            decode(fn, tok, key=cache_n)
 
     return {"tokens": torch.stack(out, 1).tolist(),
             "prefill_ms": prefill_s * 1e3,
             "decode": step_stats(step_s) if step_s else None,
-            "trace_counts": traces, "replay": replay}
+            "trace_counts": traces, "pos": int(cache["pos"]),
+            "replay": replay}
 
 
 def whisper_launches(cfg, steps: int) -> dict:
@@ -2878,7 +3014,7 @@ def whisper_phase(torch, dev):
     rapid10 / rapid9, f32 params from a seed, bf16 activations and
     caches; no depth cut): 4 requests of 1500 frame embeddings and 16
     prompt tokens, 48 greedy tokens into a 64-slot cache, through
-    ``Model.prefill`` and ``Model.decode_step`` (:func:`whisper_generate`)
+    ``Model.prefill`` and ``Model.decode_step`` (:func:`frontend_generate`)
     on the graph route (the main path, counted from 0), then eagerly, then
     on graphs again (warm): equal tokens and launch counts, each kernel
     launched exactly as :func:`whisper_launches` says, ``trace_counts``
@@ -2917,7 +3053,8 @@ def whisper_phase(torch, dev):
             log(f"whisper: {what} refuses the family: {e}")
         else:
             raise AssertionError(f"{what} took the encdec family")
-    batch = whisper_batch(torch, dev, cfg, WHISPER_B)
+    batch = frontend_batch(torch, dev, cfg, WHISPER_B, WHISPER_PROMPT,
+                           "enc_embeds")
     steps = WHISPER_NEW - 1
     want = whisper_launches(cfg, steps)
     runs = {}
@@ -2937,8 +3074,8 @@ def whisper_phase(torch, dev):
             enc_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        run = whisper_generate(torch, model, params, batch, WHISPER_NEW,
-                               route != "eager")
+        run = frontend_generate(torch, model, params, batch, "enc_embeds",
+                                WHISPER_CACHE, WHISPER_NEW, route != "eager")
         run["launches"] = counts_now()
         run["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         run["encoder_ms"] = enc_ms
@@ -2975,9 +3112,9 @@ def whisper_phase(torch, dev):
             model.prefill(params, batch, WHISPER_CACHE)
 
     prof = {"decode": profiled(torch, "whisper decode step (graph replay)",
-                               runs["graph_warm"]["replay"], whisper_shares),
+                               runs["graph_warm"]["replay"], row_shares),
             "prefill": profiled(torch, "whisper prefill", prefill,
-                                whisper_shares)}
+                                row_shares)}
     # the profiled wall carries the profiler's own host work (a replayed
     # decode step: 23.4 ms profiled, 14.4 unprofiled on the H100; a
     # process's first profiled window also sets up CUPTI, seconds), so
@@ -3007,17 +3144,19 @@ def whisper_phase(torch, dev):
     params2 = dict(params, blocks=params["blocks"][:2],
                    enc_blocks=params["enc_blocks"][:2])
     model2 = Model(cfg2)
-    batch2 = whisper_batch(torch, dev, cfg2, 2)
+    batch2 = frontend_batch(torch, dev, cfg2, 2, WHISPER_PROMPT,
+                            "enc_embeds")
     two = {}
     for route in ("kernels", "plain"):
         reset_launch_counts()
         t0 = time.perf_counter()
         if route == "plain":
             with plain_versions():
-                out = whisper_generate(torch, model2, params2, batch2, 4,
-                                       False)
+                out = frontend_generate(torch, model2, params2, batch2,
+                                        "enc_embeds", WHISPER_CACHE, 4, False)
         else:
-            out = whisper_generate(torch, model2, params2, batch2, 4, True)
+            out = frontend_generate(torch, model2, params2, batch2,
+                                    "enc_embeds", WHISPER_CACHE, 4, True)
         two[route] = {"tokens": out["tokens"], "counts": counts_now(),
                       "s": time.perf_counter() - t0}
     require_launches("whisper 2+2 kernel run", two["kernels"]["counts"],
@@ -3037,24 +3176,236 @@ def whisper_phase(torch, dev):
     return rec
 
 
-def whisper_shares(kernels, wall_ms: float, k1_ms: float) -> dict:
-    """Shares of a profiled whisper step's wall time, from its kernels'
-    (name, device ms) pairs: K1, K4 and the row dividers (the LN divides
+def kernel_share(kernels, wall_ms: float, pattern: str) -> float:
+    """The share of ``wall_ms`` that the kernels whose names match
+    ``pattern`` took, from (name, device ms) pairs."""
+    pat = re.compile(pattern)
+    return sum(t for k, t in kernels if pat.search(k)) / wall_ms
+
+
+def row_shares(kernels, wall_ms: float, k1_ms: float,
+               norm: str = "LN") -> dict:
+    """Shares of a profiled step's wall time, from its kernels' (name,
+    device ms) pairs: K1, K4 and the row dividers (the ``norm`` divides
     and K3's softmax, apart where the profiler's names carry the kernels'
-    template arguments: OP 0 rms, 1 softmax)."""
+    template arguments: OP 0 the norm, 1 softmax).  Whisper's shares."""
     def share(pattern):
-        pat = re.compile(pattern)
-        return sum(t for k, t in kernels if pat.search(k)) / wall_ms
+        return kernel_share(kernels, wall_ms, pattern)
 
     named = all("<" in k for k, _ in kernels
                 if re.search(r"row_(slab|hold)_kernel", k))
     return {"K1": k1_ms / wall_ms,
             "K4": share(r"flash_decode_kernel"),
-            "LN divides (K2/K8)": (share(r"row_(slab|hold)_kernel<\s*0\s*,")
-                                   if named else None),
+            f"{norm} divides (K2/K8)": (
+                share(r"row_(slab|hold)_kernel<\s*0\s*,") if named else None),
             "K3 softmax": (share(r"row_(slab|hold)_kernel<\s*1\s*,")
                            if named else None),
             "row dividers": share(r"row_(slab|hold)_kernel")}
+
+
+def llava_launches(cfg, steps: int) -> dict:
+    """The launches of a prefill and ``steps`` decode steps of the vlm
+    family: K1 7 a layer in prefill and in each step (wq, wk, wv, wo --
+    in prefill with ln2's rms divide in its epilogue --, w1 with silu,
+    w3, w2 with the residual; the projector's two products and the logits
+    stay exact); an rms divide 2 a layer (ln1, ln2) and the final norm,
+    in prefill and in each step; K3 once a layer in prefill (one q chunk:
+    608 tokens); K4 once a layer a step."""
+    L = cfg.n_layers
+    return {"log_matmul": 7 * L * (1 + steps),
+            "rms_div": (2 * L + 1) * (1 + steps),
+            "softmax_div": L, "flash_decode": steps * L,
+            "div_rowbcast": 0, "div": 0, "rapid_mul": 0, "rapid_div": 0}
+
+
+def llava_shares(kernels, wall_ms: float, k1_ms: float) -> dict:
+    """:func:`row_shares` of a profiled llava step (its norms rms), the
+    casts (copy kernels) and the exact cuBLAS products (the projector's
+    two, the attention's score and value einsums, the logits head)."""
+    return {**row_shares(kernels, wall_ms, k1_ms, "rms"),
+            "casts": kernel_share(kernels, wall_ms, r"copy"),
+            "exact gemms": kernel_share(kernels, wall_ms,
+                                        r"gemm|Kernel2|cutlass")}
+
+
+def llava_phase(torch, dev, timer):
+    """Full-width llava_next_34b, its depth cut to LLAVA_LAYERS of 60
+    (d_model 7168, 56 / 8 heads of 128, d_ff 20480, rms, silu; RAPID
+    rapid10 / rapid9, f32 params from a seed, bf16 activations and KV):
+    4 requests of 576 patch embeddings and a 32-token prompt, 32 greedy
+    tokens into a 1024-slot cache, through ``Model.prefill`` and
+    ``Model.decode_step`` (:func:`frontend_generate`: no engine carries
+    ``patches``) on the graph route (the main path, counted from 0), then
+    eagerly, then on graphs again (warm): equal tokens and launch counts,
+    each kernel launched exactly as :func:`llava_launches` says, none of
+    K5, K6, K9, K10, ``trace_counts`` {"decode": 1, "prefill": 1}, the
+    cache's ``pos`` at patches + prompt + steps; the launcher and the
+    continuous engine refuse the family.  The projector's two exact f32
+    products are held against their f64 product (TF32 off) and timed
+    apart.  One decode step (a replay) and the prefill run under
+    torch.profiler (busy share; K1, K4, rms divides, K3, casts, exact
+    products).  Then a 1-layer full-width copy on 1 request of 64 patches
+    and 8 tokens, 3 greedy tokens, kernels (graph route) vs plain
+    (eager): equal tokens, the kernels launched in the first run and none
+    in the second."""
+    from repro_torch.configs.base import RAPID, get_config
+    from repro_torch.kernels import plain_versions, reset_launch_counts
+    from repro_torch.launch.serve import check_servable
+    from repro_torch.models.model import Model
+    from repro_torch.serve.scheduler import ContinuousServeEngine
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LLAVA).with_(approx=RAPID, n_layers=LLAVA_LAYERS)
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"llava: {cfg.n_layers} of 60 layers, d_model={cfg.d_model}, "
+        f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.hd}, "
+        f"d_ff={cfg.d_ff}, {cfg.frontend_seq} patches, vocab "
+        f"{cfg.padded_vocab}, params {n_params} f32 "
+        f"({n_params * 4 / 2**30:.2f} GiB, init "
+        f"{time.perf_counter() - t0:.1f}s)")
+    for what, refuse in (("ContinuousServeEngine",
+                          lambda: ContinuousServeEngine(model, params)),
+                         ("launch/serve.py", lambda: check_servable(cfg))):
+        try:
+            refuse()
+        except ValueError as e:
+            log(f"llava: {what} refuses the family: {e}")
+        else:
+            raise AssertionError(f"{what} took the vlm family")
+    batch = frontend_batch(torch, dev, cfg, LLAVA_B, LLAVA_PROMPT, "patches")
+
+    # the projector: exact f32 products (TF32 off), held against the same
+    # math in f64 on the card, and timed apart (CUDA events)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("llava: TF32 is on for f32 matmuls")
+    pr = params["projector"]
+    with torch.inference_mode():
+        p32 = Model(cfg.with_(dtype="float32"))._project(params,
+                                                         batch["patches"])
+        h64 = torch.nn.functional.gelu(
+            batch["patches"].double() @ pr["w1"].double(), approximate="tanh")
+        p64 = h64 @ pr["w2"].double()
+        proj_rel = float((p32.double() - p64).abs().max() / p64.abs().max())
+        del h64, p64, p32
+        proj_ms = timer(lambda: model._project(params, batch["patches"]), 3)
+    log(f"llava projector [{LLAVA_B}, {LLAVA_PATCHES}, 1024] -> "
+        f"[{LLAVA_B}, {LLAVA_PATCHES}, {cfg.d_model}]: {proj_ms:.3f} ms "
+        f"(two exact f32 products), against f64 rel {proj_rel:.2e} (TF32 "
+        f"off: bound {PROJ_F64_RTOL})")
+    if not proj_rel <= PROJ_F64_RTOL:
+        raise AssertionError(f"llava projector: f32 vs f64 rel {proj_rel}")
+
+    steps = LLAVA_NEW - 1
+    want = llava_launches(cfg, steps)
+    runs = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    for route in ("graph", "eager", "graph_warm"):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        run = frontend_generate(torch, model, params, batch, "patches",
+                                LLAVA_CACHE, LLAVA_NEW, route != "eager")
+        run["launches"] = counts_now()
+        run["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        runs[route] = run
+        log(f"llava {route}: prefill {run['prefill_ms']:.1f} ms, decode "
+            f"step first {run['decode']['first_ms']:.2f} ms, then mean "
+            f"{run['decode']['rest_mean_ms']:.3f} / median "
+            f"{run['decode']['rest_median_ms']:.3f} ms; peak "
+            f"{run['peak_gib']:.2f} GiB; traces {run['trace_counts']}")
+    g_run = runs["graph"]
+    for route, run in runs.items():
+        got = {k: run["launches"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"llava {route}: launched {got}, "
+                                 f"expected {want}")
+        if run["tokens"] != g_run["tokens"]:
+            raise AssertionError(f"llava {route}: tokens differ from the "
+                                 f"graph route's")
+        if run["trace_counts"] != {"decode": 1, "prefill": 1}:
+            raise AssertionError(f"llava {route}: traced "
+                                 f"{run['trace_counts']}")
+        if run["pos"] != LLAVA_S + steps or np.shape(run["tokens"]) != (
+                LLAVA_B, LLAVA_NEW):
+            raise AssertionError(f"llava {route}: pos {run['pos']}, tokens "
+                                 f"{np.shape(run['tokens'])}")
+    require_launches("llava", g_run["launches"], LLAVA_KERNELS,
+                     ("div_rowbcast", "div", "rapid_mul", "rapid_div"))
+    log(f"llava graph vs eager: tokens and launches equal ({want}); "
+        f"decode step {runs['graph_warm']['decode']['rest_mean_ms']:.3f} vs "
+        f"{runs['eager']['decode']['rest_mean_ms']:.3f} ms")
+
+    def prefill():
+        with torch.inference_mode():
+            model.prefill(params, batch, LLAVA_CACHE)
+
+    prof = {"decode": profiled(torch, "llava decode step (graph replay)",
+                               runs["graph_warm"]["replay"], llava_shares),
+            "prefill": profiled(torch, "llava prefill", prefill,
+                                llava_shares)}
+    warm = runs["graph_warm"]
+    prof["prefill"]["shares"]["projector (timed apart)"] = (
+        proj_ms / warm["prefill_ms"])
+    for label, rec in prof.items():
+        wall = (warm["prefill_ms"] if label == "prefill"
+                else warm["decode"]["rest_mean_ms"])
+        rec["busy_of_unprofiled_wall"] = rec["kernel_ms"] / wall
+        log(f"llava {label} profiled: busy {rec['busy']} of the profiled "
+            f"wall, {rec['busy_of_unprofiled_wall']:.1%} of the unprofiled "
+            f"{wall:.2f} ms; of the profiled wall "
+            + ", ".join(f"{k} " + ("not measured" if v is None
+                                   else f"{v:.1%}")
+                        for k, v in rec["shares"].items()))
+    for run in runs.values():
+        del run["replay"]
+    rec = {"params": n_params, "layers": cfg.n_layers, "of_layers": 60,
+           "patches": cfg.frontend_seq, "requests": LLAVA_B,
+           "prompt": LLAVA_PROMPT, "new_tokens": LLAVA_NEW,
+           "cache_n": LLAVA_CACHE, "launches_expected": want,
+           "projector_ms": proj_ms, "projector_f64_rel": proj_rel,
+           "profiled": prof, **runs}
+
+    # the 1-layer full-width copy on 1 request, kernels vs plain
+    c = LLAVA_COPY
+    cfg2 = cfg.with_(n_layers=1, frontend_seq=c["patches"])
+    params2 = dict(params, blocks=params["blocks"][:1])
+    model2 = Model(cfg2)
+    batch2 = frontend_batch(torch, dev, cfg2, 1, c["prompt"], "patches")
+    two = {}
+    for route in ("kernels", "plain"):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        if route == "plain":
+            with plain_versions():
+                out = frontend_generate(torch, model2, params2, batch2,
+                                        "patches", c["cache_n"], c["new"],
+                                        False)
+        else:
+            out = frontend_generate(torch, model2, params2, batch2, "patches",
+                                    c["cache_n"], c["new"], True)
+        two[route] = {"tokens": out["tokens"], "counts": counts_now(),
+                      "s": time.perf_counter() - t0}
+    require_launches("llava 1-layer kernel run", two["kernels"]["counts"],
+                     LLAVA_KERNELS)
+    require_launches("llava 1-layer plain run", two["plain"]["counts"], (),
+                     two["plain"]["counts"])
+    log(f"llava e2e 1 layer (1 request, {c['patches']} patches + "
+        f"{c['prompt']} tokens, {c['new']} tokens): kernels "
+        f"{two['kernels']['s']:.2f}s, plain {two['plain']['s']:.2f}s; "
+        f"tokens {two['kernels']['tokens']} vs {two['plain']['tokens']}")
+    if two["kernels"]["tokens"] != two["plain"]["tokens"]:
+        raise AssertionError("llava 1 layer: kernel and plain tokens differ")
+    rec["e2e_1layer"] = {k: {"tokens": v["tokens"], "s": v["s"],
+                             "launches": v["counts"]} for k, v in two.items()}
+    rec["seconds"] = time.perf_counter() - t_phase
+    del params, params2, batch, batch2, model, model2, pr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 def profile_lockstep(torch, name, engine, model, params, prompts):
@@ -3749,6 +4100,10 @@ def main() -> int:
               "(src/repro_torch missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    global _LOG
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    _LOG = open(out_dir / "chip_smoke.log", "w")
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build
     from repro_torch.launch.kernel_timing import card_line
@@ -3816,6 +4171,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     whisper = whisper_phase(torch, dev)
     lap("whisper")
+    llava = llava_phase(torch, dev, timer)
+    lap("llava")
     ints = integer_units_phase(torch, dev, ab["parent_ab"].get("table3"))
     lap("integer_units")
     apps = apps_phase(torch, dev)
@@ -3875,6 +4232,7 @@ def main() -> int:
                                       ("xlstm_lockstep",
                                        xlstm["lockstep"]["graph"]),
                                       ("whisper", whisper["graph"]),
+                                      ("llava", llava["graph"]),
                                       ("integer_units", ints),
                                       ("apps", apps), ("train", train))}
         row = {
@@ -3893,13 +4251,11 @@ def main() -> int:
               "cases": cases, "serve": serve,
               "continuous": cont, "long_prefill": long_, "depth_ab": ab,
               "starcoder2": sc2, "moe": moe, "jamba": jamba,
-              "xlstm": xlstm, "whisper": whisper,
+              "xlstm": xlstm, "whisper": whisper, "llava": llava,
               "integer_units": ints, "apps": apps, "train": train,
               "train_2layer": train_check, "kernels": kernels,
               "phase_seconds": laps,
               "seconds": time.perf_counter() - t_start}
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     log(f"total {record['seconds']:.1f}s")
     print(card)

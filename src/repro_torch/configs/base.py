@@ -1,12 +1,12 @@
 """Config system of the port: model and approximation configs.
 
 Mirrors ``repro.configs.base`` for the dense, MoE, hybrid (Jamba), ssm
-(xLSTM) and encdec (Whisper) serve and train paths.  ``ApproxConfig``
-keeps the reference's ``mul``/``div``/``on_*`` semantics but drops its
-per-site ``backends`` map and the ``RAPID_BACKEND`` environment
-variable: the port has one dispatch path, and the device of the tensor
-decides it (a CPU tensor takes each kernel's plain PyTorch version, a
-CUDA tensor launches the kernel).
+(xLSTM), encdec (Whisper) and vlm (LLaVA-NeXT) serve and train paths.
+``ApproxConfig`` keeps the reference's ``mul``/``div``/``on_*``
+semantics but drops its per-site ``backends`` map and the
+``RAPID_BACKEND`` environment variable: the port has one dispatch path,
+and the device of the tensor decides it (a CPU tensor takes each
+kernel's plain PyTorch version, a CUDA tensor launches the kernel).
 """
 from __future__ import annotations
 
@@ -18,11 +18,12 @@ from typing import Optional, Tuple
 __all__ = ["ARCH_IDS", "ApproxConfig", "ModelConfig", "EXACT", "RAPID",
            "get_config"]
 
-# the architectures the port has (the dense, MoE, hybrid, ssm and encdec
-# families)
+# the architectures the port has (the dense, MoE, hybrid, ssm, encdec and
+# vlm families)
 ARCH_IDS = ("h2o_danube_1_8b", "yi_6b", "minicpm_2b", "starcoder2_7b",
             "qwen3_moe_235b_a22b", "llama4_scout_17b_a16e",
-            "jamba_1_5_large_398b", "xlstm_350m", "whisper_medium")
+            "jamba_1_5_large_398b", "xlstm_350m", "whisper_medium",
+            "llava_next_34b")
 
 
 @dataclass(frozen=True)
@@ -62,7 +63,7 @@ RAPID = ApproxConfig(mul_scheme="rapid10", div_scheme="rapid9")
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | hybrid | ssm | encdec (the port's families)
+    family: str  # dense | moe | hybrid | ssm | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -90,9 +91,10 @@ class ModelConfig:
     # ssm (xlstm): the layers that are sLSTM blocks, the rest are mLSTM
     slstm_at: Tuple[int, ...] = ()
     # encdec (whisper): the encoder's layers over precomputed frontend
-    # embeddings (the frontend itself is a stub, as the reference's)
+    # embeddings; vlm (llava): the patch embeddings an image puts ahead of
+    # the prompt (either frontend itself is a stub, as the reference's)
     n_encoder_layers: int = 0
-    frontend_seq: int = 0       # encoder frames
+    frontend_seq: int = 0       # encoder frames | patches an image
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
     approx: ApproxConfig = field(default_factory=ApproxConfig)

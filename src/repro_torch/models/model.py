@@ -1,9 +1,8 @@
 """Model API of the port: the decoder families dense and moe, the
-hybrid family (Jamba), the ssm family (xLSTM) and the encdec family
-(the Whisper backbone).
+hybrid family (Jamba), the ssm family (xLSTM), the encdec family (the
+Whisper backbone) and the vlm family (the LLaVA-NeXT backbone).
 
-The port of the dense, MoE, hybrid, ssm and encdec paths of
-``repro.models.model.Model``:
+The port of every family's path of ``repro.models.model.Model``:
 
   * ``param_specs()`` / ``init(seed, device)`` -- one source of truth for
     shapes and init (models/params.py);
@@ -53,7 +52,17 @@ keeps the cross k/v its cross-attention computed (the reference projects
 ``enc_out`` a second time: the same product, the same bits).  It serves
 through neither engine (no engine carries ``enc_embeds``, as the
 reference's): callers drive ``prefill`` and ``decode_step`` themselves;
-the paged routes raise ``ValueError``, as the reference's.
+the paged routes raise ``ValueError``, as the reference's.  The vlm
+family (llava_next_34b) is the dense rms / silu decoder with a
+projector ahead of it: a batch's precomputed patch embeddings
+(``batch["patches"]`` [B, frontend_seq, 1024]; the vision tower is a
+stub, as the reference's) go through two exact f32 products with the
+tanh gelu between (``_project``) and are prepended to the token
+embeddings, so positions, the ring and ``cache["pos"]`` count patches
+and tokens together.  Its decode step is the dense one; the paged cache
+and ``decode_paged`` take it on tokens, as the reference's; no engine
+carries ``patches`` (the reference's neither), so callers drive
+``prefill`` and ``decode_step``, as for encdec.
 """
 from __future__ import annotations
 
@@ -79,8 +88,8 @@ from repro_torch.models.transformer import (attn_cache_specs, block_apply,
 __all__ = ["Model"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_FAMILIES = ("dense", "moe", "hybrid", "ssm", "encdec")
-# the stub frontend's embedding width (the reference's ``_VIS_DIM``)
+_FAMILIES = ("dense", "moe", "hybrid", "ssm", "encdec", "vlm")
+# the stub frontends' embedding width (the reference's ``_VIS_DIM``)
 _VIS_DIM = 1024
 _ACTS = ("silu", "gelu")
 _NORMS = ("rms", "ln")
@@ -132,6 +141,8 @@ class Model:
             specs["enc_final_norm"] = norm_params(cfg)
             specs["enc_blocks"] = [block_params(cfg)
                                    for _ in range(cfg.n_encoder_layers)]
+        if cfg.family == "vlm":
+            specs["projector"] = {"w1": P((_VIS_DIM, D)), "w2": P((D, D))}
         return specs
 
     def init(self, seed: int = 0, device=None):
@@ -169,7 +180,7 @@ class Model:
 
     def _paged_family(self, what: str) -> None:
         fam = self.cfg.family
-        if fam not in ("dense", "moe"):
+        if fam not in ("dense", "moe", "vlm"):
             state = "cross" if fam == "encdec" else "recurrent"
             raise ValueError(
                 f"{what} need pure-attention decode; family {fam!r} "
@@ -244,6 +255,26 @@ class Model:
                                     causal=False), x, remat)
         return apply_norm(x, params["enc_final_norm"], cfg)
 
+    def _project(self, params, patches):
+        """The vlm family's projector over precomputed patch embeddings
+        [B, P, 1024]: ``gelu(patches @ w1) @ w2``, both products exact f32
+        (TF32 off, ``device.set_exact_numerics``) with the tanh gelu
+        between, as the reference's ``jax.nn.gelu``; cast to the config
+        dtype."""
+        pr = params["projector"]
+        p = torch.nn.functional.gelu(
+            exact_einsum("bpe,ed->bpd", patches, pr["w1"]),
+            approximate="tanh")
+        return exact_einsum("bpd,de->bpe", p, pr["w2"]).to(self.dtype)
+
+    def _embed_batch(self, params, batch):
+        """The stream a batch starts as: its token embeddings, a vlm
+        batch's projected patches ahead of them."""
+        x = self._embed(params, batch["tokens"])
+        if self.cfg.family == "vlm":
+            x = torch.cat([self._project(params, batch["patches"]), x], 1)
+        return x
+
     def _cross(self, params, batch, remat=None) -> dict:
         """The encdec family's cross-attention inputs for the decoder
         blocks (``enc_out`` and its frame positions); none otherwise."""
@@ -255,12 +286,11 @@ class Model:
 
     def forward(self, params, batch, remat=None):
         """Logits [B, S, V] f32 at every position of ``batch["tokens"]``
-        (an encdec batch also carries ``enc_embeds``)."""
+        (an encdec batch also carries ``enc_embeds``; a vlm batch carries
+        ``patches``, whose positions come first: S counts them)."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = self._embed(params, tokens)
-        pos = torch.arange(tokens.shape[1], dtype=torch.int32,
-                           device=tokens.device)
+        x = self._embed_batch(params, batch)
+        pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         body = {"hybrid": _superblock_body,
                 "ssm": _xlstm_body}.get(cfg.family, _block_body)
         x = self._run_stack(params["blocks"],
@@ -288,15 +318,15 @@ class Model:
         """Full-sequence forward that also fills a decode cache.
 
         ``batch["tokens"]``: [B, S] integer tensor (an encdec batch also
-        carries ``enc_embeds``).  Returns (last-position logits [B, V] f32,
-        cache); k/v land in (ring) cache buffers, an encdec layer's cross
-        k/v whole in ``ck`` / ``cv``.
+        carries ``enc_embeds``, a vlm batch ``patches``, which come first:
+        S, the slots and ``pos`` count them).  Returns (last-position
+        logits [B, V] f32, cache); k/v land in (ring) cache buffers, an
+        encdec layer's cross k/v whole in ``ck`` / ``cv``.
         """
         cfg = self.cfg
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        dev = tokens.device
-        x = self._embed(params, tokens)
+        x = self._embed_batch(params, batch)
+        B, S = x.shape[:2]
+        dev = x.device
         if cfg.family == "ssm":
             return self._xlstm_prefill(params, x)
         pos = torch.arange(S, dtype=torch.int32, device=dev)
@@ -392,7 +422,8 @@ class Model:
 
         Returns (logits [B, V] f32 at each row's last valid token, cache).
         The hybrid, ssm and encdec families raise ``ValueError`` (their
-        recurrent or cross state is not paged), as the reference.
+        recurrent or cross state is not paged), as the reference; the vlm
+        family runs on tokens (its decode is the dense one).
         """
         self._paged_family("paged decode steps")
         B, S = tokens.shape

@@ -2259,3 +2259,122 @@ def test_cuda_whisper_full_width_copy_kernels_vs_plain(cuda):
     assert all(k_counts[k] > 0 for k in ("log_matmul", "rms_div",
                                          "softmax_div", "flash_decode"))
     assert torch.equal(got, ref)
+
+
+# --------------------------------------------------------------------------
+# the vlm family (llava_next_34b): K4 at G 7 (56 / 8 heads of 128), the
+# captured decode step after a prefill over patches and prompt, the
+# kernel route against the plain route
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("scheme", ["rapid9", None])
+def test_cuda_flash_decode_llava_g7(cuda, dtype, scheme):
+    """K4 at llava_next_34b's decode step: q [4, 8, 7, 128] (G 7: blocks of
+    224 threads) over a 1024-slot cache with 640 live (576 patches, a
+    32-token prompt, 32 new tokens), then rows at other depths and one
+    with no live slot: the same bits as the plain version."""
+    qf, kc, vc, sp = _flash_rows(77, 4, 1024, KV=8, G=7, hd=128)
+    sp[:, 640:] = 2**31 - 1
+    args = _on(cuda, dtype, qf, kc, vc, sp)
+    posv = torch.tensor([639, 600, 17, -1], dtype=torch.int32, device=cuda)
+    for p in (639, posv):
+        got = flash_decode_attn(*args, p, 0, scheme)
+        assert got.shape == (4, 8, 7, 128)
+        assert_same_bits(got.cpu().numpy(),
+                         flash_decode_plain(*args, p, 0, scheme).cpu().numpy())
+    assert not got[3].any()  # row 3 sees no slot
+
+
+def _llava(cuda, **over):
+    from repro_torch.configs.base import RAPID, get_config
+    from repro_torch.models.model import Model
+    cfg = get_config("llava_next_34b").reduced().with_(approx=RAPID, **over)
+    model = Model(cfg)
+    return cfg, model, model.init(0, cuda)
+
+
+def _llava_batch(cuda, cfg, B, S, seed):
+    rng = np.random.default_rng(seed)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                        dtype=torch.int32, device=cuda)
+    pat = T(0.1 * randn(rng, B, cfg.frontend_seq, 1024)).to(cuda)
+    return {"tokens": toks, "patches": pat}
+
+
+@pytest.mark.gpu
+def test_cuda_captured_llava_decode_step_replays_eager_bits(cuda):
+    """Reduced llava (2 layers, 72 patches; G 2) prefilled over patches
+    and a 9-token prompt, then its decode step captured in a CUDA graph
+    and run eagerly on a copy of the cache, greedy on each side's own
+    logits: over 6 steps the same tokens, the same logits bits and the
+    same launch counts a step (K1 7 a layer, the rms divides 2 a layer
+    and the final norm, K4 once a layer), one capture; every cache leaf
+    equal after, ``pos`` at patches + prompt + steps."""
+    import copy
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.params import tree_items
+    from repro_torch.serve.compiled import CompiledStep
+    cfg, model, params = _llava(cuda, frontend_seq=72)
+    with torch.inference_mode():
+        _, cache = model.prefill(params, _llava_batch(cuda, cfg, 4, 9, 5),
+                                 128)
+    eager = copy.deepcopy(cache)
+    step = CompiledStep("decode", {"decode": 0}, cuda)
+    g_tok = e_tok = torch.tensor([3, 1, 4, 1], dtype=torch.int32)
+    with torch.inference_mode():
+        for i in range(6):
+            reset_launch_counts()
+            got = step(lambda t: model.decode_step(params, t, cache)[0],
+                       g_tok).clone()
+            g_counts = launch_counts()
+            reset_launch_counts()
+            want = model.decode_step(params, e_tok.to(cuda), eager)[0]
+            assert launch_counts() == g_counts, i
+            assert_same_bits(got.cpu().numpy(), want.cpu().numpy())
+            g_tok = got.argmax(-1).to(torch.int32).cpu()
+            e_tok = want.argmax(-1).to(torch.int32).cpu()
+            assert torch.equal(g_tok, e_tok)
+    assert g_counts["log_matmul"] == 7 * cfg.n_layers
+    assert g_counts["flash_decode"] == cfg.n_layers
+    assert g_counts["rms_div"] == 2 * cfg.n_layers + 1
+    assert step.trace_counts == {"decode": 1}
+    assert int(cache["pos"]) == 72 + 9 + 6
+    for (path, a), (_, b) in zip(tree_items(cache), tree_items(eager)):
+        assert torch.equal(a, b), path
+
+
+@pytest.mark.gpu
+def test_cuda_llava_kernel_route_equals_plain_route(cuda):
+    """Reduced llava (2 layers, 100 patches, 2 requests of 12 tokens,
+    bf16): prefill and 6 greedy decode steps through the kernels and
+    through the plain versions: the same greedy tokens, the kernels
+    launched in the first run and none in the second."""
+    from repro_torch.kernels import (launch_counts, plain_versions,
+                                     reset_launch_counts)
+    cfg, model, params = _llava(cuda, frontend_seq=100)
+    batch = _llava_batch(cuda, cfg, 2, 12, 9)
+
+    def run():
+        with torch.inference_mode():
+            logits, cache = model.prefill(params, batch, 128)
+            toks = [logits.argmax(-1)]
+            for _ in range(6):
+                logits = model.decode_step(params, toks[-1].to(torch.int32),
+                                           cache)[0]
+                assert bool(torch.isfinite(logits).all())
+                toks.append(logits.argmax(-1))
+        return torch.stack(toks).cpu()
+
+    reset_launch_counts()
+    got = run()
+    k_counts = launch_counts()
+    reset_launch_counts()
+    with plain_versions():
+        ref = run()
+    assert not any(launch_counts().values())
+    assert all(k_counts[k] > 0 for k in ("log_matmul", "rms_div",
+                                         "softmax_div", "flash_decode"))
+    assert torch.equal(got, ref)

@@ -206,9 +206,9 @@ def test_act_and_norm_variants_build_and_match_reference(over):
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(family="vlm"),
+    (dict(family="audio_lm"),
      r"the port has the families \(.dense., .moe., .hybrid., .ssm., "
-     r".encdec.\)"),
+     r".encdec., .vlm.\)"),
     (dict(act="relu"), "act='relu' is not ported"),
     (dict(norm="rmsnorm"), "norm='rmsnorm' is not ported")])
 def test_model_refuses_other_families_and_blocks(over, match):
