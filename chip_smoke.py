@@ -127,7 +127,20 @@ one NVIDIA H100.  It
 11. runs one train step of a 2-layer full-width copy through the kernels
     and through the plain versions: loss within rel 1e-5 and every
     gradient within 1e-5 of its largest magnitude, the kernels launched
-    in the first run and none in the second.
+    in the first run and none in the second;
+12. trains the recurrent families the same way (``train_recurrent_phase``:
+    RAPID, f32 params from a seed, bf16 compute, block remat, 3 steps of
+    4 x 128 tokens, the config's optimizer): full-width, full-depth
+    xlstm_350m with AdamW into a checkpoint (checked, then deleted), and
+    full-width jamba_1_5_large_398b cut to one 4-slot period (Mamba slots
+    0, 1, 3, the attention slot 2, every FFN dense) with Adafactor and no
+    checkpoint.  K1 (K7) and the rms divide (K8) must launch, K1, K5 / K6
+    (xlstm) and K3 (jamba) exactly as often as the steps call them (the
+    remat's recomputes included); losses and gradient norms finite; one
+    step profiled on the device (busy share, K1's, the f32 products', the
+    fma's f64 kernels), one mixer of each kind apart; and one train step
+    kernels vs plain at 1 x 32 tokens (xlstm: a 2-layer copy of layers 4
+    and 5, jamba: the phase's model) within 1e-5, as in step 11.
 
 Step 2 holds K1 at every 2-D site of the served configs' blocks
 (h2o_danube_1_8b's, starcoder2_7b's, the MoE configs' attention
@@ -260,6 +273,26 @@ CARD_TEST_SHARDS = 4
 DEPTHS = (1, 2, 3, 4, 8)
 # the train phase: full-width h2o_danube_1_8b, batch 4 x 128, 3 steps
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 3
+# the recurrent families' train phases (same batch and steps): xlstm_350m
+# at full width and full depth; jamba_1_5_large_398b at full width cut to
+# one 4-slot period (Mamba slots 0, 1, 3 and the attention slot 2, every
+# FFN dense): 4.89e9 params, ~46 GiB with gradients, the bf16 copy and
+# Adafactor (one 8-slot superblock alone, 33.5 GiB of f32, would need
+# ~84 GiB)
+TRAIN_CUTS = {"xlstm_350m": {},
+              "jamba_1_5_large_398b": dict(n_layers=4, attn_every=4,
+                                           n_experts=0)}
+# their kernels-vs-plain train steps: 1 x 32 tokens, remat off
+TRAIN_CHECK_B, TRAIN_CHECK_S = 1, 32
+# the kernels whose names carry f64 arithmetic: the mixers' fma (its
+# products, sums and nextafter; the casts to f64 are copy kernels)
+FMA_NAMES = re.compile(r"double|nextafter", re.I)
+# the cuBLAS / CUTLASS products (the straight-through backward's exact
+# f32 matmuls, the mixers' exact gate and state contractions)
+GEMM_NAMES = re.compile(r"gemm|xmma|cutlass", re.I)
+# the port's row and elementwise dividers (K2/K3/K5, K8, K6)
+ROW_DIV_NAMES = re.compile(r"(?<!\w)(row_slab_kernel|row_hold_kernel|"
+                           r"elementwise_div_kernel)\b")
 
 REPLACES = {
     "log_matmul": "src/repro/kernels/log_matmul/log_matmul.py:302",
@@ -3992,34 +4025,53 @@ def train_phase(torch, dev):
     return cfg, params, record
 
 
-def profile_train_step(torch, step, params, opt, batch):
+def profile_train_step(torch, step, params, opt, batch,
+                       label="train step"):
     """One more train step (after the counted run) under torch.profiler:
     wall time, the device time of its kernels, the device's busy share
-    (kernel time / wall; one stream) and the kernels that take most of
-    it.  The profiler adds host time per launch, so the wall time here
-    is longer than the loop's."""
+    (kernel time / wall; one stream), the device time of K1, of the row
+    and elementwise dividers, of the cuBLAS / CUTLASS products, of the
+    kernels named for f64 arithmetic (the mixers' fma) and of the rest,
+    and the kernels that take most of it.  The profiler traces the
+    device alone (the host's ops add time to the wall, and the recurrent
+    steps' ~10^5 of them would take minutes to trace and sort)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(params, opt, batch, TRAIN_STEPS)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev = sum(e.self_device_time_total for e in kern) / 1e3
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    # the device's events straight from the trace, by kernel name (what
+    # key_averages sums, without building its per-event records: those
+    # take ~0.3 ms an event, minutes for the recurrent steps)
+    kern = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            n, us = kern.get(e.name(), (0, 0.0))
+            kern[e.name()] = (n + 1, us + e.duration_ns() / 1e3)
+    dev = sum(us for _, us in kern.values()) / 1e3
+    top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:8]
+
+    def ms(pattern):
+        return sum(us for k, (_, us) in kern.items()
+                   if pattern.search(k)) / 1e3
+
+    parts = {"k1_ms": ms(K1_NAMES), "row_div_ms": ms(ROW_DIV_NAMES),
+             "gemm_ms": ms(GEMM_NAMES), "fma_f64_ms": ms(FMA_NAMES)}
+    parts["other_ms"] = dev - sum(parts.values())
     out = {"wall_ms": wall, "kernel_ms": dev,
-           "busy": dev / wall if dev else None,
-           "top": [(e.key[:80], e.count, e.self_device_time_total / 1e3)
-                   for e in top]}
+           "busy": dev / wall if dev else None, **parts,
+           "top": [(k[:80], n, us / 1e3) for k, (n, us) in top]}
     busy = (f"busy {dev / wall:.1%}" if dev else
             "device time not measured (the profiler saw no kernels)")
-    log(f"profile train step: wall {wall:.1f} ms, kernels {dev:.1f} ms, "
-        f"{busy}; top " + "; ".join(f"{k} x{n} {t:.1f} ms"
-                                    for k, n, t in out["top"]))
+    log(f"profile {label}: wall {wall:.1f} ms, kernels {dev:.1f} ms, "
+        f"{busy}; " + ", ".join(f"{k[:-3]} {v:.1f} ms ({v / wall:.1%})"
+                                for k, v in parts.items())
+        + "; top " + "; ".join(f"{k} x{n} {t:.1f} ms"
+                               for k, n, t in out["top"]))
     return out
 
 
@@ -4035,44 +4087,258 @@ def train_check_phase(torch, cfg, params):
     bits (``tests/test_torch_train.py``) and would run the plain
     products twice."""
     from repro_torch.data.pipeline import SyntheticLM
+
+    cfg2 = cfg.with_(n_layers=2, remat="none")
+    params2 = dict(params, blocks=params["blocks"][:2])
+    batch = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                        seed=1).batch_at(0)
+    return train_kernels_vs_plain(
+        torch, "train 2-layer", cfg2, params2, batch,
+        ("log_matmul@d2+", "rms_div@d2+", "softmax_div@d2+"))
+
+
+def train_kernels_vs_plain(torch, label, cfg, params, batch, must):
+    """``loss_and_grads`` of one train step of ``cfg`` on ``params`` and
+    ``batch`` through the kernels and through the plain versions on this
+    card: loss within rel 1e-5, every gradient within 1e-5 x its largest
+    magnitude, the ``must`` kernels launched in the first run and no
+    kernel in the second."""
     from repro_torch.kernels import plain_versions, reset_launch_counts
     from repro_torch.models.model import Model
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.trainstep import make_train_step
 
-    cfg2 = cfg.with_(n_layers=2, remat="none")
-    params2 = dict(params, blocks=params["blocks"][:2])
-    step = make_train_step(Model(cfg2), OptConfig())[1]
-    batch = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
-                        seed=1).batch_at(0)
+    step = make_train_step(Model(cfg), OptConfig())[1]
     runs = {}
     for route in ("kernels", "plain"):
         reset_launch_counts()
         t0 = time.perf_counter()
         if route == "plain":
             with plain_versions():
-                loss, grads = step.loss_and_grads(params2, batch)
+                loss, grads = step.loss_and_grads(params, batch)
         else:
-            loss, grads = step.loss_and_grads(params2, batch)
+            loss, grads = step.loss_and_grads(params, batch)
         torch.cuda.synchronize()
         runs[route] = (float(loss), grads, time.perf_counter() - t0,
                        counts_now())
     (lk, gk, tk, ck), (lp, gp, tp, cp) = runs["kernels"], runs["plain"]
-    require_launches("train 2-layer kernel run", ck,
-                     ("log_matmul@d2+", "rms_div@d2+", "softmax_div@d2+"))
-    require_launches("train 2-layer plain run", cp, (), cp)
+    require_launches(f"{label} kernel run", ck, must)
+    require_launches(f"{label} plain run", cp, (), cp)
+    finite = all(bool(torch.isfinite(g).all()) for g in gk)
     worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
                 for a, b in zip(gk, gp))
     rel = abs(lk - lp) / abs(lp)
-    log(f"train 2-layer kernels vs plain: loss {lk!r} vs {lp!r} (rel "
+    del runs, gk, gp
+    log(f"{label} kernels vs plain: loss {lk!r} vs {lp!r} (rel "
         f"{rel:.2e}), worst gradient leaf max|diff|/max|g| {worst:.2e}; "
         f"kernels {tk:.2f}s {json.dumps(ck)}, plain {tp:.2f}s")
-    if rel > 1e-5 or worst > 1e-5:
-        raise AssertionError(f"train 2-layer: loss rel {rel}, gradient "
-                             f"{worst} beyond 1e-5")
+    if rel > 1e-5 or worst > 1e-5 or not finite:
+        raise AssertionError(f"{label}: loss rel {rel}, gradient {worst} "
+                             f"beyond 1e-5, or gradients not finite")
     return {"loss_kernels": lk, "loss_plain": lp, "loss_rel_diff": rel,
             "grad_worst_rel_diff": worst, "kernels_s": tk, "plain_s": tp,
             "launches_kernels": ck}
+
+
+def recurrent_launches(cfg, model) -> dict:
+    """The launches one block-remat train step of the recurrent families
+    makes.  xlstm (each layer checkpointed, recomputed once): K1 5 an
+    mLSTM layer and 2 an sLSTM layer, K5 once an mLSTM layer and 64-token
+    chunk, K6 once an sLSTM layer and time step, each twice.  jamba (each
+    slot checkpointed inside the superblock's checkpoint): K1 2 a Mamba
+    slot or 4 the attention slot, plus 3 its dense FFN, K3 once the
+    attention slot, each three times (the forward, the superblock's
+    recompute, the slot's own), the superblock's last slot twice (the
+    superblock's recompute stops at its input)."""
+    if cfg.family == "ssm":
+        kinds = model._xlstm_kinds()
+        n_m, n_s = kinds.count("mlstm"), kinds.count("slstm")
+        return {"log_matmul": 2 * (5 * n_m + 2 * n_s),
+                "div_rowbcast": 2 * n_m * -(-TRAIN_SEQ // 64),
+                "div": 2 * n_s * TRAIN_SEQ}
+    from repro_torch.models.hybrid import attn_slot
+    out = {"log_matmul": 0, "softmax_div": 0}
+    n_blocks = cfg.n_layers // cfg.attn_every
+    for s in range(cfg.attn_every):
+        runs = 2 if s == cfg.attn_every - 1 else 3
+        attn = s == attn_slot(cfg)
+        out["log_matmul"] += runs * ((4 if attn else 2) + 3) * n_blocks
+        out["softmax_div"] += runs * n_blocks if attn else 0
+    return out
+
+
+def train_recurrent_phase(torch, dev, arch):
+    """Full-width ``arch`` (xlstm_350m at full depth, jamba_1_5_large_398b
+    cut to one 4-slot period: ``TRAIN_CUTS``), RAPID, f32 params from a
+    seed, bf16 compute, the config's block remat and optimizer (xlstm
+    AdamW, jamba Adafactor), batch 4 x 128 (SyntheticLM): 3 steps through
+    ``make_train_step``; xlstm's through ``train_loop``, ending in a
+    checkpoint under ``build/`` (checked, then deleted), jamba's through
+    ``run_steps``, which writes none (~20 GB for nothing h2o's and
+    xlstm's do not show).  The launch counts are set to 0 just
+    before the loop and read just after: K1 (as K7) and the rms divide (as
+    K8) must launch, and K1, K5 / K6 (xlstm) and K3 (jamba) exactly as
+    often as the steps call them (``recurrent_launches``); losses and
+    gradient norms must be finite.  One more step runs under
+    torch.profiler (``profile_train_step``: busy share, K1's, the
+    dividers', the products', the fma's f64 kernels), one mixer of each
+    kind is profiled apart at the train shape, and one train step runs
+    kernels vs plain on the card: xlstm on a 2-layer copy of trained
+    layers 4 (mLSTM) and 5 (its first sLSTM), jamba on the phase's own
+    model, both at 1 x 32 tokens, remat off."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs.base import RAPID, get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import launch_counts_by_depth, reset_launch_counts
+    from repro_torch.models import mamba as mb
+    from repro_torch.models import xlstm as xl
+    from repro_torch.models.model import Model
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainstep import make_train_step
+
+    name = "train_" + arch.split("_")[0]
+    cfg = get_config(arch).with_(approx=RAPID, **TRAIN_CUTS[arch])
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(1, dev)
+    oc = OptConfig(name=cfg.optimizer, lr=3e-4, schedule=cfg.lr_schedule,
+                   total_steps=TRAIN_STEPS)
+    init_opt, step = make_train_step(model, oc)
+    opt = init_opt(params)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"{name}: {arch} {cfg.n_layers} layers d_model={cfg.d_model} cut "
+        f"{TRAIN_CUTS[arch] or 'none'}, RAPID, {n_params / 1e9:.3f}e9 f32 "
+        f"params ({n_params * 4 / 2**30:.2f} GiB) + {cfg.optimizer} state, "
+        f"remat {cfg.remat}, compute {cfg.dtype}, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} (init {time.perf_counter() - t0:.1f}s)")
+    ckpt = ROOT / "build" / "chip_smoke_ckpt" if cfg.family == "ssm" else None
+    src = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    if ckpt is not None:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        lc = LoopConfig(total_steps=TRAIN_STEPS, ckpt_every=0, log_every=1,
+                        ckpt_dir=str(ckpt), resume=False)
+        state = train_loop(step, params, opt, src, lc)
+    else:
+        state, params, opt = run_steps(torch, step, params, opt, src)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, by_depth = counts_now(), launch_counts_by_depth()
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for i, (dt, loss, gn) in enumerate(zip(state.step_s, state.losses,
+                                           state.grad_norms)):
+        log(f"{name} step {i}: {dt * 1e3:.1f} ms, {tokens / dt:.1f} "
+            f"tokens/s, loss {loss:.4f}, grad norm {gn:.4f}")
+    want = {k: n * TRAIN_STEPS
+            for k, n in recurrent_launches(cfg, model).items()}
+    log(f"{name}: peak allocated {peak / 2**30:.2f} GiB of "
+        f"{total / 2**30:.2f}; loop {wall:.1f}s (checkpoint "
+        f"{wall - sum(state.step_s):.1f}s); launches by depth "
+        + " ".join(f"{k} {by_depth[k]}" for k in by_depth if by_depth[k])
+        + f"; expected {json.dumps(want)}; kernels {json.dumps(counts)}")
+    if not (np.isfinite(state.losses).all()
+            and np.isfinite(state.grad_norms).all()
+            and len(state.losses) == TRAIN_STEPS):
+        raise AssertionError(f"{name}: losses {state.losses}, grad norms "
+                             f"{state.grad_norms}")
+    must = ("log_matmul@d2+", "rms_div@d2+") + (
+        ("div_rowbcast@d2+", "div") if cfg.family == "ssm"
+        else ("softmax_div@d2+",))
+    require_launches(name, counts, must)
+    off = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
+    if off:
+        raise AssertionError(f"{name}: launches (got, expected) {off}")
+    rec = {"arch": arch, "cut": TRAIN_CUTS[arch], "n_params": n_params,
+           "step_ms": [t * 1e3 for t in state.step_s],
+           "tokens_per_s": [tokens / t for t in state.step_s],
+           "losses": state.losses, "grad_norms": state.grad_norms,
+           "peak_allocated_gib": peak / 2**30,
+           "card_memory_gib": total / 2**30, "launches": counts,
+           "expected_launches": want,
+           "launches_by_depth": {k: {str(d): n for d, n in v.items()}
+                                 for k, v in by_depth.items()}}
+    if ckpt is not None:
+        mgr = CheckpointManager(str(ckpt))
+        files = list((ckpt / f"step_{TRAIN_STEPS:08d}").glob("*.npy"))
+        n_leaves = 3 * len(list(_leaves(params)))  # params, m, v
+        rec["checkpoint_gb"] = sum(f.stat().st_size for f in files) / 1e9
+        rec["checkpoint_s"] = wall - sum(state.step_s)
+        if mgr.latest_step() != TRAIN_STEPS or len(files) != n_leaves:
+            raise AssertionError(f"{name}: checkpoint step "
+                                 f"{mgr.latest_step()} with {len(files)} of "
+                                 f"{n_leaves} arrays")
+        log(f"{name}: checkpoint {len(files)} arrays "
+            f"{rec['checkpoint_gb']:.2f} GB")
+        shutil.rmtree(ckpt, ignore_errors=True)
+    rec["profile"] = profile_train_step(torch, step, params, opt,
+                                        src.batch_at(TRAIN_STEPS),
+                                        f"{name} step")
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one mixer of each kind, forward at the train shape: its torch ops
+    # apart from its K1 launches
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), generator=g,
+                    device=dev).to(model.dtype)
+    blocks = params["blocks"]
+    if cfg.family == "ssm":
+        kinds = model._xlstm_kinds()
+        mixers = {k: (lambda k=k, p=blocks[kinds.index(k)][k]:
+                      getattr(xl, k)(x, p, cfg)) for k in ("mlstm", "slstm")}
+    else:
+        mixers = {"mamba": lambda: mb.mamba(x, blocks[0]["slot0"]["mamba"],
+                                            cfg)}
+    rec["mixer_ops"] = {k: mixer_profile(torch, f"{name} {k} mixer forward "
+                                                f"{TRAIN_BATCH} x {TRAIN_SEQ}",
+                                         run, reps=1)
+                        for k, run in mixers.items()}
+    del x
+
+    # kernels vs plain: xlstm's 2-layer copy of its first sLSTM layer (5)
+    # and the mLSTM layer before it, jamba's own 4-slot model
+    if cfg.family == "ssm":
+        first = cfg.slstm_at[0]
+        cfg2 = cfg.with_(n_layers=2, slstm_at=(1,), remat="none")
+        params2 = dict(params, blocks=blocks[first - 1:first + 1])
+        what = f"2-layer copy of layers {first - 1}-{first}"
+    else:
+        cfg2, params2, what = cfg.with_(remat="none"), params, "model"
+    batch = SyntheticLM(cfg.vocab_size, TRAIN_CHECK_S, TRAIN_CHECK_B,
+                        seed=1).batch_at(0)
+    rec["kernels_vs_plain"] = train_kernels_vs_plain(
+        torch, f"{name} {what} {TRAIN_CHECK_B} x {TRAIN_CHECK_S}",
+        cfg2, params2, batch, must)
+    del params, params2, blocks, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_steps(torch, step, params, opt, src):
+    """``TRAIN_STEPS`` steps of ``step`` on ``src``'s batches, as
+    ``train_loop`` runs them but with no checkpoint: ``(LoopState,
+    params, opt)``, each step timed by the host clock up to a device
+    sync."""
+    from repro_torch.train.loop import LoopState
+
+    state = LoopState()
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, src.batch_at(i), i)
+        state.losses.append(float(met["loss"]))
+        state.grad_norms.append(float(met["grad_norm"]))
+        torch.cuda.synchronize()
+        state.step_s.append(time.perf_counter() - t0)
+        state.step += 1
+    return state, params, opt
 
 
 def _leaves(tree):
@@ -4181,7 +4447,12 @@ def main() -> int:
     train_check = train_check_phase(torch, tcfg, tparams)
     lap("train")
     del tparams
+    gc.collect()
     torch.cuda.empty_cache()
+    train_xlstm = train_recurrent_phase(torch, dev, XLSTM)
+    lap("train_xlstm")
+    train_jamba = train_recurrent_phase(torch, dev, JAMBA)
+    lap("train_jamba")
 
     # each kernel's row: its time at the main paths' heaviest shape (K5:
     # the chunked-prefill tick's), its launches summed over the paths'
@@ -4234,7 +4505,9 @@ def main() -> int:
                                       ("whisper", whisper["graph"]),
                                       ("llava", llava["graph"]),
                                       ("integer_units", ints),
-                                      ("apps", apps), ("train", train))}
+                                      ("apps", apps), ("train", train),
+                                      ("train_xlstm", train_xlstm),
+                                      ("train_jamba", train_jamba))}
         row = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -4253,7 +4526,8 @@ def main() -> int:
               "starcoder2": sc2, "moe": moe, "jamba": jamba,
               "xlstm": xlstm, "whisper": whisper, "llava": llava,
               "integer_units": ints, "apps": apps, "train": train,
-              "train_2layer": train_check, "kernels": kernels,
+              "train_2layer": train_check, "train_xlstm": train_xlstm,
+              "train_jamba": train_jamba, "kernels": kernels,
               "phase_seconds": laps,
               "seconds": time.perf_counter() - t_start}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

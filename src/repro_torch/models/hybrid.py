@@ -17,6 +17,8 @@ epilogues), and the Mamba slots are not.
 """
 from __future__ import annotations
 
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mamba as mb
 from repro_torch.models.layers import (apply_norm, attention,
@@ -70,10 +72,31 @@ def _slot_apply(x, slot, s: int, cfg: ModelConfig, positions):
     return x + mlp(h2, slot["ffn"], cfg), state
 
 
-def superblock_apply(x, p, cfg: ModelConfig, positions):
-    """Full-sequence superblock (forward). x: [B, S, D] -> x."""
+def _slot_out(x, slot, s: int, cfg: ModelConfig, positions):
+    return _slot_apply(x, slot, s, cfg, positions)[0]
+
+
+def superblock_apply(x, p, cfg: ModelConfig, positions, remat: str):
+    """Full-sequence superblock (forward). x: [B, S, D] -> x.
+
+    Under ``remat`` "block" or "full" each slot runs under its own
+    checkpoint (full recompute, the reference's per-slot
+    ``nothing_saveable``), nested in the model's checkpoint of the whole
+    superblock: the backward then recomputes one slot at a time, so the
+    live set of a recompute is one slot's intermediates, not all
+    ``attn_every`` slots'.  At "block" a slot's products then run three
+    times a step (the forward, the superblock's recompute, the slot's
+    own), the last slot's twice (the superblock's recompute stops at
+    its input); at "full" the superblock's recompute replays the
+    ``qmatmul`` outputs from its tape, so each runs twice (an expert
+    product, which has a batch dim, is recomputed, as the reference's
+    ``dots_with_no_batch_dims_saveable`` has it)."""
     for s in range(cfg.attn_every):
-        x, _ = _slot_apply(x, p[f"slot{s}"], s, cfg, positions)
+        if remat == "none":
+            x = _slot_out(x, p[f"slot{s}"], s, cfg, positions)
+        else:
+            x = checkpoint(_slot_out, x, p[f"slot{s}"], s, cfg, positions,
+                           use_reentrant=False)
     return x
 
 

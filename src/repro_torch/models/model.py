@@ -225,9 +225,7 @@ class Model:
         twice (the reference's ``dots_with_no_batch_dims_saveable``: the
         attention einsums, which carry batch dims, are recomputed).
         """
-        remat = self.cfg.remat if remat is None else remat
-        if remat not in ("none", "block", "full"):
-            raise ValueError(f"remat must be none | block | full, got {remat!r}")
+        remat = self._remat(remat)
         for lp in blocks:
             if remat == "none":
                 x = body(x, lp)
@@ -240,6 +238,14 @@ class Model:
                     matmul_tape(tape, replay=True))
             x = checkpoint(body, x, lp, use_reentrant=False, **kw)
         return x
+
+    def _remat(self, remat=None) -> str:
+        """``remat``, or ``cfg.remat`` where it is None, checked."""
+        remat = self.cfg.remat if remat is None else remat
+        if remat not in ("none", "block", "full"):
+            raise ValueError(
+                f"remat must be none | block | full, got {remat!r}")
+        return remat
 
     def _encode(self, params, enc_embeds, remat=None):
         """The encdec family's encoder over precomputed frame embeddings
@@ -289,14 +295,23 @@ class Model:
         (an encdec batch also carries ``enc_embeds``; a vlm batch carries
         ``patches``, whose positions come first: S counts them)."""
         cfg = self.cfg
+        remat = self._remat(remat)
         x = self._embed_batch(params, batch)
         pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-        body = {"hybrid": _superblock_body,
-                "ssm": _xlstm_body}.get(cfg.family, _block_body)
+        kw = self._cross(params, batch, remat)
+        stack_remat = remat
+        if cfg.family == "hybrid":  # each slot checkpointed in its block
+            body = partial(_superblock_body, remat=remat)
+        elif cfg.family == "ssm":
+            # a layer recomputes everything at any remat but "none" (the
+            # reference's ``nothing_saveable`` on each ssm layer): no tape
+            body = _xlstm_body
+            stack_remat = "none" if remat == "none" else "block"
+        else:
+            body = _block_body
         x = self._run_stack(params["blocks"],
-                            partial(body, cfg=cfg, pos=pos,
-                                    **self._cross(params, batch, remat)),
-                            x, remat)
+                            partial(body, cfg=cfg, pos=pos, **kw),
+                            x, stack_remat)
         x = apply_norm(x, params["final_norm"], cfg)
         return self._logits(params, x)
 
@@ -449,9 +464,9 @@ def _block_body(x, lp, *, cfg: ModelConfig, pos, **kw):
     return block_apply(x, lp, cfg, pos, **kw)[0]
 
 
-def _superblock_body(x, lp, *, cfg: ModelConfig, pos):
+def _superblock_body(x, lp, *, cfg: ModelConfig, pos, remat: str):
     """One hybrid superblock of the full-sequence forward."""
-    return hy.superblock_apply(x, lp, cfg, pos)
+    return hy.superblock_apply(x, lp, cfg, pos, remat)
 
 
 def _xlstm_body(x, lp, *, cfg: ModelConfig, pos):

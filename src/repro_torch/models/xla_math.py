@@ -18,7 +18,42 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.float_approx import _unbroadcast
+
 __all__ = ["fma", "silu", "softplus", "log_sigmoid"]
+
+
+def _fma_bits(a, b, c):
+    """The forward of :func:`fma`: ``a * b + c`` rounded once."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)  # the exact sum is s + err (TwoSum)
+    inexact = (err != 0) & ((s.view(torch.int64) & 1) == 0) & s.isfinite()
+    toward = torch.where(err > 0, torch.inf, -torch.inf).double()
+    return torch.where(inexact, torch.nextafter(s, toward), s).float()
+
+
+class _Fma(torch.autograd.Function):
+    """:func:`fma` with the gradient of the reference's f32 ``a * b + c``:
+    ``(g * b, g * a, g)``, each an f32 product summed down to its input's
+    shape.  Only ``a`` and ``b`` are saved (often views the caller keeps
+    anyway); the forward's f64 temporaries are freed at once."""
+
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.save_for_backward(a, b)
+        ctx.c_shape = c.shape
+        return _fma_bits(a, b, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        need_a, need_b, need_c = ctx.needs_input_grad
+        return (_unbroadcast(g * b, a.shape) if need_a else None,
+                _unbroadcast(g * a, b.shape) if need_b else None,
+                _unbroadcast(g, ctx.c_shape) if need_c else None)
 
 
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -29,15 +64,11 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     to odd (an inexact sum with an even last bit moves one step toward the
     exact value), and the cast to f32 then gives the correctly rounded
     result.  The same f64 ops on the CPU and on the card: the same bits.
+    The backward is the reference's: XLA differentiates ``a * b + c``
+    before it contracts it, so the gradient is ``(g * b, g * a, g)`` in
+    f32 (:class:`_Fma`).
     """
-    p = a.double() * b.double()
-    cd = c.double()
-    s = p + cd
-    bb = s - p
-    err = (p - (s - bb)) + (cd - bb)  # the exact sum is s + err (TwoSum)
-    inexact = (err != 0) & ((s.view(torch.int64) & 1) == 0) & s.isfinite()
-    toward = torch.where(err > 0, torch.inf, -torch.inf).double()
-    return torch.where(inexact, torch.nextafter(s, toward), s).float()
+    return _Fma.apply(a, b, c)
 
 
 def silu(x):

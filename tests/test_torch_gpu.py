@@ -1403,6 +1403,115 @@ def test_cuda_loss_backward_through_kernels_equals_plain(cuda):
 
 
 # --------------------------------------------------------------------------
+# training the recurrent families (xlstm, jamba): fma's backward, a train
+# step kernels vs plain, remat
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_cuda_train_recurrent_fma_backward_equals_cpu_bits(cuda):
+    """``xla_math.fma`` forward and backward on the card: the CPU's bits
+    on the special-value sample (elementwise: each gradient one IEEE f32
+    product, the forward the f64 round-to-odd sum), and within rtol 1e-6
+    where the operands broadcast (the gradients' sums over the broadcast
+    dims run in the card's order)."""
+    from repro_torch.models.xla_math import fma
+
+    rng = np.random.default_rng(7)
+    cases = [tuple(special_sample(rng, 1 << 14) for _ in range(4)),
+             (randn(rng, 64, 1), randn(rng, 64, 48), randn(rng, 48),
+              randn(rng, 64, 48))]
+    for i, (a, b, c, g) in enumerate(cases):
+        runs = []
+        for dev in ("cpu", cuda):
+            ts = [T(v.copy()).to(dev).requires_grad_(True) for v in (a, b, c)]
+            out = fma(*ts)
+            grads = torch.autograd.grad(out, ts, T(g.copy()).to(dev))
+            runs.append([t.detach().cpu().numpy() for t in (out, *grads)])
+        for got, want in zip(runs[1], runs[0]):
+            if i == 0:
+                assert_same_bits(got, want)
+            else:
+                np.testing.assert_allclose(got, want, rtol=1e-6,
+                                           atol=1e-6 * np.abs(want).max())
+
+
+def _recurrent_cfg(kind):
+    from repro_torch.configs.base import RAPID, get_config
+    if kind == "xlstm":  # mLSTM, sLSTM, mLSTM
+        return get_config("xlstm_350m").reduced().with_(
+            n_layers=3, slstm_at=(1,), approx=RAPID)
+    return get_config("jamba_1_5_large_398b").reduced().with_(
+        n_experts=0, approx=RAPID)
+
+
+def _recurrent_grads(cuda, kind, remat, plain=False):
+    """Loss, gradients and launch counts of one train step's
+    ``loss_and_grads`` of a reduced RAPID model (4 x 32 tokens, bf16
+    compute) on the card."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import (launch_counts, plain_versions,
+                                     reset_launch_counts)
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainstep import make_train_step
+
+    cfg = _recurrent_cfg(kind).with_(remat=remat)
+    model = Model(cfg)
+    params = model.init(0, cuda)
+    step = make_train_step(model, OptConfig(name=cfg.optimizer))[1]
+    batch = SyntheticLM(cfg.vocab_size, 32, 4, seed=2).batch_at(0)
+    reset_launch_counts()
+    if plain:
+        with plain_versions():
+            loss, grads = step.loss_and_grads(params, batch)
+    else:
+        loss, grads = step.loss_and_grads(params, batch)
+    torch.cuda.synchronize()
+    return float(loss), grads, launch_counts()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["xlstm", "jamba"])
+def test_cuda_train_recurrent_step_kernels_equal_plain(cuda, kind):
+    """One train step's loss and gradients of reduced xlstm (K1, the rms
+    divide, K5 in the mLSTM normaliser, K6 in the sLSTM one) and reduced
+    dense-slot jamba (K1, the rms divide, K3 in the attention slot)
+    through the kernels and through the plain versions on the card.
+    Bound: the kernels are bit-equal to their plain versions and the
+    backward is the same torch ops, so the loss agrees within rel 1e-5
+    and each gradient within 1e-5 x its largest magnitude.  Remat off:
+    it moves no bits (the next test) and would run the plain K1 again."""
+    lk, gk, ck = _recurrent_grads(cuda, kind, "none")
+    lp, gp, cp = _recurrent_grads(cuda, kind, "none", plain=True)
+    must = {"xlstm": ("log_matmul", "rms_div", "div_rowbcast", "div"),
+            "jamba": ("log_matmul", "rms_div", "softmax_div")}[kind]
+    assert all(ck[k] > 0 for k in must), ck
+    assert not any(cp.values()), cp
+    assert np.isfinite(lk) and abs(lk - lp) <= 1e-5 * abs(lp)
+    for a, b in zip(gk, gp):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["xlstm", "jamba"])
+def test_cuda_train_recurrent_block_remat_equals_none(cuda, kind):
+    """Block remat (xlstm: each layer recomputed; jamba: each slot
+    checkpointed inside the superblock's checkpoint) recomputes the same
+    bits as no remat on the card, kernels included, and relaunches K1:
+    twice as many launches for xlstm, more than twice for jamba."""
+    ln, gn, cn = _recurrent_grads(cuda, kind, "none")
+    lb, gb, cb = _recurrent_grads(cuda, kind, "block")
+    assert lb == ln
+    for a, b in zip(gb, gn):
+        assert torch.equal(a, b)
+    if kind == "xlstm":
+        assert cb["log_matmul"] == 2 * cn["log_matmul"]
+    else:
+        assert cb["log_matmul"] > 2 * cn["log_matmul"]
+
+
+# --------------------------------------------------------------------------
 # K1's gelu epilogue (starcoder2_7b's w1)
 # --------------------------------------------------------------------------
 
